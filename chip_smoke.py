@@ -1,0 +1,371 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tpubench_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing one JSON line; any failure raises and exits nonzero
+before the last line:
+
+1. build — compile the CUDA kernels from ``tpubench_torch/kernels/csrc``
+   with nvcc (timed) and report the card as ``nvidia-smi`` names it;
+2. kernels — each kernel against its plain PyTorch version on the card,
+   bit-exact, at the main path's shapes (landing 58,368×128, checksum
+   58,255×128), one 512-row block, a ragged 777,777 B and an all-0xFF
+   input whose sum wraps 2³²; then each kernel's time (CUDA events over
+   back-to-back launches on buffers that together exceed the L2 cache),
+   its plain version's, one PyTorch call's (``library_ms``) and the bound;
+3. agree — the read workload at a small size on the CPU and on the card,
+   in each staging mode, with equal bytes, transfers and checksum verdicts;
+4. read — the main path: ``tpubench_torch read`` with the fake backend at
+   the reference's deployment size (48 workers × 100 MiB objects, 2 MiB
+   granules, depth 3, 1024 MiB host budget, one read per worker) in its
+   three staging modes: device_put+validate (checksum kernel), device_put
+   depth 3 (overlapped copies) and pallas (landing kernel), driven as the
+   CLI's ``read`` drives it (``run_read`` with ``make_sink_factory``), the
+   factory wrapped only to note each stager's CUDA stream: the 48 stagers
+   must run on 48 distinct streams. The kernel launch counters are zeroed
+   just before each mode and read just after; each must equal the mode's
+   transfers.
+
+Then the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
+line, and last ``{"ok": true, "device": {...}}``. Without CUDA, or without
+the rest of the repository beside it, the script fails at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+
+MIB = 1 << 20
+MOD = 1 << 32
+# Peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bandwidth and the
+# int8 rate, the fastest the card does any byte-wide integer operation.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+L2_BYTES = 50 * MIB
+# The reference's deployment (main.go --worker, 100 MiB objects, 2 MiB
+# granules); only read_calls_per_worker is cut (1e6 → 1).
+WORKERS, OBJECT_SIZE, GRANULE = 48, 100 * MIB, 2 * MIB
+LAND_ROWS, CHECKSUM_ROWS = 58_368, 58_255  # main-path slot shapes (×128)
+KERNELS = {
+    "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
+                 replaces="tpubench/staging/pallas_stage.py:101",
+                 mode="pallas"),
+    "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
+                     replaces="tpubench/staging/pallas_stage.py:71",
+                     mode="device_put_validate"),
+}
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the kernels' random inputs")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from tpubench_torch.device import nvidia_smi_line
+
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    check(count == 1, f"expected one card, torch sees {count}")
+    phase_build()
+    kernels = phase_kernels(torch, args.seed)
+    phase_agree()
+    launches = phase_read()
+    for k, v in kernels.items():
+        v["launches"] = launches[k]
+    emit({"kernels": [dict(name=k, **v) for k, v in kernels.items()]})
+    print(smi or "nvidia-smi: not available", flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": count}})
+    return 0
+
+
+# -------------------------------------------------------------- phase 1 --
+def phase_build() -> None:
+    from tpubench_torch.device import capability_report
+    from tpubench_torch.kernels import build
+
+    t0 = time.perf_counter()
+    lib = build.load()
+    log = build.library_path().with_suffix(".log")
+    ptxas = [
+        ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
+        if "registers" in ln or "spill" in ln
+    ]
+    check(lib is not None, "kernel library did not load")
+    emit({"phase": "build", "nvcc_s": build.last_build_s,
+          "load_s": time.perf_counter() - t0,
+          "library": str(build.library_path().relative_to(build.BUILD_DIR.parents[1])),
+          "ptxas": ptxas, **capability_report()})
+
+
+# -------------------------------------------------------------- phase 2 --
+def _random_bytes(torch, n: int, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, (n,), dtype=torch.uint8, device="cuda",
+                         generator=g)
+
+
+def _verify(torch, landing, name: str, x, seed: int) -> int:
+    """Kernel vs plain version on ``x``, from a random nonzero starting
+    accumulator; returns the largest absolute difference (must be 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    start = torch.randint(-(2**31), 2**31 - 1, (1,), dtype=torch.int32,
+                          device="cuda", generator=g)
+    err = 0
+    if name == "land":
+        out, acc = landing.land(x, start.clone())
+        ref_out, ref_acc = landing.land_reference(x, start.clone())
+        err = int((out.to(torch.int16) - ref_out.to(torch.int16)).abs().max())
+        check(out.data_ptr() != x.data_ptr(), "land must write a new buffer")
+    else:
+        acc = landing.checksum(x, start.clone())
+        ref_acc = landing.checksum_reference(x, start.clone())
+    torch.cuda.synchronize()
+    a, b = landing.acc_value(acc), landing.acc_value(ref_acc)
+    return max(err, min((a - b) % MOD, (b - a) % MOD))
+
+
+def _time_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn(i)``: the launches are queued behind a
+    sleep kernel so the card runs them back to back, timed by events."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(100_000_000)
+    e1.record()
+    h0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    host_ms = (time.perf_counter() - h0) * 1e3
+    e2.record()
+    e2.synchronize()
+    check(host_ms < e0.elapsed_time(e1),
+          f"host enqueue ({host_ms:.2f} ms) outlasted the queue-ahead sleep")
+    return e1.elapsed_time(e2) / iters
+
+
+def phase_kernels(torch, seed: int) -> dict:
+    from tpubench_torch.kernels import landing
+
+    shapes = {
+        "land": [("main_path", LAND_ROWS * 128), ("block", 512 * 128)],
+        "checksum": [("main_path", CHECKSUM_ROWS * 128), ("block", 512 * 128)],
+    }
+    ragged, wraps = 777_777, 17 * MIB + 13
+    out = {}
+    for name, cases in shapes.items():
+        errs = {}
+        for label, n in cases + [("ragged", ragged)]:
+            x = _random_bytes(torch, n, seed + n)
+            errs[label] = _verify(torch, landing, name, x, seed + n)
+        ff = torch.full((wraps,), 0xFF, dtype=torch.uint8, device="cuda")
+        check(255 * wraps > MOD, "the all-0xFF case must wrap")
+        errs["all_ff_wraps"] = _verify(torch, landing, name, ff, seed)
+        max_err = max(errs.values())
+        check(max_err == 0, f"{name}: kernel disagrees with plain {errs}")
+
+        n = cases[0][1]
+        nbuf = max(2, math.ceil(2 * L2_BYTES / n))
+        xs = [_random_bytes(torch, n, seed + i) for i in range(nbuf)]
+        acc = landing.new_acc("cuda")
+        outs = [torch.empty_like(x) for x in xs]
+        if name == "land":
+            kernel = lambda i: landing.land(xs[i % nbuf], acc)  # noqa: E731
+            plain = lambda i: landing.land_reference(xs[i % nbuf], acc)  # noqa: E731
+
+            def library(i):
+                outs[i % nbuf].copy_(xs[i % nbuf])
+                return xs[i % nbuf].sum(dtype=torch.int64)
+
+            moved = 2 * n
+        else:
+            kernel = lambda i: landing.checksum(xs[i % nbuf], acc)  # noqa: E731
+            plain = lambda i: landing.checksum_reference(xs[i % nbuf], acc)  # noqa: E731
+            library = lambda i: xs[i % nbuf].sum(dtype=torch.int64)  # noqa: E731
+            moved = n
+        times = {
+            "ms": _time_ms(torch, kernel, 200),
+            "plain_ms": _time_ms(torch, plain, 20),
+            "library_ms": _time_ms(torch, library, 100),
+        }
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = n / INT8_OPS_PER_S * 1e3
+        rec = {
+            "route": "cuda", "source": KERNELS[name]["source"],
+            "replaces": KERNELS[name]["replaces"], "launches": None,
+            "max_abs_err": max_err, **times,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        emit({"phase": "kernels", "kernel": name, "bytes": n, "moved": moved,
+              "checks": errs, "timing_buffers": nbuf, "kernel_ms": times["ms"],
+              "bound_us": rec["bound_ms"] * 1e3,
+              "gbps": moved / (times["ms"] / 1e3) / 1e9,
+              "roofline_share": rec["bound_ms"] / times["ms"], **rec})
+        out[name] = rec
+    return out
+
+
+# -------------------------------------------------------------- phase 3 --
+MODES = {
+    "device_put_validate": dict(mode="device_put", validate_checksum=True),
+    "device_put_depth3": dict(mode="device_put", depth=3),
+    "pallas": dict(mode="pallas"),
+}
+
+
+def _config(workers: int, object_size: int, granule: int, mode: str,
+            slot_bytes: int | None = None):
+    from tpubench_torch.config import BenchConfig
+
+    cfg = BenchConfig()
+    cfg.transport.protocol = "fake"
+    cfg.workload.workers = workers
+    cfg.workload.read_calls_per_worker = 1
+    cfg.workload.object_size = object_size
+    cfg.workload.granule_bytes = granule
+    if slot_bytes is not None:
+        cfg.staging.slot_bytes = slot_bytes
+    for k, v in MODES[mode].items():
+        setattr(cfg.staging, k, v)
+    return cfg
+
+
+def phase_agree() -> None:
+    """Small input, CPU plain path vs card kernels, through the CLI's
+    read entry point: the card must give the CPU reference's answers."""
+    from tpubench_torch.cli import read
+
+    for mode in MODES:
+        cfg = _config(2, 777_777, 64 * 1024, mode, slot_bytes=256 * 1024)
+        cfg.workload.read_calls_per_worker = 2
+        ref = read(cfg, device="cpu").extra
+        got = read(cfg, device="cuda").extra
+        for key in ("staged_bytes", "checksum_ok", "staging_zero_copy"):
+            check(ref.get(key) == got.get(key), f"agree/{mode}: {key} "
+                  f"cpu={ref.get(key)} cuda={got.get(key)}")
+        if "staging" in ref:
+            check(ref["staging"]["transfers"] == got["staging"]["transfers"],
+                  f"agree/{mode}: transfers differ")
+        check(got.get("checksum_ok", True), f"agree/{mode}: checksum failed")
+        emit({"phase": "agree", "mode": mode, "staged_bytes": got["staged_bytes"],
+              "checksum_ok": got.get("checksum_ok")})
+
+
+def expected_transfers(object_size: int, granule: int, slot: int) -> int:
+    """Slots one worker ships for one zero-copy read, by the aggregator's
+    rule (a slot ships when full, or when less than a granule is left at
+    the next acquire, or at the final flush) — an independent count to
+    hold the launch counters and the stagers' own counts against."""
+    transfers = fill = 0
+    remaining = object_size
+    while True:
+        if slot - fill < granule and fill > 0:
+            transfers, fill = transfers + 1, 0
+        n = min(granule, slot - fill, remaining)
+        if n <= 0:
+            break
+        remaining -= n
+        fill += n
+        if fill >= slot:
+            transfers, fill = transfers + 1, 0
+    return transfers + (fill > 0)
+
+
+def phase_read() -> dict:
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import budgeted_slot_bytes, make_sink_factory
+    from tpubench_torch.staging.land_stage import BLOCK_ROWS, LANE
+    from tpubench_torch.storage import open_backend
+    from tpubench_torch.workloads.read import run_read
+
+    t0 = time.perf_counter()
+    backend = open_backend(_config(WORKERS, OBJECT_SIZE, GRANULE, "pallas"))
+    emit({"phase": "populate", "objects": WORKERS,
+          "object_size": OBJECT_SIZE, "seconds": time.perf_counter() - t0})
+    launches = {}
+    for mode in MODES:
+        cfg = _config(WORKERS, OBJECT_SIZE, GRANULE, mode)
+        factory = make_sink_factory(cfg, device="cuda")
+        streams = []  # each stager's CUDA stream, as the workers make them
+
+        def kept(worker_id, factory=factory, streams=streams):
+            stager = factory(worker_id)
+            streams.append(stager.stream.cuda_stream)
+            return stager
+
+        landing.reset_launches()
+        res = run_read(cfg, backend=backend, device="cuda", sink_factory=kept)
+        counts = {"land": landing.land.launches,
+                  "checksum": landing.checksum.launches}
+        check(len(streams) == WORKERS and len(set(streams)) == WORKERS,
+              f"{mode}: {len(streams)} stagers on {len(set(streams))} streams")
+        ex = res.extra
+        stats = ex.get("staging") or {}
+        # Slot size as each stager rounds it: whole kernel blocks for the
+        # landing ring, whole lanes for the copy ring.
+        unit = BLOCK_ROWS * LANE if mode == "pallas" else LANE
+        slot = -(-budgeted_slot_bytes(cfg) // unit) * unit
+        transfers = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, slot)
+        if "transfers" in stats:
+            check(stats["transfers"] == transfers,
+                  f"{mode}: {stats['transfers']} transfers, want {transfers}")
+        check(res.errors == 0, f"{mode}: {res.errors} errors")
+        check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+              f"{mode}: staged {ex.get('staged_bytes')}")
+        check(ex.get("staging_zero_copy") is True, f"{mode}: not zero-copy")
+        want = {"land": 0, "checksum": 0}
+        if mode == "pallas":
+            check(ex.get("checksum_ok") is True, "pallas: checksum mismatch")
+            want["land"] = transfers
+        elif mode == "device_put_validate":
+            check(ex.get("checksum_ok") is True, "validate: checksum mismatch")
+            want["checksum"] = transfers
+        check(counts == want, f"{mode}: launches {counts}, want {want}")
+        check(transfers > 0, f"{mode}: no transfers")
+        for k, v in KERNELS.items():
+            if v["mode"] == mode:
+                launches[k] = counts[k]
+        fb = res.summaries.get("first_byte")
+        emit({
+            "phase": "read", "mode": mode, "workers": WORKERS,
+            "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
+            "transfers": transfers, "launches": counts, "streams": len(set(streams)),
+            "checksum_ok": ex.get("checksum_ok"),
+            "wall_s": res.wall_seconds,
+            "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
+            "first_byte_p50_ms": fb.p50_ms if fb else None,
+            "first_byte_p99_ms": fb.p99_ms if fb else None,
+            "staging_efficiency": stats.get("staging_efficiency"),
+            "transfer_wait_s": ex["staging_breakdown"]["transfer_wait_s"],
+            "slot_bytes": slot,
+        })
+    backend.close()
+    return launches
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -191,3 +191,9 @@ def pytest_configure(config):
         "markers", "fleet: virtual-time fleet simulation "
                    "(event loop/calibration/agreement gate)"
     )
+    # Tests of the PyTorch port's CUDA kernels, which have no CPU mode:
+    # they skip without a CUDA device (decided inside a fixture, never at
+    # import) and run on the card with `pytest tests/test_torch_*.py -m cuda`.
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (tpubench_torch kernels)"
+    )

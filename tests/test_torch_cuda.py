@@ -1,0 +1,79 @@
+"""The port's stagers on the card against the same stagers on the CPU
+(the kernels themselves: ``tests/test_torch_kernels.py``).
+
+Every test here needs a CUDA device and skips without one (decided in a
+fixture). The file imports neither jax nor the JAX package, so it runs on
+a machine that has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpubench_torch.config import StagingConfig
+from tpubench_torch.staging.device import DevicePutStager
+from tpubench_torch.staging.land_stage import LandStager
+from tpubench_torch.storage.base import deterministic_bytes
+
+pytestmark = pytest.mark.cuda
+GRANULE = 64 * 1024
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _feed(stager, data: np.ndarray) -> dict:
+    mv = memoryview(data.tobytes())
+    for off in range(0, len(mv), GRANULE):
+        n = min(GRANULE, len(mv) - off)
+        dst = stager.acquire()
+        dst[:n] = mv[off : off + n]
+        stager.commit(n)
+    return stager.finish()
+
+
+@pytest.mark.parametrize("kind, cfg", [
+    ("copy", dict(validate_checksum=True)),
+    ("copy", dict(depth=3)),
+    ("land", dict(depth=3)),
+    ("land", dict(double_buffer=False)),
+], ids=["validate_ring", "depth3_window", "land_ring", "land_depth1"])
+def test_stagers_on_cuda_match_cpu(cuda, kind, cfg):
+    data = deterministic_bytes("torch/cuda", 3_000_001)
+    stats = {}
+    for dev in ("cpu", "cuda"):
+        sc = StagingConfig()
+        for k, v in cfg.items():
+            setattr(sc, k, v)
+        cls = DevicePutStager if kind == "copy" else LandStager
+        stats[dev] = _feed(cls(0, GRANULE, cfg=sc, device=dev,
+                               slot_bytes=256 * 1024), data)
+    cpu, gpu = stats["cpu"], stats["cuda"]
+    for key in ("staged_bytes", "transfers", "slot_bytes", "checksum_ok",
+                "checksum_host", "checksum_device"):
+        assert cpu.get(key) == gpu.get(key), key
+    assert gpu["device"] == "cuda:0"
+    assert gpu["staged_bytes"] == 3_000_001
+    if kind == "copy":
+        assert gpu["native_slots"] is True
+
+
+def test_each_worker_has_its_own_stream(cuda):
+    """More workers than PyTorch's 32 pooled streams per device: each
+    worker's stager gets a stream no other worker's has, and the next
+    stager of a worker takes that worker's stream again."""
+    first = [DevicePutStager(i, GRANULE, device=cuda, slot_bytes=GRANULE)
+             for i in range(40)]
+    again = [LandStager(i, GRANULE, device=cuda, slot_bytes=GRANULE)
+             for i in range(40)]
+    handles = [st.stream.cuda_stream for st in first]
+    assert len(set(handles)) == len(first)
+    assert [st.stream.cuda_stream for st in again] == handles
+    for st in first + again:
+        st.finish()

@@ -1,0 +1,103 @@
+"""The port stands alone: no module of ``tpubench_torch`` loads ``jax`` or
+any module of the JAX package ``tpubench``, and its entry points refuse to
+carry on on the CPU unless asked to."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import tpubench_torch
+from tpubench_torch.config import BenchConfig
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _all_modules() -> list[str]:
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            tpubench_torch.__path__, prefix="tpubench_torch."
+        )
+    )
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, **env},
+    )
+
+
+def test_every_module_imports_without_jax_or_tpubench():
+    mods = _all_modules()
+    assert "tpubench_torch.kernels.landing" in mods and len(mods) >= 20
+    proc = _run(
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = [
+        m for m in loaded
+        if m in ("jax", "tpubench")
+        or m.startswith(("jax.", "jaxlib", "tpubench."))
+    ]
+    assert banned == [], banned
+    assert "torch" in loaded
+
+
+def test_no_source_file_names_the_jax_package_in_an_import():
+    for path in Path(tpubench_torch.__path__[0]).rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert not (mod == "jax" or mod.startswith("jax.")
+                            or mod == "tpubench"
+                            or mod.startswith("tpubench.")), (path, s)
+
+
+def test_run_read_without_cuda_raises(monkeypatch):
+    """Without a GPU and without device='cpu', the entry point raises
+    instead of running on the CPU."""
+    from tpubench_torch.workloads.read import run_read
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BenchConfig()
+    cfg.transport.protocol = "fake"
+    cfg.workload.workers = 1
+    cfg.workload.object_size = 1024
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_read(cfg)
+
+
+def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
+    args = ("from tpubench_torch.cli import main; import sys; sys.exit(main("
+            "['read', '--protocol', 'fake', '--workers', '2', "
+            "'--read-call-per-worker', '1', '--object-size', '300001', "
+            "'--granule-bytes', '65536', '--staging', 'pallas', "
+            f"'--results-dir', {str(tmp_path)!r}")
+    no_gpu = _run(args + "]))", CUDA_VISIBLE_DEVICES="")
+    assert no_gpu.returncode != 0
+    assert "device='cpu'" in no_gpu.stderr
+    assert not list(tmp_path.iterdir())
+    cpu = _run(args + ", '--device', 'cpu']))")
+    assert cpu.returncode == 0, cpu.stderr
+    path = cpu.stdout.strip().splitlines()[-1].removeprefix("result: ")
+    res = json.loads(Path(path).read_text())
+    assert res["extra"]["checksum_ok"] is True
+    assert res["extra"]["staged_bytes"] == 2 * 300_001
+
+
+def test_unported_protocol_raises_not_implemented():
+    from tpubench_torch.workloads.read import run_read
+
+    cfg = BenchConfig()  # protocol http
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+        run_read(cfg, device="cpu")

@@ -1,0 +1,219 @@
+"""The slice as a whole: one config and one dataset through ``tpubench
+read`` (JAX on the CPU) and ``tpubench_torch read`` (PyTorch on the CPU).
+
+Both packages run the same config dict over the same fake-store
+population (carried across by ``tpubench_torch.convert.from_reference``)
+in the three staging modes of the main path, on the zero-copy route and
+the copying route. Bytes, transfers, host and device checksums must be
+equal — exactly; the results must have the same keys.
+
+Not compared for equality, and why:
+* timings (wall, GB/s, latencies) — they measure the run, not its result;
+* ``n_chips``, ``gbps_per_chip``, ``staged_gbps_per_chip`` and ``device`` —
+  the JAX test harness simulates 8 CPU devices, the port on the CPU has 1;
+* ``native_slots`` — the JAX stager uses the native engine's aligned
+  buffers where it builds, the port pins slots only on CUDA;
+* ``extra["flight"]`` — the flight recorder is not ported yet (ROADMAP
+  A.3), so it is the one key the JAX result has beyond the port's.
+"""
+
+import numpy as np
+import pytest
+
+from tpubench.config import BenchConfig as JaxBenchConfig
+from tpubench.staging import device as jax_staging
+from tpubench.storage.fake import FakeBackend as JaxFakeBackend
+from tpubench.workloads.read import run_read as jax_run_read
+
+from tpubench_torch import convert
+from tpubench_torch.config import BenchConfig, refuse_unported
+from tpubench_torch.kernels import landing
+from tpubench_torch.staging.device import make_sink_factory
+from tpubench_torch.storage.base import deterministic_bytes
+from tpubench_torch.workloads.read import run_read
+
+OBJECT_SIZE = 777_777  # not a granule multiple: the short-tail path
+WORKERS = 2
+EXTRA_ONLY_IN_JAX = {"flight"}
+
+MODES = {
+    "device_put_validate": dict(mode="device_put", validate_checksum=True),
+    "device_put_depth2": dict(mode="device_put", depth=2),
+    "pallas": dict(mode="pallas"),
+}
+
+
+@pytest.fixture(autouse=True)
+def _need_devices(jax_cpu_devices):
+    pass
+
+
+def _reference_config(mode: str, zero_copy: bool) -> dict:
+    cfg = JaxBenchConfig()
+    cfg.workload.workers = WORKERS
+    cfg.workload.read_calls_per_worker = 2
+    cfg.workload.object_size = OBJECT_SIZE
+    cfg.workload.granule_bytes = 64 * 1024
+    cfg.transport.protocol = "fake"
+    cfg.staging.slot_bytes = 256 * 1024
+    cfg.staging.zero_copy = zero_copy
+    for k, v in MODES[mode].items():
+        setattr(cfg.staging, k, v)
+    return cfg.to_dict()
+
+
+def _population():
+    prefix = JaxBenchConfig().workload.object_name_prefix
+    return [(f"{prefix}{i}", OBJECT_SIZE, 1) for i in range(WORKERS)]
+
+
+class _Recording:
+    """Sink wrapper keeping each worker's stager stats: the result pools
+    them, and the checksums themselves are compared per worker."""
+
+    def __init__(self, inner, stats: dict, worker_id: int):
+        self._inner, self._stats, self._id = inner, stats, worker_id
+        if hasattr(inner, "acquire"):
+            self.acquire, self.commit = inner.acquire, inner.commit
+
+    def submit(self, mv):
+        self._inner.submit(mv)
+
+    def finish(self):
+        st = self._inner.finish()
+        self._stats[self._id] = st
+        return st
+
+
+def _recording(factory, stats: dict):
+    return lambda i: _Recording(factory(i), stats, i)
+
+
+def _run_both(mode: str, zero_copy: bool):
+    cfg_dict = _reference_config(mode, zero_copy)
+    jcfg = JaxBenchConfig.from_dict(cfg_dict)
+    jstats, tstats = {}, {}
+    jres = jax_run_read(
+        jcfg, backend=JaxFakeBackend.from_population(_population()),
+        sink_factory=_recording(jax_staging.make_sink_factory(jcfg), jstats),
+    ).to_dict()
+    tcfg, tbackend = convert.from_reference(cfg_dict, _population())
+    tres = run_read(
+        tcfg, backend=tbackend, device="cpu",
+        sink_factory=_recording(make_sink_factory(tcfg, device="cpu"), tstats),
+    ).to_dict()
+    return jres, tres, jstats, tstats
+
+
+@pytest.mark.parametrize("zero_copy", [True, False], ids=["zero_copy", "copying"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_read_parity(mode, zero_copy):
+    jres, tres, jstats, tstats = _run_both(mode, zero_copy)
+    total = WORKERS * 2 * OBJECT_SIZE
+    for res in (jres, tres):
+        assert res["errors"] == 0
+        assert res["bytes_total"] == total
+        assert res["extra"]["staged_bytes"] == total
+        assert res["extra"]["staging_zero_copy"] is zero_copy
+    assert set(jres) == set(tres)
+    assert set(jres["extra"]) - EXTRA_ONLY_IN_JAX == set(tres["extra"])
+    assert set(jres["summaries"]) == set(tres["summaries"])
+    assert jres["config"] == tres["config"]
+    je, te = jres["extra"], tres["extra"]
+    assert je.get("checksum_ok") == te.get("checksum_ok")
+    if "staging" in je:
+        for key in ("transfers", "staged_bytes", "depth", "drain", "workers"):
+            assert je["staging"][key] == te["staging"][key], key
+    assert set(je["staging_breakdown"]) == set(te["staging_breakdown"])
+    for name in jres["summaries"]:
+        assert (jres["summaries"][name]["count"]
+                == tres["summaries"][name]["count"]), name
+    assert set(jstats) == set(tstats) == set(range(WORKERS))
+    for i in range(WORKERS):
+        assert set(jstats[i]) == set(tstats[i])
+        for key in ("staged_bytes", "transfers", "slot_bytes", "depth",
+                    "checksum_ok", "checksum_host", "checksum_device"):
+            assert jstats[i].get(key) == tstats[i].get(key), (i, key)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_stager_stats_parity(mode):
+    """Per-worker stager stats (what the result pools): equal transfers,
+    slot size, staged bytes and both checksums, on the same bytes."""
+    cfg_dict = _reference_config(mode, zero_copy=True)
+    jcfg = JaxBenchConfig.from_dict(cfg_dict)
+    tcfg = BenchConfig.from_dict(cfg_dict)
+    data = memoryview(deterministic_bytes("parity/stager", OBJECT_SIZE).tobytes())
+    jst = jax_staging.make_sink_factory(jcfg)(0)
+    tst = make_sink_factory(tcfg, device="cpu")(0)
+    for st in (jst, tst):
+        for off in range(0, OBJECT_SIZE, 64 * 1024):
+            st.submit(data[off : off + 64 * 1024])
+    js, ts = jst.finish(), tst.finish()
+    assert set(js) == set(ts)
+    for key in ("staged_bytes", "transfers", "slot_bytes", "depth",
+                "checksum_ok", "checksum_host", "checksum_device"):
+        assert js.get(key) == ts.get(key), key
+    assert ts["device"] == "cpu"
+
+
+def test_port_runs_no_kernel_on_cpu():
+    """The CPU run goes through the plain versions: no kernel launch."""
+    landing.reset_launches()
+    _run_both("pallas", True)
+    _run_both("device_put_validate", True)
+    assert landing.land.launches == 0
+    assert landing.checksum.launches == 0
+
+
+def test_saved_reference_config_loads_and_round_trips():
+    """A JSON written by ``tpubench --save-config`` loads in the port,
+    including the sections it keeps as raw dicts, and writes back equal."""
+    ref = JaxBenchConfig()
+    ref.workload.workers = 7
+    ref.staging.mode = "pallas"
+    ref.serve.rate_rps = 123.0
+    ref.coop.hosts = 3
+    cfg = BenchConfig.from_json(ref.to_json())
+    assert cfg.workload.workers == 7 and cfg.staging.mode == "pallas"
+    assert cfg.raw["serve"]["rate_rps"] == 123.0 and cfg.raw["coop"]["hosts"] == 3
+    assert cfg.to_dict() == ref.to_dict()
+    assert BenchConfig.from_json(cfg.to_json()).to_dict() == ref.to_dict()
+
+
+def test_ported_defaults_match_reference():
+    ref, port = JaxBenchConfig().to_dict(), BenchConfig().to_dict()
+    for section in ("workload", "transport", "staging", "obs"):
+        assert port[section] == ref[section], section
+
+
+@pytest.mark.parametrize("switch", [
+    ("workload", "fetch_executor", "native"),
+    ("transport", "protocol", "http"),
+    ("obs", "flight_journal", "/tmp/j.json"),
+    ("obs", "enable_tracing", True),
+    ("obs", "export", "cloud"),
+    ("tune", "enabled", True),
+    ("telemetry", "port", 0),
+    ("transport.tail", "hedge", True),
+])
+def test_unported_switch_is_refused(switch):
+    """A reference config that switches on a feature this slice leaves out
+    raises naming the ROADMAP item — never a silent no-op."""
+    section, name, value = switch
+    ref = JaxBenchConfig()
+    ref.transport.protocol = "fake"
+    obj = ref
+    for part in section.split("."):
+        obj = getattr(obj, part)
+    setattr(obj, name, value)
+    cfg = BenchConfig.from_dict(ref.to_dict())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        refuse_unported(cfg)
+
+
+def test_deterministic_bytes_match_reference():
+    from tpubench.storage.base import deterministic_bytes as jax_bytes
+
+    for name, size in (("a", 0), ("tpubench/file_0", 4097), ("x/y", 65_536)):
+        assert np.array_equal(deterministic_bytes(name, size), jax_bytes(name, size))

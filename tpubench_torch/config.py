@@ -1,0 +1,308 @@
+"""Configuration for the PyTorch port — the read path's half of
+:mod:`tpubench.config`, copied field for field at the same defaults.
+
+One config JSON drives both packages: a file written by ``tpubench
+--save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
+unchanged. The sections the port has no code for yet (dist, pipeline,
+tune, telemetry, coop, serve, lifecycle, drill, fleet, …) are kept as the
+raw dicts they were loaded as, so they round-trip without a dataclass.
+
+:func:`refuse_unported` rejects a config that switches on a feature this
+port does not have yet, naming the ``ROADMAP.md`` item that brings it —
+a switched-on feature never silently does nothing.
+
+All sizes are bytes unless the field name says otherwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from dataclasses import dataclass, field
+from typing import Any
+
+MB = 1024 * 1024
+
+
+@dataclass
+class RetryConfig:
+    """Request-retry policy (the reference's gax policy, ``main.go:40-42``)."""
+
+    initial_backoff_s: float = 1.0
+    max_backoff_s: float = 30.0
+    multiplier: float = 2.0
+    policy: str = "always"  # "always" | "idempotent" | "never"
+    max_attempts: int = 0  # 0 = unbounded
+    deadline_s: float = 0.0
+    jitter: bool = True
+
+
+@dataclass
+class FaultConfig:
+    """Fault injection for the fake backend (field-compatible with
+    :class:`tpubench_torch.storage.fake.FaultPlan`). The port's fake
+    backend acts on the open/read faults; the upload fields ride along
+    for the config round-trip."""
+
+    error_rate: float = 0.0  # P(read-open raises transient 503)
+    read_error_rate: float = 0.0  # P(granule read raises mid-stream)
+    latency_s: float = 0.0  # added first-byte latency per open
+    per_read_latency_s: float = 0.0  # added latency per granule read
+    seed: int = 0
+    stall_after_bytes: int = 0
+    stall_s: float = 0.0
+    stall_rate: float = 1.0
+    drip_bps: float = 0.0
+    truncate_after_bytes: int = 0
+    reset_after_bytes: int = 0
+    upload_error_rate: float = 0.0
+    upload_stall_s: float = 0.0
+    upload_stall_rate: float = 1.0
+    upload_reset_after_bytes: int = 0
+    phases: list = field(default_factory=list)
+
+    @property
+    def active(self) -> bool:
+        return bool(
+            self.error_rate
+            or self.read_error_rate
+            or self.latency_s
+            or self.per_read_latency_s
+            or self.stall_s
+            or self.drip_bps
+            or self.truncate_after_bytes
+            or self.reset_after_bytes
+            or self.upload_error_rate
+            or self.upload_stall_s
+            or self.upload_reset_after_bytes
+            or self.phases
+        )
+
+
+@dataclass
+class TailConfig:
+    """Tail tolerance (hedged reads, stall watchdog, circuit breaker)."""
+
+    hedge: bool = False
+    hedge_delay_s: float = 0.05
+    hedge_from_p99: bool = False
+    hedge_p99_scale: float = 1.5
+    watchdog: bool = False
+    stall_window_s: float = 1.0
+    stall_floor_bps: float = 1024.0
+    breaker: bool = False
+    breaker_failures: int = 5
+    breaker_reset_s: float = 5.0
+    breaker_probes: int = 1
+
+    @property
+    def active(self) -> bool:
+        return self.hedge or self.watchdog or self.breaker
+
+
+@dataclass
+class TransportConfig:
+    """L1 client construction knobs (reference ``main.go:30-42,62-117``)."""
+
+    protocol: str = "http"  # "http" | "grpc" | "local" | "fake"
+    max_conns_per_host: int = 100
+    max_idle_conns_per_host: int = 100
+    http2: bool = False
+    native_receive: bool = False
+    tls_ca_file: str = ""
+    tls_insecure_skip_verify: bool = False
+    user_agent: str = "tpubench"
+    grpc_conn_pool_size: int = 1
+    directpath: bool = True
+    key_file: str = ""
+    endpoint: str = ""
+    retry: RetryConfig = field(default_factory=RetryConfig)
+    fault: FaultConfig = field(default_factory=FaultConfig)
+    tail: TailConfig = field(default_factory=TailConfig)
+
+
+@dataclass
+class WorkloadConfig:
+    """Driver knobs: the union of every benchmark binary's flag surface."""
+
+    workers: int = 48  # --worker, main.go:36
+    read_calls_per_worker: int = 1000  # --read-call-per-worker (ref: 1e6)
+    bucket: str = ""
+    project: str = ""
+    object_name_prefix: str = "tpubench/file_"  # main.go:50-53
+    granule_bytes: int = 2 * MB  # main.go:123-125
+    dir: str = ""
+    threads: int = 4
+    read_count: int = 1
+    block_size_kb: int = 1024
+    file_size_mb: int = 64
+    write_count: int = 1
+    fsync_every_block: bool = True
+    open_files: int = 64
+    hold_seconds: float = 0.0
+    read_type: str = "seq"
+    seed: int = 0
+    mount_cmd: str = ""
+    unmount_cmd: str = ""
+    list_rounds: int = 5
+    object_size: int = 100 * MB  # main.go:52
+    abort_on_error: bool = True  # errgroup semantics, main.go:200-219
+    fetch_executor: str = "python"  # "python" | "native*"
+
+
+@dataclass
+class StagingConfig:
+    """Storage→device staging (no reference analog)."""
+
+    mode: str = "device_put"  # "none" | "device_put" | "pallas"
+    double_buffer: bool = True
+    depth: int = 3  # in-flight window when double_buffer
+    slot_bytes: int = 16 * MB  # granule-aggregation target
+    host_budget_mb: int = 1024  # all workers' slots together
+    # Page-locked slots on CUDA (the counterpart of the native
+    # posix_memalign slots); plain tensors on the CPU.
+    native_slots: bool = True
+    zero_copy: bool = True  # fetch directly into the slot
+    drain: str = "inline"  # deprecated, kept so old JSONs load
+    lane: int = 128
+    validate_checksum: bool = False
+
+
+@dataclass
+class ObservabilityConfig:
+    """Metrics/tracing knobs (``metrics_exporter.go``, ``trace_exporter.go``)."""
+
+    enable_tracing: bool = False
+    trace_sample_rate: float = 1.0
+    trace_exporter: str = ""
+    metrics_interval_s: float = 30.0
+    metric_prefix: str = "custom.googleapis.com/tpubench/"
+    export: str = "json"  # "none" | "json" | "cloud"
+    export_dry_run: bool = True
+    results_bucket: str = ""
+    results_dir: str = "results"
+    profile_dir: str = ""
+    profile_steps: str = ""
+    flight_records: int = 1024
+    flight_journal: str = ""
+    journal_max_bytes: int = 0
+
+
+# The sections the port has dataclasses for; every other section of a
+# loaded config is kept as the raw dict it was.
+PORTED_SECTIONS = ("workload", "transport", "staging", "obs")
+
+
+@dataclass
+class BenchConfig:
+    workload: WorkloadConfig = field(default_factory=WorkloadConfig)
+    transport: TransportConfig = field(default_factory=TransportConfig)
+    staging: StagingConfig = field(default_factory=StagingConfig)
+    obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
+    raw: dict[str, dict] = field(default_factory=dict)
+
+    def to_dict(self) -> dict[str, Any]:
+        d = {
+            name: dataclasses.asdict(getattr(self, name))
+            for name in PORTED_SECTIONS
+        }
+        d.update(json.loads(json.dumps(self.raw)))
+        return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "BenchConfig":
+        def build(tp, val):
+            if not dataclasses.is_dataclass(tp) or not isinstance(val, dict):
+                return val
+            kwargs = {}
+            for f in dataclasses.fields(tp):
+                if f.name in val:
+                    sub = _SUBTYPES.get(f.name)
+                    kwargs[f.name] = build(sub, val[f.name]) if sub else val[f.name]
+            return tp(**kwargs)
+
+        cfg = build(cls, {k: d[k] for k in PORTED_SECTIONS if k in d})
+        cfg.raw = {
+            k: json.loads(json.dumps(v)) for k, v in d.items()
+            if k not in PORTED_SECTIONS
+        }
+        return cfg
+
+    @classmethod
+    def from_json(cls, s: str) -> "BenchConfig":
+        return cls.from_dict(json.loads(s))
+
+
+_SUBTYPES = {
+    "workload": WorkloadConfig,
+    "transport": TransportConfig,
+    "staging": StagingConfig,
+    "obs": ObservabilityConfig,
+    "retry": RetryConfig,
+    "fault": FaultConfig,
+    "tail": TailConfig,
+}
+
+STAGING_MODES = ("none", "device_put", "pallas")
+
+
+def refuse_unported(cfg: BenchConfig) -> None:
+    """Raise ``NotImplementedError`` (naming the ``ROADMAP.md`` item) for
+    every read-path feature the config switches on that this port does
+    not have yet, and ``ValueError`` for an unknown staging mode."""
+    w, t, s, o = cfg.workload, cfg.transport, cfg.staging, cfg.obs
+    raw = cfg.raw
+    refused = []
+    if w.fetch_executor != "python":
+        refused.append(
+            f"fetch_executor={w.fetch_executor!r} (ROADMAP A.1: native "
+            "executor route)"
+        )
+    if t.protocol != "fake":
+        refused.append(
+            f"protocol={t.protocol!r} (ROADMAP A.2: http/grpc/local backends)"
+        )
+    if t.tail.active:
+        refused.append("transport.tail (ROADMAP A.2: tail tolerance)")
+    if t.fault.active and t.retry.policy != "never":
+        refused.append(
+            "fault injection under a retry policy (ROADMAP A.2: retry); "
+            "set transport.retry.policy='never' to run faults unretried"
+        )
+    if o.flight_journal:
+        refused.append("obs.flight_journal (ROADMAP A.3: obs plane)")
+    if o.enable_tracing:
+        refused.append("obs.enable_tracing (ROADMAP A.3: obs plane)")
+    if o.export == "cloud":
+        refused.append("obs.export='cloud' (ROADMAP A.3: obs plane)")
+    if o.results_bucket:
+        refused.append("obs.results_bucket (ROADMAP A.2: object-store backends)")
+    if o.profile_dir:
+        refused.append("obs.profile_dir (ROADMAP A.6: profiling)")
+    tel = raw.get("telemetry", {})
+    if tel.get("enabled") or tel.get("port", -1) >= 0 or tel.get("otlp"):
+        refused.append("telemetry (ROADMAP A.3: obs plane)")
+    if raw.get("tune", {}).get("enabled"):
+        refused.append("tune (ROADMAP A.3: tune)")
+    if raw.get("dist", {}).get("num_processes", 1) > 1:
+        refused.append("dist.num_processes > 1 (ROADMAP A.4: dist + NCCL)")
+    if refused:
+        raise NotImplementedError(
+            "not ported to tpubench_torch yet: " + "; ".join(refused)
+        )
+    if s.mode not in STAGING_MODES:
+        raise ValueError(
+            f"unknown staging mode {s.mode!r} ({'|'.join(STAGING_MODES)})"
+        )
+    if raw.get("coop", {}).get("enabled"):
+        # tpubench's own policy for --coop on the read workload: say so
+        # rather than run the plain read quietly.
+        print(
+            "read: --coop has no effect on this workload (the cooperative "
+            "cache rides the train-ingest pipeline miss path)",
+            file=sys.stderr,
+        )

@@ -1,0 +1,24 @@
+"""Carry a reference run's state across to the port.
+
+For this system the state is not parameters but a config and a dataset:
+:func:`from_reference` takes ``tpubench``'s ``BenchConfig.to_dict()`` and a
+fake-store population of ``(name, size, generation)`` triples, and returns
+the port's config and a :class:`FakeBackend` holding identical bytes (the
+bytes are a function of name and size, :func:`deterministic_bytes`).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+from tpubench_torch.config import BenchConfig
+from tpubench_torch.storage import fault_plan
+from tpubench_torch.storage.fake import FakeBackend
+
+
+def from_reference(cfg_dict: dict, population: Iterable):
+    """``(BenchConfig, FakeBackend)`` from a reference config dict and a
+    fake-store population; the backend carries the config's fault plan."""
+    cfg = BenchConfig.from_dict(cfg_dict)
+    backend = FakeBackend.from_population(population, fault=fault_plan(cfg))
+    return cfg, backend
