@@ -10,10 +10,15 @@ before the last line:
    with nvcc (timed) and report the card as ``nvidia-smi`` names it;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bit-exact, at the main path's shapes (landing 58,368×128, checksum
-   58,255×128), one 512-row block, a ragged 777,777 B and an all-0xFF
-   input whose sum wraps 2³²; then each kernel's time (CUDA events over
-   back-to-back launches on buffers that together exceed the L2 cache),
-   its plain version's, one PyTorch call's (``library_ms``) and the bound;
+   58,255×128), one 512-row block, a ragged 777,777 B, the edges of the
+   checksum kernel's split over this card's SMs (``checksum_plan``) and an
+   all-0xFF input whose sum wraps 2³²; then each kernel's time (CUDA
+   events over back-to-back launches on buffers that together exceed the
+   L2 cache), its plain version's, the faster of two one-call PyTorch
+   yardsticks (``library_ms``: the byte sum as ``x.sum`` in int64 or in
+   int32, whose wraparound is mod 2³²; landing adds ``out.copy_(x)``) and
+   the bound; last a size sweep of both kernels (64 KiB to 256 MiB) with
+   the fit ``t(n) = t0 + n / B``;
 3. agree — the read workload at a small size on the CPU and on the card,
    in each staging mode, with equal bytes, transfers and checksum verdicts;
 4. read — the main path: ``tpubench_torch read`` with the fake backend at
@@ -51,6 +56,7 @@ L2_BYTES = 50 * MIB
 # granules); only read_calls_per_worker is cut (1e6 → 1).
 WORKERS, OBJECT_SIZE, GRANULE = 48, 100 * MIB, 2 * MIB
 LAND_ROWS, CHECKSUM_ROWS = 58_368, 58_255  # main-path slot shapes (×128)
+SWEEP = (64 * 1024, MIB, CHECKSUM_ROWS * 128, 64 * MIB, 256 * MIB)
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
@@ -146,6 +152,41 @@ def _verify(torch, landing, name: str, x, seed: int) -> int:
     return max(err, min((a - b) % MOD, (b - a) % MOD))
 
 
+def checksum_edges(plan, sms: int) -> dict:
+    """Sizes at the edges of ``plan`` (``checksum_plan``) on ``sms`` SMs:
+    the main-path split's end ± 1, one main-path chunk + 15, a second
+    block of 15 bytes, a full grid whose last block holds 15 bytes, and
+    15 bytes alone (under one vector)."""
+    blocks, chunk = plan(CHECKSUM_ROWS * 128, sms)  # the main path fills the grid
+    small = plan(1, sms)[1]
+    last15 = None
+    for c in range(chunk, 0, -128):
+        if plan((blocks - 1) * c + 15, sms) == (blocks, c):
+            last15 = (blocks - 1) * c + 15
+            break
+    return {"edge_minus_1": blocks * chunk - 1, "edge_plus_1": blocks * chunk + 1,
+            "chunk_plus_15": chunk + 15, "second_block_15": small + 15,
+            "last_block_15": last15, "under_one_vector": 15}
+
+
+def timing_buffers(torch, n: int, seed: int) -> list:
+    """Inputs of ``n`` bytes that together exceed twice the L2 cache, so
+    each launch of a rotation reads its input from HBM."""
+    nbuf = max(2, math.ceil(2 * L2_BYTES / n))
+    return [_random_bytes(torch, n, seed + i) for i in range(nbuf)]
+
+
+def fit_line(ms_by_size: dict) -> dict:
+    """``t(n) = t0 + n / B`` by least squares on the relative error (each
+    size weighs the same): ``t0`` in µs, ``B`` in TB/s."""
+    w = [(n, t, 1 / t**2) for n, t in ms_by_size.items()]
+    s0, sx, sy = (sum(c for *_, c in w), sum(n * c for n, _, c in w),
+                  sum(t * c for _, t, c in w))
+    sxx, sxy = sum(n * n * c for n, _, c in w), sum(n * t * c for n, t, c in w)
+    slope = (s0 * sxy - sx * sy) / (s0 * sxx - sx * sx)
+    return {"t0_us": (sy - slope * sx) / s0 * 1e3, "tbps": 1e-9 / slope}
+
+
 def _time_ms(torch, fn, iters: int) -> float:
     """Device time per call of ``fn(i)``: the launches are queued behind a
     sleep kernel so the card runs them back to back, timed by events."""
@@ -175,10 +216,11 @@ def phase_kernels(torch, seed: int) -> dict:
         "checksum": [("main_path", CHECKSUM_ROWS * 128), ("block", 512 * 128)],
     }
     ragged, wraps = 777_777, 17 * MIB + 13
+    edges = checksum_edges(landing.checksum_plan, landing.sm_count(torch.device("cuda")))
     out = {}
     for name, cases in shapes.items():
         errs = {}
-        for label, n in cases + [("ragged", ragged)]:
+        for label, n in cases + [("ragged", ragged), *edges.items()]:
             x = _random_bytes(torch, n, seed + n)
             errs[label] = _verify(torch, landing, name, x, seed + n)
         ff = torch.full((wraps,), 0xFF, dtype=torch.uint8, device="cuda")
@@ -187,46 +229,87 @@ def phase_kernels(torch, seed: int) -> dict:
         max_err = max(errs.values())
         check(max_err == 0, f"{name}: kernel disagrees with plain {errs}")
 
+        # The int32 sum must give the kernel's bits to count as a yardstick.
+        x = _random_bytes(torch, cases[0][1], seed)
+        check(int(x.sum(dtype=torch.int32)) % MOD
+              == landing.acc_value(landing.checksum_reference(x)),
+              "x.sum(dtype=int32) is not the mod-2^32 byte sum")
+
         n = cases[0][1]
-        nbuf = max(2, math.ceil(2 * L2_BYTES / n))
-        xs = [_random_bytes(torch, n, seed + i) for i in range(nbuf)]
+        xs = timing_buffers(torch, n, seed)
+        nbuf = len(xs)
         acc = landing.new_acc("cuda")
         outs = [torch.empty_like(x) for x in xs]
-        if name == "land":
-            kernel = lambda i: landing.land(xs[i % nbuf], acc)  # noqa: E731
-            plain = lambda i: landing.land_reference(xs[i % nbuf], acc)  # noqa: E731
+        kernel, plain = _launchers(torch, landing, name, xs, acc)
+        moved = 2 * n if name == "land" else n
+        libs = {}
+        for dtype in (torch.int64, torch.int32):
+            def library(i, dtype=dtype):
+                if name == "land":
+                    outs[i % nbuf].copy_(xs[i % nbuf])
+                return xs[i % nbuf].sum(dtype=dtype)
 
-            def library(i):
-                outs[i % nbuf].copy_(xs[i % nbuf])
-                return xs[i % nbuf].sum(dtype=torch.int64)
-
-            moved = 2 * n
-        else:
-            kernel = lambda i: landing.checksum(xs[i % nbuf], acc)  # noqa: E731
-            plain = lambda i: landing.checksum_reference(xs[i % nbuf], acc)  # noqa: E731
-            library = lambda i: xs[i % nbuf].sum(dtype=torch.int64)  # noqa: E731
-            moved = n
+            call = f"x.sum(dtype={dtype})"
+            libs["out.copy_(x) + " + call if name == "land" else call] = _time_ms(
+                torch, library, 100)
+        library_call = min(libs, key=libs.get)
         times = {
             "ms": _time_ms(torch, kernel, 200),
             "plain_ms": _time_ms(torch, plain, 20),
-            "library_ms": _time_ms(torch, library, 100),
+            "library_ms": libs[library_call],
         }
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = n / INT8_OPS_PER_S * 1e3
         rec = {
             "route": "cuda", "source": KERNELS[name]["source"],
             "replaces": KERNELS[name]["replaces"], "launches": None,
-            "max_abs_err": max_err, **times,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max_err, **times, "library_call": library_call,
+            **_bound(moved, n),
         }
+        rec["roofline_share"] = rec["bound_ms"] / times["ms"]
         emit({"phase": "kernels", "kernel": name, "bytes": n, "moved": moved,
               "checks": errs, "timing_buffers": nbuf, "kernel_ms": times["ms"],
               "bound_us": rec["bound_ms"] * 1e3,
               "gbps": moved / (times["ms"] / 1e3) / 1e9,
-              "roofline_share": rec["bound_ms"] / times["ms"], **rec})
+              "library_calls_ms": libs, **rec})
         out[name] = rec
+    emit({"phase": "kernels", "sweep": sweep(torch, landing, seed)})
     return out
+
+
+def _bound(moved: int, n: int) -> dict:
+    """The least time for the work: bytes at the HBM rate or byte adds at
+    the int8 rate, whichever is longer."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n / INT8_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _launchers(torch, landing, name: str, xs: list, acc):
+    """``(kernel, plain)``: call ``i`` runs on input ``i % len(xs)``."""
+    nbuf = len(xs)
+    if name == "land":
+        return (lambda i: landing.land(xs[i % nbuf], acc),
+                lambda i: landing.land_reference(xs[i % nbuf], acc))
+    return (lambda i: landing.checksum(xs[i % nbuf], acc),
+            lambda i: landing.checksum_reference(xs[i % nbuf], acc))
+
+
+def sweep(torch, landing, seed: int) -> dict:
+    """Each kernel's time at the ``SWEEP`` sizes, timed as above, its share
+    of the bound at each, and the fit ``t0 + n / B``."""
+    res = {name: {"ms": {}, "roofline_share": {}} for name in KERNELS}
+    for n in SWEEP:
+        xs = timing_buffers(torch, n, seed)
+        acc = landing.new_acc("cuda")
+        for name in KERNELS:
+            ms = _time_ms(torch, _launchers(torch, landing, name, xs, acc)[0], 200)
+            moved = 2 * n if name == "land" else n
+            res[name]["ms"][n] = ms
+            res[name]["roofline_share"][n] = _bound(moved, n)["bound_ms"] / ms
+        del xs
+    for rec in res.values():
+        rec["fit"] = fit_line(rec["ms"])
+    return res
 
 
 # -------------------------------------------------------------- phase 3 --

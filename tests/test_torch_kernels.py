@@ -21,6 +21,13 @@ import torch
 from tpubench_torch.kernels import build, landing
 
 MOD = 1 << 32
+MAIN_CHECKSUM = 58_255 * 128  # the validate ring's slot on the main path
+_BLOCKS, _CHUNK = landing.checksum_plan(MAIN_CHECKSUM, 132)
+# Edges of tb_checksum's split on a 132-SM card: the main-path split's end
+# ± 1, one chunk + 15, a second block of 15 bytes, a full grid whose last
+# block holds 15 bytes (under one vector).
+CHECKSUM_EDGES = [_BLOCKS * _CHUNK - 1, _BLOCKS * _CHUNK + 1, _CHUNK + 15,
+                  landing.CHECKSUM_MIN_CHUNK + 15, (_BLOCKS - 1) * _CHUNK + 15]
 
 
 @pytest.fixture
@@ -77,6 +84,70 @@ def test_checksum_reference_matches_accum_checksum_ragged(jax_cpu_devices):
     acc = torch.tensor([start - MOD], dtype=torch.int32)
     got = landing.acc_value(landing.checksum_reference(torch.from_numpy(x), acc))
     assert got == want
+
+
+def _chunks(n: int, sms: int):
+    blocks, chunk = landing.checksum_plan(n, sms)
+    return [(b * chunk, min(n, (b + 1) * chunk)) for b in range(blocks)]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 65_536, 777_777, MAIN_CHECKSUM,
+                               17 * (1 << 20) + 13])
+def test_checksum_plan_covers_every_byte_once(n, sms):
+    """tb_checksum's split: the chunks tile [0, n) end to end with none
+    empty, start on whole 16-byte vectors, and never outnumber the grid."""
+    blocks, chunk = landing.checksum_plan(n, sms)
+    chunks = _chunks(n, sms)
+    assert 1 <= blocks <= max(1, sms * landing.CHECKSUM_BLOCKS_PER_SM)
+    assert chunk % 16 == 0 and blocks * chunk >= n
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(lo < hi for lo, hi in chunks) or n == 0
+    assert all(lo % 16 == 0 for lo, _ in chunks)
+
+
+def test_checksum_edges_are_edges_of_the_plan():
+    assert (_BLOCKS, _CHUNK) == (264, 28_288)  # ~56 KB per SM
+    assert _chunks(CHECKSUM_EDGES[0], 132)[-1][1] % 16 == 15
+    assert landing.checksum_plan(CHECKSUM_EDGES[1], 132)[1] > _CHUNK
+    assert [hi - lo for lo, hi in _chunks(CHECKSUM_EDGES[3], 132)] == [4096, 15]
+    last = _chunks(CHECKSUM_EDGES[4], 132)
+    assert len(last) == 264 and last[-1][1] - last[-1][0] == 15
+
+
+def _emulate_tb_checksum(x: np.ndarray, start: int, sms: int) -> int:
+    """tb_checksum's arithmetic in numpy: each block sums its chunk's whole
+    16-byte vectors (four bytes per __dp4a) and then its scalar tail; the
+    block sums are added onto the accumulator one atomicAdd at a time,
+    mod 2³²."""
+    acc = start
+    for lo, hi in _chunks(x.size, sms):
+        body = (hi - lo) & ~15
+        words = x[lo:lo + body].view(np.uint32).astype(np.uint64)
+        partial = sum(int(((words >> s) & 0xFF).sum()) for s in (0, 8, 16, 24))
+        partial += int(x[lo + body:hi].sum(dtype=np.uint64))
+        acc = (acc + partial % MOD) % MOD
+    return acc
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_checksum_emulation_matches_pallas_and_reference(jax_cpu_devices, sms):
+    import jax
+
+    from tpubench.staging.pallas_stage import pallas_checksum
+
+    rng = np.random.default_rng(sms)
+    start = int(rng.integers(0, MOD))
+    x = _bytes(30 + sms, 2 * 512 * 128)
+    pallas = int(pallas_checksum(jax.device_put(x.reshape(-1, 128))))
+    assert _emulate_tb_checksum(x, start, sms) == (start + pallas) % MOD
+    for n in [0, 15, 777_777, *CHECKSUM_EDGES]:
+        x = _bytes(n, n)
+        acc = torch.tensor([start - MOD if start >= MOD // 2 else start],
+                           dtype=torch.int32)
+        want = landing.acc_value(landing.checksum_reference(torch.from_numpy(x), acc))
+        assert _emulate_tb_checksum(x, start, sms) == want
 
 
 def test_accumulator_chaining_wraps_past_2_32():
@@ -140,13 +211,14 @@ def test_library_is_keyed_by_source_hash(monkeypatch, tmp_path):
 def test_source_notes_name_the_tpu_kernels():
     src = build.SOURCES[0].read_text()
     for needle in ("pallas_land", "pallas_checksum", "_accum_checksum",
-                   "atomicAdd", "bytes / HBM bandwidth"):
+                   "atomicAdd", "bytes / HBM bandwidth", "persistent grid",
+                   "checksum_plan", "before its first add", "L2::256B"):
         assert needle in src
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [512 * 128, 58_368 * 128, 58_255 * 128,
-                               777_777, 15, 0])
+@pytest.mark.parametrize("n", [512 * 128, 58_368 * 128, MAIN_CHECKSUM,
+                               777_777, 15, 0, *CHECKSUM_EDGES, 256 << 20])
 def test_cuda_kernels_match_plain_versions(cuda, n):
     g = torch.Generator(device="cuda").manual_seed(n)
     x = torch.randint(0, 256, (n,), dtype=torch.uint8, device=cuda, generator=g)

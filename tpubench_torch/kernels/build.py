@@ -96,9 +96,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.tb_land.argtypes = [ptr, ptr, ptr, i64, ptr]
-            lib.tb_checksum.argtypes = [ptr, ptr, i64, ptr]
+            lib.tb_checksum.argtypes = [ptr, ptr, i64, i32, i64, ptr]
             lib.tb_stream_create.argtypes = [ctypes.POINTER(ptr)]
             for fn in (lib.tb_land, lib.tb_checksum, lib.tb_stream_create):
                 fn.restype = ctypes.c_int

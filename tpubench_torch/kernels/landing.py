@@ -20,6 +20,9 @@ allocated too.
 
 ``land.launches`` and ``checksum.launches`` count kernel launches (never
 plain-version calls), so a run can show which kernels it went through.
+
+:func:`checksum_plan` is how ``tb_checksum`` splits its input over the
+card: it runs here, in Python, and the kernel is handed its result.
 """
 
 from __future__ import annotations
@@ -33,6 +36,12 @@ import torch
 from tpubench_torch.kernels import build
 
 _MOD = 1 << 32
+# tb_checksum's grid: two persistent blocks per SM, each owning one chunk
+# of whole 128-byte rows, at least one 16-byte vector for each of a
+# block's 256 threads.
+CHECKSUM_BLOCKS_PER_SM = 2
+CHECKSUM_ALIGN = 128
+CHECKSUM_MIN_CHUNK = 256 * 16
 # The counters are bumped from many worker threads: `+= 1` on an
 # attribute is a read-modify-write the interpreter may interleave.
 _count_lock = threading.Lock()
@@ -91,6 +100,30 @@ def checksum_reference(x: torch.Tensor,
 
 
 # ----------------------------------------------------------------- kernels --
+def checksum_plan(n: int, sms: int,
+                  per_sm: int = CHECKSUM_BLOCKS_PER_SM) -> tuple[int, int]:
+    """``(blocks, chunk)`` for ``tb_checksum`` over ``n`` bytes on a card
+    with ``sms`` SMs: block ``b`` sums ``[b*chunk, min(n, (b+1)*chunk))``.
+    At most ``sms * per_sm`` blocks, every chunk starts on a multiple of
+    ``CHECKSUM_ALIGN``, and ``n == 0`` still gets one (empty) block."""
+    grid = sms * per_sm
+    chunk = -(-n // grid)
+    chunk = max(CHECKSUM_MIN_CHUNK, -(-chunk // CHECKSUM_ALIGN) * CHECKSUM_ALIGN)
+    return max(1, -(-n // chunk)), chunk
+
+
+_sms: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of the CUDA ``device``, read once per device."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    sms = _sms.get(index)
+    if sms is None:
+        sms = _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
+
+
 def _raise_on(rc: int, fn: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
@@ -132,13 +165,15 @@ def checksum(x: torch.Tensor,
     if x.device.type == "cpu":
         return checksum_reference(x, acc)
     lib = build.load()
+    blocks, chunk = checksum_plan(x.numel(), sm_count(x.device))
     with torch.cuda.device(x.device):
         s = torch.cuda.current_stream()
         if acc is None:
             acc = new_acc(x.device)
         rc = lib.tb_checksum(
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(acc.data_ptr()),
-            ctypes.c_int64(x.numel()), ctypes.c_void_p(s.cuda_stream),
+            ctypes.c_int64(x.numel()), ctypes.c_int(blocks),
+            ctypes.c_int64(chunk), ctypes.c_void_p(s.cuda_stream),
         )
     _raise_on(rc, "tb_checksum")
     with _count_lock:
