@@ -21,6 +21,8 @@ before the last line:
    the fit ``t(n) = t0 + n / B``;
 3. agree — the read workload at a small size on the CPU and on the card,
    in each staging mode, with equal bytes, transfers and checksum verdicts;
+   Also the native executor route (2 workers, 777,777 B objects, 256 KiB
+   slots, validate) against one loopback server, on the CPU and the card;
 4. read — the main path: ``tpubench_torch read`` with the fake backend at
    the reference's deployment size (48 workers × 100 MiB objects, 2 MiB
    granules, depth 3, 1024 MiB host budget, one read per worker) in its
@@ -30,11 +32,22 @@ before the last line:
    factory wrapped only to note each stager's CUDA stream: the 48 stagers
    must run on 48 distinct streams. The kernel launch counters are zeroed
    just before each mode and read just after; each must equal the mode's
-   transfers.
+   transfers;
+5. native — the same deployment on the C++ fetch executor
+   (``--protocol http --fetch-executor native``): the port's loopback
+   server (``NativeSourceServer``, one 100 MiB body for every object
+   name) answers slot-range GETs that land in page-locked 7,456,640 B
+   slots (15 ranges a worker, 720 transfers), each slot then copied to
+   the card on its worker's stream. Modes: native_validate (one
+   ``tb_checksum`` launch per transfer), native_depth3 (no kernel) and
+   native_fetch_only (staging none: host fetch alone). The slot ring is
+   subclassed only to note each worker's slots and stream: every slot
+   must be page-locked, 48 distinct streams, the reactor engaged.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
-line, and last ``{"ok": true, "device": {...}}``. Without CUDA, or without
-the rest of the repository beside it, the script fails at once.
+Then the ``kernels`` summary line (launches summed over the paths that
+ran each kernel, and per path), the ``nvidia-smi`` name/power-limit line,
+and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+rest of the repository beside it, the script fails at once.
 """
 
 from __future__ import annotations
@@ -60,10 +73,11 @@ SWEEP = (64 * 1024, MIB, CHECKSUM_ROWS * 128, 64 * MIB, 256 * MIB)
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
-                 mode="pallas"),
+                 paths=("read/pallas",)),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
-                     mode="device_put_validate"),
+                     paths=("read/device_put_validate",
+                            "native/native_validate")),
 }
 
 
@@ -96,9 +110,12 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, args.seed)
     phase_agree()
-    launches = phase_read()
+    counts = {**phase_read(), **phase_native()}  # "<phase>/<mode>" -> counts
     for k, v in kernels.items():
-        v["launches"] = launches[k]
+        by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
+        check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
+        v["launches"] = sum(by_path.values())
+        v["launches_by_path"] = by_path
     emit({"kernels": [dict(name=k, **v) for k, v in kernels.items()]})
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -356,6 +373,34 @@ def phase_agree() -> None:
         check(got.get("checksum_ok", True), f"agree/{mode}: checksum failed")
         emit({"phase": "agree", "mode": mode, "staged_bytes": got["staged_bytes"],
               "checksum_ok": got.get("checksum_ok")})
+    _agree_native(read)
+
+
+def _agree_native(read) -> None:
+    """The executor route, small: one loopback server, read on the CPU
+    and on the card with equal bytes, transfers and checksum verdict."""
+    from tpubench_torch.native.engine import NativeSourceServer, get_engine
+    from tpubench_torch.storage.base import deterministic_bytes
+
+    name, size = "tpubench/file_0", 777_777
+    with NativeSourceServer(get_engine(), name,
+                            deterministic_bytes(name, size)) as srv:
+        cfg = _native_config(srv.endpoint, 2, "native_validate")
+        cfg.workload.read_calls_per_worker = 2
+        cfg.staging.slot_bytes = 256 * 1024
+        ref, got = read(cfg, device="cpu"), read(cfg, device="cuda")
+    for key in ("staged_bytes", "checksum_ok", "slot_bytes"):
+        check(ref.extra.get(key) == got.extra.get(key),
+              f"agree/native: {key} cpu={ref.extra.get(key)} "
+              f"cuda={got.extra.get(key)}")
+    stages = [r.summaries["stage"].count for r in (ref, got)]
+    check(stages[0] == stages[1] == 2 * 2 * -(-size // (256 * 1024)),
+          f"agree/native: transfers {stages}")
+    check(got.extra.get("checksum_ok") is True and got.errors == ref.errors == 0,
+          "agree/native: checksum or errors")
+    emit({"phase": "agree", "mode": "native_validate",
+          "staged_bytes": got.extra["staged_bytes"], "transfers": stages[1],
+          "checksum_ok": got.extra["checksum_ok"]})
 
 
 def expected_transfers(object_size: int, granule: int, slot: int) -> int:
@@ -429,9 +474,7 @@ def phase_read() -> dict:
             want["checksum"] = transfers
         check(counts == want, f"{mode}: launches {counts}, want {want}")
         check(transfers > 0, f"{mode}: no transfers")
-        for k, v in KERNELS.items():
-            if v["mode"] == mode:
-                launches[k] = counts[k]
+        launches[f"read/{mode}"] = counts
         fb = res.summaries.get("first_byte")
         emit({
             "phase": "read", "mode": mode, "workers": WORKERS,
@@ -448,6 +491,127 @@ def phase_read() -> dict:
         })
     backend.close()
     return launches
+
+
+# -------------------------------------------------------------- phase 5 --
+NATIVE_MODES = {
+    "native_validate": dict(mode="device_put", validate_checksum=True),
+    "native_depth3": dict(mode="device_put", depth=3),
+    "native_fetch_only": dict(mode="none"),
+}
+
+
+def _native_config(endpoint: str, workers: int, mode: str):
+    from tpubench_torch.config import BenchConfig
+
+    cfg = BenchConfig()
+    cfg.transport.protocol = "http"
+    cfg.transport.endpoint = endpoint
+    cfg.workload.bucket = "testbucket"
+    cfg.workload.object_name_prefix = "tpubench/file_"
+    cfg.workload.workers = workers
+    cfg.workload.read_calls_per_worker = 1
+    cfg.workload.fetch_executor = "native"
+    for k, v in NATIVE_MODES[mode].items():
+        setattr(cfg.staging, k, v)
+    return cfg
+
+
+def phase_native() -> dict:
+    """The main path on the C++ fetch executor, at the deployment size."""
+    from tpubench_torch.cli import read
+    from tpubench_torch.config import MB
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.native import build as native_build
+    from tpubench_torch.native.engine import NativeSourceServer, get_engine
+    from tpubench_torch.storage.base import deterministic_bytes
+    from tpubench_torch.workloads import fetch_executor
+
+    t0 = time.perf_counter()
+    engine = get_engine()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    body = deterministic_bytes("tpubench/file_0", OBJECT_SIZE)
+    emit({"phase": "native_setup", "engine_load_s": build_s,
+          "library": native_build.library_path().name,
+          "tls_available": engine.tls_available(),
+          "body_bytes": body.nbytes, "body_s": time.perf_counter() - t0})
+    # The slot the runner derives: the slot target capped by the host
+    # budget over workers × depth, rounded up to whole 128-byte lanes.
+    st = _native_config("", WORKERS, "native_depth3").staging
+    slot = min(st.slot_bytes, st.host_budget_mb * MB // (WORKERS * st.depth))
+    slot = -(-slot // st.lane) * st.lane
+    ranges = -(-OBJECT_SIZE // slot)
+    launches = {}
+    pipes: list = []  # (pinned slots, slots, stream) of each slot ring
+
+    class Noted(fetch_executor._SlotPipeline):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            pipes.append((sum(s.is_pinned() for s in self.slots),
+                           len(self.slots), self.stream.cuda_stream))
+
+    real = fetch_executor._SlotPipeline
+    fetch_executor._SlotPipeline = Noted
+    try:
+        with NativeSourceServer(engine, "tpubench/file_0", body) as srv:
+            for mode in NATIVE_MODES:
+                cfg = _native_config(srv.endpoint, WORKERS, mode)
+                pipes.clear()
+                landing.reset_launches()
+                res = read(cfg, device="cuda")
+                counts = {"land": landing.land.launches,
+                          "checksum": landing.checksum.launches}
+                launches[f"native/{mode}"] = counts
+                _check_native(mode, res, counts, pipes, slot, ranges)
+    finally:
+        fetch_executor._SlotPipeline = real
+    return launches
+
+
+def _check_native(mode: str, res, counts: dict, pipes: list, slot: int,
+                  ranges: int) -> None:
+    ex = res.extra
+    staged = NATIVE_MODES[mode]["mode"] != "none"
+    transfers = res.summaries["stage"].count if staged else 0
+    check(res.errors == 0, f"{mode}: {res.errors} errors ({ex.get('first_error')})")
+    check(res.bytes_total == WORKERS * OBJECT_SIZE, f"{mode}: {res.bytes_total} B")
+    check(ex.get("executor_mode") == "reactor",
+          f"{mode}: executor {ex.get('executor_mode')}")
+    check("completions_per_wake" in ex, f"{mode}: no completions_per_wake")
+    want = {"land": 0, "checksum": 0}
+    if staged:
+        check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+              f"{mode}: staged {ex.get('staged_bytes')}")
+        check(ex.get("slot_bytes") == slot, f"{mode}: slot {ex.get('slot_bytes')}")
+        check(transfers == WORKERS * ranges,
+              f"{mode}: {transfers} transfers, want {WORKERS * ranges}")
+        check(len(pipes) == WORKERS and all(p == n for p, n, _ in pipes),
+              f"{mode}: slots not all page-locked {pipes[:3]}")
+        check(len({s for *_, s in pipes}) == WORKERS,
+              f"{mode}: {len({s for *_, s in pipes})} streams")
+    if mode == "native_validate":
+        check(ex.get("checksum_ok") is True, f"{mode}: checksum mismatch")
+        want["checksum"] = transfers
+    check(counts == want, f"{mode}: launches {counts}, want {want}")
+    fb = res.summaries.get("first_byte")
+    emit({
+        "phase": "native", "mode": mode, "workers": WORKERS,
+        "object_size": OBJECT_SIZE, "bytes_total": res.bytes_total,
+        "staged_bytes": ex.get("staged_bytes"), "transfers": transfers,
+        "slot_bytes": ex.get("slot_bytes"), "launches": counts,
+        "streams": len({s for *_, s in pipes}),
+        "pinned_slots": sum(p for p, *_ in pipes),
+        "checksum_ok": ex.get("checksum_ok"), "wall_s": res.wall_seconds,
+        "gbps_per_chip": res.gbps_per_chip,
+        "staged_gbps_per_chip": ex.get("staged_gbps_per_chip"),
+        "first_byte_p50_ms": fb.p50_ms if fb else None,
+        "first_byte_p99_ms": fb.p99_ms if fb else None,
+        "executor_mode": ex["executor_mode"],
+        "completions_per_wake": ex["completions_per_wake"],
+        "retries": ex.get("retries"),
+        "native_transport": ex.get("native_transport"),
+    })
 
 
 if __name__ == "__main__":

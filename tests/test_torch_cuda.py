@@ -77,3 +77,49 @@ def test_each_worker_has_its_own_stream(cuda):
     assert [st.stream.cuda_stream for st in again] == handles
     for st in first + again:
         st.finish()
+
+
+def test_native_staged_validate_route_on_cuda(cuda, monkeypatch):
+    """The executor route on the card: range GETs from the port's loopback
+    server land in page-locked slots, one checksum kernel launch per
+    transfer, each worker on its own stream, device sums exact."""
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.native.engine import NativeSourceServer, get_engine
+    from tpubench_torch.workloads import fetch_executor
+    from tpubench_torch.workloads.read import run_read
+
+    made = []
+
+    class Kept(fetch_executor._SlotPipeline):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(fetch_executor, "_SlotPipeline", Kept)
+    name, size, slot, workers, reads = "tpubench/file_0", 3_000_001, 256 * 1024, 4, 2
+    body = deterministic_bytes(name, size)
+    cfg = BenchConfig()
+    cfg.transport.protocol = "http"
+    cfg.workload.bucket = "testbucket"
+    cfg.workload.object_name_prefix = "tpubench/file_"
+    cfg.workload.workers = workers
+    cfg.workload.read_calls_per_worker = reads
+    cfg.workload.fetch_executor = "native"
+    cfg.staging.slot_bytes = slot
+    cfg.staging.validate_checksum = True
+    with NativeSourceServer(get_engine(), name, body) as srv:
+        cfg.transport.endpoint = srv.endpoint
+        landing.reset_launches()
+        res = run_read(cfg, device=cuda)
+        launches = landing.checksum.launches
+    assert res.errors == 0 and res.extra["checksum_ok"] is True
+    assert res.extra["executor_mode"] == "reactor"
+    assert res.extra["staged_bytes"] == workers * reads * size
+    transfers = sum(p.transfers for p in made)
+    assert launches == transfers == workers * reads * -(-size // slot)
+    assert len(made) == workers
+    assert all(s.is_pinned() for p in made for s in p.slots)
+    assert len({p.stream.cuda_stream for p in made}) == workers
+    want = reads * int(body.sum(dtype=np.uint64)) % (1 << 32)
+    assert all(p.sums() == (want, want) for p in made)

@@ -36,6 +36,11 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 def test_every_module_imports_without_jax_or_tpubench():
     mods = _all_modules()
     assert "tpubench_torch.kernels.landing" in mods and len(mods) >= 20
+    assert {
+        "tpubench_torch.native.build", "tpubench_torch.native.engine",
+        "tpubench_torch.storage.gcs_http", "tpubench_torch.storage.retry",
+        "tpubench_torch.workloads.fetch_executor",
+    } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -75,6 +80,38 @@ def test_run_read_without_cuda_raises(monkeypatch):
     cfg.workload.object_size = 1024
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_read(cfg)
+
+
+def test_native_route_without_cuda_raises(monkeypatch):
+    """The native executor route, too, raises without a GPU unless it is
+    asked for the CPU — before any engine build or request."""
+    from tpubench_torch.workloads.read import run_read
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BenchConfig()
+    cfg.transport.protocol = "http"
+    cfg.transport.endpoint = "http://127.0.0.1:9"
+    cfg.workload.fetch_executor = "native"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_read(cfg)
+
+
+def test_engine_builds_only_from_the_ports_sources():
+    """``native.build`` compiles ``tpubench_torch/native/csrc`` (whose
+    local includes stay in that folder) into ``build/tpubench_torch``."""
+    import re
+
+    from tpubench_torch.native import build
+
+    csrc = REPO / "tpubench_torch" / "native" / "csrc"
+    files = build.SOURCES + build.HEADERS
+    assert {p.name for p in files} == {"engine.cc", "hpack_huffman.h"}
+    assert all(p.parent == csrc and p.is_file() for p in files)
+    for p in files:
+        for inc in re.findall(r'#include\s+"([^"]+)"', p.read_text()):
+            assert (csrc / inc).is_file(), (p.name, inc)
+    assert build.library_path().parent == REPO / "build" / "tpubench_torch"
+    assert build.library_path().name.startswith("libtb_engine-")
 
 
 def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):

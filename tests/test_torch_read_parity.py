@@ -188,7 +188,7 @@ def test_ported_defaults_match_reference():
 
 
 @pytest.mark.parametrize("switch", [
-    ("workload", "fetch_executor", "native"),
+    ("transport", "http2", True),
     ("transport", "protocol", "http"),
     ("obs", "flight_journal", "/tmp/j.json"),
     ("obs", "enable_tracing", True),

@@ -27,7 +27,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("read", help="root read benchmark (main.go)")
     p.add_argument("--config", help="JSON config file (tpubench --save-config)")
     p.add_argument("--protocol", choices=("http", "grpc", "local", "fake"),
-                   help="storage protocol (only fake is ported)")
+                   help="storage protocol (fake; http with --fetch-executor "
+                        "native)")
+    p.add_argument("--endpoint", help="storage endpoint URL (http protocol)")
+    p.add_argument("--bucket", help="GCS bucket name")
+    p.add_argument("--object-name-prefix", dest="object_name_prefix",
+                   help="object i is <prefix><i>")
+    p.add_argument("--fetch-executor",
+                   choices=("python", "native", "native-reactor",
+                            "native-threads"),
+                   help="python = worker-thread pool; native = C++ reactor "
+                        "executor (slot-range GETs land in the staging "
+                        "slots); native-reactor/native-threads pin a shape")
     p.add_argument("--workers", type=int)
     p.add_argument("--read-call-per-worker", type=int, dest="read_calls")
     p.add_argument("--object-size", type=int, help="bytes (fake backend)")
@@ -56,12 +67,16 @@ def build_config(args) -> BenchConfig:
     for attr, dest in (
         ("workers", "workers"), ("read_calls", "read_calls_per_worker"),
         ("object_size", "object_size"), ("granule_bytes", "granule_bytes"),
+        ("bucket", "bucket"), ("object_name_prefix", "object_name_prefix"),
+        ("fetch_executor", "fetch_executor"),
     ):
         v = getattr(args, attr)
         if v is not None:
             setattr(w, dest, v)
     if args.protocol:
         cfg.transport.protocol = args.protocol
+    if args.endpoint:
+        cfg.transport.endpoint = args.endpoint
     if args.staging:
         s.mode = args.staging
     if args.depth is not None:

@@ -257,14 +257,21 @@ def refuse_unported(cfg: BenchConfig) -> None:
     w, t, s, o = cfg.workload, cfg.transport, cfg.staging, cfg.obs
     raw = cfg.raw
     refused = []
-    if w.fetch_executor != "python":
+    native = w.fetch_executor.startswith("native")
+    if t.protocol == "http" and not native:
         refused.append(
-            f"fetch_executor={w.fetch_executor!r} (ROADMAP A.1: native "
-            "executor route)"
+            "protocol='http' with fetch_executor='python' (ROADMAP A.2: the "
+            "Python-pool route over http; fetch_executor='native' runs it)"
         )
-    if t.protocol != "fake":
+    elif t.protocol not in ("fake", "http"):
         refused.append(
             f"protocol={t.protocol!r} (ROADMAP A.2: http/grpc/local backends)"
+        )
+    if t.http2:
+        refused.append("transport.http2 (ROADMAP A.2: http/grpc/local backends)")
+    if t.key_file:
+        refused.append(
+            "transport.key_file (ROADMAP A.2: http/grpc/local backends)"
         )
     if t.tail.active:
         refused.append("transport.tail (ROADMAP A.2: tail tolerance)")

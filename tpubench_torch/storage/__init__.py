@@ -1,6 +1,8 @@
-"""Storage backends of the port: the protocol (:mod:`.base`) and the
-in-process fake store (:mod:`.fake`). The http/grpc/local clients, retry
-and tail tolerance arrive in later slices (``ROADMAP.md`` A.2)."""
+"""Storage backends of the port: the protocol (:mod:`.base`), the
+in-process fake store (:mod:`.fake`) and the JSON-API request side the
+native fetch executor drives (:mod:`.gcs_http`). The http reader of the
+Python route, grpc/local clients, the retrying wrapper and tail tolerance
+arrive in later slices (``ROADMAP.md`` A.2)."""
 
 from tpubench_torch.storage.base import (  # noqa: F401
     ObjectMeta,
@@ -24,9 +26,13 @@ def fault_plan(cfg):
 
 def open_backend(cfg) -> StorageBackend:
     """Backend from a BenchConfig (reference: main.go:169-177 protocol
-    switch). Only ``fake`` is ported; the fake store holds one object per
-    worker, as ``tpubench``'s does."""
+    switch). ``fake`` holds one object per worker, as ``tpubench``'s does;
+    ``http`` is the JSON-API backend of the native fetch executor."""
     proto = cfg.transport.protocol
+    if proto == "http":
+        from tpubench_torch.storage.gcs_http import GcsHttpBackend
+
+        return GcsHttpBackend(cfg.workload.bucket, transport=cfg.transport)
     if proto != "fake":
         raise NotImplementedError(
             f"protocol {proto!r} is not ported to tpubench_torch yet "

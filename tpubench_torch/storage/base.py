@@ -33,6 +33,17 @@ class ObjectMeta:
     generation: int = 0
 
 
+def object_meta_dict(meta: ObjectMeta) -> dict:
+    """The GCS JSON ``storage#object`` rendering of a stat result (what
+    the loopback source server answers a metadata GET with)."""
+    return {
+        "kind": "storage#object",
+        "name": meta.name,
+        "size": str(meta.size),
+        "generation": str(meta.generation),
+    }
+
+
 @runtime_checkable
 class ObjectReader(Protocol):
     """Streaming reader for one object (or byte range).

@@ -12,7 +12,7 @@
   buffer that the stager copies (the copying route).
 
 The result JSON is ``tpubench read``'s, minus the blocks of features not
-ported yet (flight recorder, telemetry, tune, tail, native transport).
+ported yet (flight recorder, telemetry, tune, tail).
 """
 
 from __future__ import annotations
@@ -176,12 +176,24 @@ def run_read(
 ) -> RunResult:
     """Run the read workload. ``device`` must be ``"cpu"`` to run without
     CUDA; features the port does not have yet raise
-    ``NotImplementedError`` before anything runs."""
+    ``NotImplementedError`` before anything runs. ``fetch_executor``
+    ``native*`` runs on the C++ fetch executor
+    (:mod:`tpubench_torch.workloads.fetch_executor`), which stages without
+    ``sink_factory``."""
     resolve_device(device)
     refuse_unported(cfg)
     owns_backend = backend is None
     backend = backend or open_backend(cfg)
     try:
+        if cfg.workload.fetch_executor.startswith("native"):
+            from tpubench_torch.workloads.fetch_executor import (
+                run_read_native_executor,
+                run_read_native_staged,
+            )
+
+            if cfg.staging.mode == "none":
+                return run_read_native_executor(cfg, backend)
+            return run_read_native_staged(cfg, backend, device=device)
         return ReadWorkload(
             cfg=cfg, backend=backend, sink_factory=sink_factory,
         ).run()
