@@ -42,9 +42,24 @@ before the last line:
    ``tb_checksum`` launch per transfer), native_depth3 (no kernel) and
    native_fetch_only (staging none: host fetch alone). The slot ring is
    subclassed only to note each worker's slots and stream: every slot
-   must be page-locked, 48 distinct streams, the reactor engaged.
+   must be page-locked, 48 distinct streams, the reactor engaged;
+6. protocols — the same deployment through every storage client of the
+   worker-pool route, the reference's client switch (``main.go:169-177``),
+   over one store (phase read's) served by the port's hermetic servers:
+   http_validate and http_pallas (HTTP/1.1 Python reader),
+   http_native_validate (native receive: the socket writes into the
+   page-locked slot), http2_validate (the engine's h2c client),
+   grpc_validate (the wire client) and grpc_native_validate (the engine's
+   gRPC client) against the gRPC fake, local_validate (files written under
+   ``build/`` and removed after) and http_retry_validate (a seeded fault
+   plan on the store under the retry policy: resumes must happen). Each
+   mode must stage every byte with zero errors, launch its kernel once per
+   transfer, keep 48 distinct streams on page-locked slots and, but for the
+   faulted mode (whose resumed reads fill slots off the granule grid), ship
+   the transfers ``expected_transfers`` counts.
 
-Then the ``kernels`` summary line (launches summed over the paths that
+Phase agree also runs http_validate and grpc_validate small, on the CPU and
+on the card. Then the ``kernels`` summary line (launches summed over the paths that
 ran each kernel, and per path), the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 rest of the repository beside it, the script fails at once.
@@ -70,14 +85,32 @@ L2_BYTES = 50 * MIB
 WORKERS, OBJECT_SIZE, GRANULE = 48, 100 * MIB, 2 * MIB
 LAND_ROWS, CHECKSUM_ROWS = 58_368, 58_255  # main-path slot shapes (×128)
 SWEEP = (64 * 1024, MIB, CHECKSUM_ROWS * 128, 64 * MIB, 256 * MIB)
+# Storage clients of phase protocols: mode -> (protocol, server, transport
+# switches, staging). Every mode stages through a kernel.
+PROTOCOL_MODES = {
+    "http_validate": ("http", "h1", {}, "validate"),
+    "http_pallas": ("http", "h1", {}, "pallas"),
+    "http_native_validate": ("http", "h1", {"native_receive": True}, "validate"),
+    "http2_validate": ("http", "h2", {"http2": True}, "validate"),
+    "grpc_validate": ("grpc", "grpc", {}, "validate"),
+    "grpc_native_validate": ("grpc", "grpc", {"native_receive": True},
+                             "validate"),
+    "local_validate": ("local", None, {}, "validate"),
+    "http_retry_validate": ("http", "h1", {}, "validate"),
+}
+# The faulted mode's plan (on the store, behind the server) and its retry
+# policy: a 1-10 ms backoff without jitter.
+RETRY_FAULT = dict(error_rate=0.05, read_error_rate=0.002)
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
-                 paths=("read/pallas",)),
+                 paths=("read/pallas", "protocols/http_pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
-                            "native/native_validate")),
+                            "native/native_validate",
+                            *(f"protocols/{m}" for m, v in PROTOCOL_MODES.items()
+                              if v[3] == "validate"))),
 }
 
 
@@ -110,7 +143,11 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, args.seed)
     phase_agree()
-    counts = {**phase_read(), **phase_native()}  # "<phase>/<mode>" -> counts
+    store = populate()
+    counts = {  # "<phase>/<mode>" -> counts
+        **phase_read(store), **phase_native(),
+        **phase_protocols(store, smi, args.seed),
+    }
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -374,6 +411,34 @@ def phase_agree() -> None:
         emit({"phase": "agree", "mode": mode, "staged_bytes": got["staged_bytes"],
               "checksum_ok": got.get("checksum_ok")})
     _agree_native(read)
+    _agree_protocols(read)
+
+
+def _agree_protocols(read) -> None:
+    """HTTP/1.1 and gRPC (wire) small, each read on the CPU and on the
+    card from one server: equal bytes, transfers and verdicts."""
+    from tpubench_torch.storage.fake import FakeBackend
+
+    store = FakeBackend.prepopulated("tpubench/file_", 2, 777_777)
+    with _Servers(store) as servers:
+        for mode in ("http_validate", "grpc_validate"):
+            cfg = _protocol_config(mode, servers, workers=2, object_size=777_777)
+            cfg.workload.read_calls_per_worker = 2
+            cfg.workload.granule_bytes = 64 * 1024
+            cfg.staging.slot_bytes = 256 * 1024
+            ref, got = read(cfg, device="cpu").extra, read(cfg, device="cuda").extra
+            for key in ("staged_bytes", "checksum_ok", "staging_zero_copy"):
+                check(ref.get(key) == got.get(key), f"agree/{mode}: {key} "
+                      f"cpu={ref.get(key)} cuda={got.get(key)}")
+            check(ref["staging"]["transfers"] == got["staging"]["transfers"],
+                  f"agree/{mode}: transfers differ")
+            check(got.get("checksum_ok") is True
+                  and got["staged_bytes"] == 2 * 2 * 777_777,
+                  f"agree/{mode}: checksum or bytes")
+            emit({"phase": "agree", "mode": mode,
+                  "staged_bytes": got["staged_bytes"],
+                  "transfers": got["staging"]["transfers"],
+                  "checksum_ok": got["checksum_ok"]})
 
 
 def _agree_native(read) -> None:
@@ -423,40 +488,69 @@ def expected_transfers(object_size: int, granule: int, slot: int) -> int:
     return transfers + (fill > 0)
 
 
-def phase_read() -> dict:
-    from tpubench_torch.kernels import landing
-    from tpubench_torch.staging.device import budgeted_slot_bytes, make_sink_factory
-    from tpubench_torch.staging.land_stage import BLOCK_ROWS, LANE
-    from tpubench_torch.storage import open_backend
-    from tpubench_torch.workloads.read import run_read
+def populate():
+    """The fake store of the deployment: one 100 MiB object per worker,
+    shared by phases read and protocols."""
+    from tpubench_torch.storage.fake import FakeBackend
 
     t0 = time.perf_counter()
-    backend = open_backend(_config(WORKERS, OBJECT_SIZE, GRANULE, "pallas"))
+    store = FakeBackend.prepopulated("tpubench/file_", WORKERS, OBJECT_SIZE)
     emit({"phase": "populate", "objects": WORKERS,
           "object_size": OBJECT_SIZE, "seconds": time.perf_counter() - t0})
+    return store
+
+
+def _slot(cfg) -> int:
+    """The slot each stager rounds the budgeted size to: whole kernel
+    blocks for the landing ring, whole lanes for the copy ring."""
+    from tpubench_torch.staging.device import budgeted_slot_bytes
+    from tpubench_torch.staging.land_stage import BLOCK_ROWS, LANE
+
+    unit = BLOCK_ROWS * LANE if cfg.staging.mode == "pallas" else LANE
+    return -(-budgeted_slot_bytes(cfg) // unit) * unit
+
+
+def _noting(factory, made: list):
+    """The sink factory, wrapped only to keep each stager the workers make
+    with whether its slots were page-locked (a stager drops its slots at
+    finish); its stream and transfer count are read after the run."""
+    def kept(worker_id):
+        stager = factory(worker_id)
+        made.append((stager, all(s.is_pinned() for s in stager._slots)))
+        return stager
+
+    return kept
+
+
+def _check_stagers(mode: str, made: list) -> int:
+    """48 stagers on 48 distinct streams, every slot page-locked; returns
+    the stream count."""
+    streams = {st.stream.cuda_stream for st, _ in made}
+    check(len(made) == WORKERS and len(streams) == WORKERS,
+          f"{mode}: {len(made)} stagers on {len(streams)} streams")
+    check(all(pinned for _, pinned in made),
+          f"{mode}: slots not all page-locked")
+    return len(streams)
+
+
+def phase_read(backend) -> dict:
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.workloads.read import run_read
+
     launches = {}
     for mode in MODES:
         cfg = _config(WORKERS, OBJECT_SIZE, GRANULE, mode)
-        factory = make_sink_factory(cfg, device="cuda")
-        streams = []  # each stager's CUDA stream, as the workers make them
-
-        def kept(worker_id, factory=factory, streams=streams):
-            stager = factory(worker_id)
-            streams.append(stager.stream.cuda_stream)
-            return stager
-
+        stagers = []
+        kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
         landing.reset_launches()
         res = run_read(cfg, backend=backend, device="cuda", sink_factory=kept)
         counts = {"land": landing.land.launches,
                   "checksum": landing.checksum.launches}
-        check(len(streams) == WORKERS and len(set(streams)) == WORKERS,
-              f"{mode}: {len(streams)} stagers on {len(set(streams))} streams")
+        streams = _check_stagers(mode, stagers)
         ex = res.extra
         stats = ex.get("staging") or {}
-        # Slot size as each stager rounds it: whole kernel blocks for the
-        # landing ring, whole lanes for the copy ring.
-        unit = BLOCK_ROWS * LANE if mode == "pallas" else LANE
-        slot = -(-budgeted_slot_bytes(cfg) // unit) * unit
+        slot = _slot(cfg)
         transfers = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, slot)
         if "transfers" in stats:
             check(stats["transfers"] == transfers,
@@ -479,7 +573,7 @@ def phase_read() -> dict:
         emit({
             "phase": "read", "mode": mode, "workers": WORKERS,
             "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
-            "transfers": transfers, "launches": counts, "streams": len(set(streams)),
+            "transfers": transfers, "launches": counts, "streams": streams,
             "checksum_ok": ex.get("checksum_ok"),
             "wall_s": res.wall_seconds,
             "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
@@ -489,7 +583,6 @@ def phase_read() -> dict:
             "transfer_wait_s": ex["staging_breakdown"]["transfer_wait_s"],
             "slot_bytes": slot,
         })
-    backend.close()
     return launches
 
 
@@ -611,6 +704,171 @@ def _check_native(mode: str, res, counts: dict, pipes: list, slot: int,
         "completions_per_wake": ex["completions_per_wake"],
         "retries": ex.get("retries"),
         "native_transport": ex.get("native_transport"),
+    })
+
+
+
+# -------------------------------------------------------------- phase 6 --
+class _Servers:
+    """The port's HTTP/1.1, HTTP/2 and gRPC fakes over one store, started
+    together and stopped on exit (a server that fails to start raises)."""
+
+    def __init__(self, store):
+        from tpubench_torch.storage.fake_grpc_wire_server import (
+            FakeGrpcWireServer,
+        )
+        from tpubench_torch.storage.fake_h2_server import FakeH2Server
+        from tpubench_torch.storage.fake_server import FakeGcsServer
+
+        self.by_kind = {"h1": FakeGcsServer(store), "h2": FakeH2Server(store),
+                        "grpc": FakeGrpcWireServer(store)}
+        self.local_dir = ""
+
+    def __enter__(self):
+        for srv in self.by_kind.values():
+            srv.start()
+        return self
+
+    def __exit__(self, *exc):
+        for srv in self.by_kind.values():
+            srv.stop()
+
+
+def _protocol_config(mode: str, servers, workers: int = 0,
+                     object_size: int = 0):
+    """The mode's config at the deployment size (or ``workers`` x
+    ``object_size``). Retries are bounded by a 60 s deadline, so a fault
+    that never clears fails the run instead of hanging it."""
+    from tpubench_torch.config import BenchConfig
+
+    protocol, kind, switches, staging = PROTOCOL_MODES[mode]
+    cfg = BenchConfig()
+    t, w = cfg.transport, cfg.workload
+    t.protocol = protocol
+    t.directpath = False  # the gRPC fake is no Google endpoint
+    if kind is not None:
+        t.endpoint = servers.by_kind[kind].endpoint
+    for k, v in switches.items():
+        setattr(t, k, v)
+    t.retry.deadline_s = 60.0
+    if mode == "http_retry_validate":
+        t.retry.initial_backoff_s = 0.001
+        t.retry.max_backoff_s = 0.01
+        t.retry.jitter = False
+    w.bucket = "testbucket"
+    w.object_name_prefix = "tpubench/file_"
+    w.dir = servers.local_dir
+    w.workers = workers or WORKERS
+    w.read_calls_per_worker = 1
+    w.object_size = object_size or OBJECT_SIZE
+    w.granule_bytes = GRANULE
+    if staging == "pallas":
+        cfg.staging.mode = "pallas"
+    else:
+        cfg.staging.validate_checksum = True
+    return cfg
+
+
+def _write_local(store, root: str) -> float:
+    """The store's objects as files under ``root``; returns the seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    for i in range(WORKERS):
+        name = f"tpubench/file_{i}"
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        store._objects[name].tofile(path)
+    return time.perf_counter() - t0
+
+
+def phase_protocols(store, smi, seed: int) -> dict:
+    """The deployment through every storage client of the worker-pool
+    route, driven as the CLI's ``read`` drives it (``run_read`` with
+    ``make_sink_factory``), over one store behind the port's servers."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.storage.fake import FaultPlan
+    from tpubench_torch.workloads.read import run_read
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    launches = {}
+    with _Servers(store) as servers:
+        servers.local_dir = tempfile.mkdtemp(prefix="protocols-", dir=build)
+        try:
+            emit({"phase": "protocols_setup",
+                  "endpoints": {k: v.endpoint for k, v in servers.by_kind.items()},
+                  "local_write_s": _write_local(store, servers.local_dir)})
+            for mode in PROTOCOL_MODES:
+                cfg = _protocol_config(mode, servers)
+                if mode == "http_retry_validate":
+                    store.fault = FaultPlan(**RETRY_FAULT, seed=seed)
+                    store._rng = store.fault.rng()
+                store.open_count = store.injected_errors = 0
+                stagers = []
+                kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
+                landing.reset_launches()
+                try:
+                    res = run_read(cfg, device="cuda", sink_factory=kept)
+                finally:
+                    store.fault = FaultPlan()
+                    store._rng = store.fault.rng()
+                counts = {"land": landing.land.launches,
+                          "checksum": landing.checksum.launches}
+                launches[f"protocols/{mode}"] = counts
+                _check_protocol(mode, cfg, res, counts, stagers, store, smi)
+        finally:
+            shutil.rmtree(servers.local_dir, ignore_errors=True)
+    return launches
+
+
+def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
+                    store, smi) -> None:
+    ex = res.extra
+    transfers = sum(st.transfers for st, _ in stagers)
+    expected = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, _slot(cfg))
+    check(res.errors == 0, f"{mode}: {res.errors} errors")
+    check(ex.get("checksum_ok") is True, f"{mode}: checksum mismatch")
+    check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+          f"{mode}: staged {ex.get('staged_bytes')}")
+    check(ex.get("staging_zero_copy") is True, f"{mode}: not zero-copy")
+    streams = _check_stagers(mode, stagers)
+    kernel = "land" if cfg.staging.mode == "pallas" else "checksum"
+    want = {"land": 0, "checksum": 0, kernel: transfers}
+    check(counts == want and transfers, f"{mode}: launches {counts}, want {want}")
+    if mode == "http_retry_validate":
+        check(store.injected_errors > 0 and store.open_count > WORKERS,
+              f"{mode}: no resume ({store.injected_errors} injected, "
+              f"{store.open_count} opens)")
+    else:
+        check(transfers == expected,
+              f"{mode}: {transfers} transfers, want {expected}")
+    conn = ex.get("native_conn_stats")
+    if mode == "http_native_validate":
+        check(conn is not None and conn["connects"] <= WORKERS
+              and conn["reuses"] >= 0, f"{mode}: connections {conn}")
+    fb = res.summaries.get("first_byte")
+    emit({
+        "phase": "protocols", "mode": mode, "workers": WORKERS,
+        "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
+        "transfers": transfers, "expected_transfers": expected,
+        "launches": counts, "streams": streams,
+        "checksum_ok": ex["checksum_ok"], "wall_s": res.wall_seconds,
+        "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
+        "first_byte_p50_ms": fb.p50_ms if fb else None,
+        "first_byte_p99_ms": fb.p99_ms if fb else None,
+        "transfer_wait_s": ex["staging_breakdown"]["transfer_wait_s"],
+        "slot_bytes": _slot(cfg), "staging_zero_copy": ex["staging_zero_copy"],
+        "native_conn_stats": conn,
+        "native_transport": {k: v for k, v in
+                             (ex.get("native_transport") or {}).items() if v},
+        "opens": store.open_count, "injected_errors": store.injected_errors,
+        "card": smi,
     })
 
 

@@ -123,3 +123,50 @@ def test_native_staged_validate_route_on_cuda(cuda, monkeypatch):
     assert len({p.stream.cuda_stream for p in made}) == workers
     want = reads * int(body.sum(dtype=np.uint64)) % (1 << 32)
     assert all(p.sums() == (want, want) for p in made)
+
+
+def test_native_receive_into_pinned_slots_on_cuda(cuda):
+    """The worker-pool route with native receive on the card: bodies from
+    the port's HTTP/1.1 fake land straight in page-locked slots (zero
+    copy), one checksum kernel launch per transfer, device sums exact."""
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.storage.fake import FakeBackend
+    from tpubench_torch.storage.fake_server import FakeGcsServer
+    from tpubench_torch.workloads.read import run_read
+
+    workers, reads, size = 4, 2, 3_000_001
+    cfg = BenchConfig()
+    cfg.transport.protocol = "http"
+    cfg.transport.native_receive = True
+    cfg.workload.bucket = "testbucket"
+    cfg.workload.object_name_prefix = "tpubench/file_"
+    cfg.workload.workers = workers
+    cfg.workload.read_calls_per_worker = reads
+    cfg.workload.granule_bytes = GRANULE
+    cfg.staging.slot_bytes = 256 * 1024
+    cfg.staging.validate_checksum = True
+    stats = []
+    factory = make_sink_factory(cfg, device=cuda)
+
+    def kept(i):
+        stager = factory(i)
+        assert all(s.is_pinned() for s in stager._slots)
+        finish = stager.finish
+        stager.finish = lambda: stats.append(finish()) or stats[-1]
+        return stager
+
+    store = FakeBackend.prepopulated("tpubench/file_", workers, size)
+    with FakeGcsServer(store) as srv:
+        cfg.transport.endpoint = srv.endpoint
+        landing.reset_launches()
+        res = run_read(cfg, device=cuda, sink_factory=kept)
+        launches = landing.checksum.launches
+    assert res.errors == 0 and res.extra["checksum_ok"] is True
+    assert res.extra["staging_zero_copy"] is True
+    assert res.extra["staged_bytes"] == workers * reads * size
+    assert res.extra["native_conn_stats"]["connects"] <= workers
+    assert launches == sum(st["transfers"] for st in stats) > 0
+    for st in stats:
+        assert st["checksum_device"] == st["checksum_host"] % (1 << 32)

@@ -215,7 +215,7 @@ def test_refusals_match_tpubench(switch, match, jax_cpu_devices):
         run_read(_switch(_cfg(endpoint), switch), device="cpu")
 
 
-@pytest.mark.parametrize("switch", ["http2", "key_file", "python_over_http",
+@pytest.mark.parametrize("switch", ["http2", "key_file", "tail",
                                     "google_endpoint"])
 def test_unported_http_features_name_roadmap_a2(switch):
     cfg = _cfg("http://127.0.0.1:9")
@@ -223,8 +223,8 @@ def test_unported_http_features_name_roadmap_a2(switch):
         cfg.transport.http2 = True
     elif switch == "key_file":
         cfg.transport.key_file = "/nonexistent/key.json"
-    elif switch == "python_over_http":
-        cfg.workload.fetch_executor = "python"
+    elif switch == "tail":
+        cfg.transport.tail.watchdog = True
     else:
         cfg.transport.endpoint = ""  # storage.googleapis.com: credentials
     with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
@@ -252,9 +252,13 @@ class _PendingEvent:
         self.done = True
 
 
-def test_slot_returns_only_after_its_event_completes(server, monkeypatch):
+def test_slot_returns_only_after_its_event_completes(monkeypatch):
     """A slot whose copy's event still reports pending is never handed to
-    a new range; once the event completes, the slot comes back."""
+    a new range; once the event completes, the slot comes back. The
+    server answers each range after 10 ms, so the runner's loop polls the
+    pending events while fetches are in flight rather than finding none in
+    flight and waiting on a copy outright (which completes the event
+    without a poll, and made the last check depend on timing)."""
     events = {}  # (worker, slot) -> the event of the slot's last launch
     reuses = []  # at each reuse of a slot: had its last event completed?
 
@@ -283,7 +287,11 @@ def test_slot_returns_only_after_its_event_completes(server, monkeypatch):
             super().complete(slot, submit_ns, nbytes)
 
     monkeypatch.setattr(fetch_executor, "_SlotPipeline", Gated)
-    res = run_read(_cfg(server.endpoint, reads=3, validate=False), device="cpu")
+    slow = FakeBackend.prepopulated(PREFIX, count=2, size=SIZE,
+                                    fault=FaultPlan(latency_s=0.005))
+    with FakeGcsServer(slow) as srv:
+        res = run_read(_cfg(srv.endpoint, reads=3, validate=False),
+                       device="cpu")
     assert res.errors == 0
     assert res.extra["staged_bytes"] == 2 * 3 * SIZE
     assert res.summaries["stage"].count == 2 * 3 * 4

@@ -40,6 +40,15 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.native.build", "tpubench_torch.native.engine",
         "tpubench_torch.storage.gcs_http", "tpubench_torch.storage.retry",
         "tpubench_torch.workloads.fetch_executor",
+        "tpubench_torch.storage.retrying", "tpubench_torch.storage.local_fs",
+        "tpubench_torch.storage.native_pool",
+        "tpubench_torch.storage.fake_server",
+        "tpubench_torch.storage.fake_h2_server",
+        "tpubench_torch.storage.fake_grpc_wire_server",
+        "tpubench_torch.storage.gcs_grpc",
+        "tpubench_torch.storage.grpc_wire.client",
+        "tpubench_torch.storage.grpc_wire.framing",
+        "tpubench_torch.storage.grpc_wire.proto",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"

@@ -1,0 +1,292 @@
+"""The storage clients of the worker-pool route as a whole: one config
+and one population through ``tpubench read`` (JAX on the CPU, served by
+``tpubench``'s fake servers) and ``tpubench_torch read`` (PyTorch on the
+CPU, served by the port's own fake servers).
+
+Variants: HTTP/1.1, HTTP/1.1 with native receive, HTTP/2, gRPC (wire),
+gRPC with native receive and local files, each in staging modes
+device_put+validate and pallas, plus device_put depth 2 for HTTP/1.1.
+Bytes, transfers, per-worker host and device checksums and the checksum
+verdict must be equal, exactly (tolerance 0), and the results must have
+the same keys. Not compared, as in ``test_torch_read_parity.py``: timings,
+the per-chip rates and ``n_chips`` (8 simulated JAX CPU devices against
+the port's one CPU), and ``extra["flight"]`` (the flight recorder is not
+ported yet, ROADMAP A.3).
+
+``tpubench`` picks gRPC library mode whenever ``grpcio`` imports; the port
+is wire-only, so the JAX side is held to wire mode here by patching
+``tpubench.storage.gcs_grpc._HAVE_LIB`` (nothing in ``tpubench`` is
+edited).
+
+One more case runs HTTP/1.1 with a seeded fault plan (open 503s and
+mid-stream failures) under retry policy ``always``: resumes land
+mid-granule (the servers send 100,000-byte chunks, the client reads
+64 KiB granules), and each side must still stage exactly the
+population's bytes, each once.
+"""
+
+import dataclasses
+import socket
+
+import numpy as np
+import pytest
+
+import tpubench.storage.gcs_grpc as jax_gcs_grpc
+from tpubench.config import BenchConfig as JaxBenchConfig
+from tpubench.staging import device as jax_staging
+from tpubench.storage.fake import FakeBackend as JaxFakeBackend
+from tpubench.storage.fake import FaultPlan as JaxFaultPlan
+from tpubench.storage.fake_grpc_wire_server import (
+    FakeGrpcWireServer as JaxGrpcServer,
+)
+from tpubench.storage.fake_h2_server import FakeH2Server as JaxH2Server
+from tpubench.storage.fake_server import FakeGcsServer as JaxGcsServer
+from tpubench.workloads.read import run_read as jax_run_read
+
+from tpubench_torch import convert
+from tpubench_torch.config import BenchConfig
+from tpubench_torch.staging.device import make_sink_factory
+from tpubench_torch.storage.base import deterministic_bytes
+from tpubench_torch.storage.fake_grpc_wire_server import FakeGrpcWireServer
+from tpubench_torch.storage.fake_h2_server import FakeH2Server
+from tpubench_torch.storage.fake_server import FakeGcsServer
+from tpubench_torch.workloads.read import run_read
+
+OBJECT_SIZE = 777_777  # not a granule multiple: the short-tail path
+WORKERS = 2
+READS = 2
+PREFIX = "tpubench/file_"
+GRANULE = 64 * 1024
+EXTRA_ONLY_IN_JAX = {"flight"}
+
+# variant -> (protocol, server kind, transport switches)
+VARIANTS = {
+    "http": ("http", "h1", {}),
+    "http_native": ("http", "h1", {"native_receive": True}),
+    "http2": ("http", "h2", {"http2": True}),
+    "grpc": ("grpc", "grpc", {}),
+    "grpc_native": ("grpc", "grpc", {"native_receive": True}),
+    "local": ("local", None, {}),
+}
+MODES = {
+    "device_put_validate": dict(mode="device_put", validate_checksum=True),
+    "pallas": dict(mode="pallas"),
+    "device_put_depth2": dict(mode="device_put", depth=2),
+}
+CASES = [(v, m) for v in VARIANTS for m in ("device_put_validate", "pallas")]
+CASES.append(("http", "device_put_depth2"))
+
+# Both packages warn that DirectPath does not apply to a test server.
+pytestmark = pytest.mark.filterwarnings("ignore:.*directpath")
+
+SERVERS = {
+    "h1": (JaxGcsServer, FakeGcsServer),
+    "h2": (JaxH2Server, FakeH2Server),
+    "grpc": (JaxGrpcServer, FakeGrpcWireServer),
+}
+
+
+@pytest.fixture(autouse=True)
+def _wire_mode_and_devices(monkeypatch, jax_cpu_devices):
+    monkeypatch.setattr(jax_gcs_grpc, "_HAVE_LIB", False)
+
+
+def _stop(server) -> None:
+    """Stop a fake server without waiting out its accept thread: a listening
+    socket closed under a blocked ``accept`` does not wake it on Linux, so
+    the socket is shut down first (``tpubench``'s h2 and gRPC fakes would
+    otherwise spend their 5 s join timeout)."""
+    sock = getattr(server, "_sock", None)
+    if sock is not None:
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+    server.stop()
+
+
+@pytest.fixture(scope="module")
+def servers():
+    """Each kind of server, started once for the module: ``tpubench``'s
+    over a JAX store and the port's over the port's store, both of the
+    same population (the port's carried across by ``from_reference``)."""
+    jstore = JaxFakeBackend.from_population(_population())
+    _, tstore = convert.from_reference(
+        _reference_config("http", "pallas", {}), _population()
+    )
+    started = {}
+    try:
+        for kind, (jcls, tcls) in SERVERS.items():
+            started[kind] = (jcls(jstore).start(), tcls(tstore).start())
+        yield started
+    finally:
+        for pair in started.values():
+            for srv in pair:
+                _stop(srv)
+
+
+@pytest.fixture(scope="module")
+def local_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("objects")
+    for name, size, _ in _population():
+        path = root / name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(deterministic_bytes(name, size).tobytes())
+    return str(root)
+
+
+def _population():
+    return [(f"{PREFIX}{i}", OBJECT_SIZE, 1) for i in range(WORKERS)]
+
+
+def _reference_config(protocol: str, mode: str, switches: dict) -> dict:
+    cfg = JaxBenchConfig()
+    cfg.workload.workers = WORKERS
+    cfg.workload.read_calls_per_worker = READS
+    cfg.workload.object_size = OBJECT_SIZE
+    cfg.workload.granule_bytes = GRANULE
+    cfg.workload.bucket = "testbucket"
+    cfg.workload.object_name_prefix = PREFIX
+    cfg.transport.protocol = protocol
+    cfg.transport.retry.initial_backoff_s = 0.001
+    cfg.transport.retry.max_backoff_s = 0.01
+    cfg.transport.retry.jitter = False
+    cfg.transport.retry.deadline_s = 20.0
+    for k, v in switches.items():
+        setattr(cfg.transport, k, v)
+    cfg.staging.slot_bytes = 256 * 1024
+    for k, v in MODES[mode].items():
+        setattr(cfg.staging, k, v)
+    return cfg.to_dict()
+
+
+class _Recording:
+    """Sink wrapper keeping each worker's stager stats (the checksums are
+    compared per worker)."""
+
+    def __init__(self, inner, stats: dict, worker_id: int):
+        self._inner, self._stats, self._id = inner, stats, worker_id
+        if hasattr(inner, "acquire"):
+            self.acquire, self.commit = inner.acquire, inner.commit
+
+    def submit(self, mv):
+        self._inner.submit(mv)
+
+    def finish(self):
+        st = self._inner.finish()
+        self._stats[self._id] = st
+        return st
+
+
+def _recording(factory, stats: dict):
+    return lambda i: _Recording(factory(i), stats, i)
+
+
+def _run_both(variant: str, mode: str, endpoints=None, local_dir: str = "",
+              fault: dict = None):
+    """Both packages on the same config and population; ``endpoints`` is
+    the (JAX, port) server endpoint pair. Returns the two results and the
+    per-worker stager stats."""
+    protocol, _, switches = VARIANTS[variant]
+    cfg_dict = _reference_config(protocol, mode, switches)
+    if fault:
+        cfg_dict["transport"]["fault"].update(fault)
+    cfg_dict["workload"]["dir"] = local_dir
+    jcfg = JaxBenchConfig.from_dict(cfg_dict)
+    tcfg = BenchConfig.from_dict(cfg_dict)
+    if endpoints is not None:
+        jcfg.transport.endpoint, tcfg.transport.endpoint = endpoints
+    jstats, tstats = {}, {}
+    jres = jax_run_read(
+        jcfg, sink_factory=_recording(jax_staging.make_sink_factory(jcfg), jstats)
+    )
+    tres = run_read(
+        tcfg, device="cpu",
+        sink_factory=_recording(make_sink_factory(tcfg, device="cpu"), tstats),
+    )
+    return jres.to_dict(), tres.to_dict(), jstats, tstats
+
+
+def _byte_sum(name: str) -> int:
+    return int(deterministic_bytes(name, OBJECT_SIZE).sum(dtype=np.uint64))
+
+
+@pytest.mark.parametrize("variant, mode", CASES, ids=[f"{v}-{m}" for v, m in CASES])
+def test_protocol_parity(variant, mode, servers, local_dir):
+    kind = VARIANTS[variant][1]
+    endpoints = (
+        None if kind is None else tuple(srv.endpoint for srv in servers[kind])
+    )
+    jres, tres, jstats, tstats = _run_both(variant, mode, endpoints, local_dir)
+    total = WORKERS * READS * OBJECT_SIZE
+    for res in (jres, tres):
+        assert res["errors"] == 0
+        assert res["bytes_total"] == total
+        assert res["extra"]["staged_bytes"] == total
+        assert res["extra"]["staging_zero_copy"] is True
+    assert set(jres) == set(tres)
+    assert set(jres["extra"]) - EXTRA_ONLY_IN_JAX == set(tres["extra"])
+    assert set(jres["summaries"]) == set(tres["summaries"])
+    je, te = jres["extra"], tres["extra"]
+    assert je.get("checksum_ok") == te.get("checksum_ok")
+    if "staging" in je:
+        for key in ("transfers", "staged_bytes", "depth", "workers"):
+            assert je["staging"][key] == te["staging"][key], key
+    for name in jres["summaries"]:
+        assert (jres["summaries"][name]["count"]
+                == tres["summaries"][name]["count"]), name
+    if "native_conn_stats" in je:
+        assert set(je["native_conn_stats"]) == set(te["native_conn_stats"])
+    assert set(jstats) == set(tstats) == set(range(WORKERS))
+    for i in range(WORKERS):
+        assert set(jstats[i]) == set(tstats[i])
+        for key in ("staged_bytes", "transfers", "slot_bytes", "depth",
+                    "checksum_ok", "checksum_host", "checksum_device"):
+            assert jstats[i].get(key) == tstats[i].get(key), (i, key)
+        if "checksum_host" in tstats[i]:
+            want = READS * _byte_sum(f"{PREFIX}{i}") % (1 << 32)
+            assert tstats[i]["checksum_host"] % (1 << 32) == want
+
+
+def test_faulted_http_under_retry_resumes_mid_granule():
+    """Seeded open 503s and mid-stream failures under retry policy
+    ``always``: each side resumes (more opens than reads) and still stages
+    every byte exactly once — equal bytes and checksums, no error."""
+    fault = dict(error_rate=0.2, read_error_rate=0.25, seed=11)
+    cfg_dict = _reference_config("http", "device_put_validate", {})
+    cfg_dict["transport"]["fault"].update(fault)
+    _, tstore = convert.from_reference(cfg_dict, _population())
+    jstore = JaxFakeBackend.from_population(
+        _population(), fault=JaxFaultPlan(**fault)
+    )
+    jsrv = JaxGcsServer(jstore, chunk_bytes=100_000).start()
+    tsrv = FakeGcsServer(tstore, chunk_bytes=100_000).start()
+    try:
+        jres, tres, jstats, tstats = _run_both(
+            "http", "device_put_validate", (jsrv.endpoint, tsrv.endpoint),
+            fault=fault,
+        )
+    finally:
+        _stop(jsrv)
+        _stop(tsrv)
+    total = WORKERS * READS * OBJECT_SIZE
+    for res, store in ((jres, jstore), (tres, tstore)):
+        assert res["errors"] == 0
+        assert res["bytes_total"] == res["extra"]["staged_bytes"] == total
+        assert res["extra"]["checksum_ok"] is True
+        assert store.open_count > WORKERS * READS  # resumes happened
+    for i in range(WORKERS):
+        want = READS * _byte_sum(f"{PREFIX}{i}")
+        for st in (jstats[i], tstats[i]):
+            assert st["staged_bytes"] == READS * OBJECT_SIZE
+            assert st["checksum_host"] == want
+            assert st["checksum_device"] == want % (1 << 32)
+        assert jstats[i]["transfers"] == tstats[i]["transfers"]
+
+
+def test_fault_plan_is_carried_to_the_ports_store():
+    cfg_dict = _reference_config("http", "device_put_validate", {})
+    cfg_dict["transport"]["fault"].update(read_error_rate=0.5, seed=3)
+    _, store = convert.from_reference(cfg_dict, _population())
+    assert dataclasses.asdict(store.fault)["read_error_rate"] == 0.5
+    assert store.fault.seed == 3

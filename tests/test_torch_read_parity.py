@@ -188,8 +188,8 @@ def test_ported_defaults_match_reference():
 
 
 @pytest.mark.parametrize("switch", [
-    ("transport", "http2", True),
-    ("transport", "protocol", "http"),
+    ("transport", "key_file", "/nonexistent/key.json"),
+    ("dist", "num_processes", 2),
     ("obs", "flight_journal", "/tmp/j.json"),
     ("obs", "enable_tracing", True),
     ("obs", "export", "cloud"),

@@ -5,6 +5,11 @@ and CUDA, plus ``info`` (what the port would run on).
         --read-call-per-worker 2 --object-size 5242903 \\
         --staging device_put --validate --device cpu --results-dir /tmp/r
 
+The other clients read from a server (``--endpoint``, ``--bucket``,
+``--object-name-prefix``) or a directory (``--protocol local --dir``):
+``--protocol http`` (HTTP/1.1; ``--native-receive``, ``--http2``,
+``--fetch-executor native``) and ``--protocol grpc`` (``--native-receive``).
+
 ``read`` writes the same result JSON as ``tpubench read`` and prints its
 path on the last line. It runs on CUDA unless ``--device cpu`` is given;
 without a GPU it then exits nonzero instead of carrying on on the CPU.
@@ -27,9 +32,28 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("read", help="root read benchmark (main.go)")
     p.add_argument("--config", help="JSON config file (tpubench --save-config)")
     p.add_argument("--protocol", choices=("http", "grpc", "local", "fake"),
-                   help="storage protocol (fake; http with --fetch-executor "
-                        "native)")
-    p.add_argument("--endpoint", help="storage endpoint URL (http protocol)")
+                   help="storage protocol: http (JSON API), grpc (storage "
+                        "v2, wire client), local (files under --dir), fake "
+                        "(in-process store)")
+    p.add_argument("--endpoint",
+                   help="storage endpoint: http(s)://host:port for http, "
+                        "insecure://host:port (h2c) or host:port (TLS) for "
+                        "grpc")
+    p.add_argument("--dir", help="root directory of the local protocol")
+    p.add_argument("--native-receive", action="store_true",
+                   help="C++ receive: http bodies stream from the socket "
+                        "into the staging slot; grpc ReadObject lands in a "
+                        "native buffer (pooled keep-alive connections)")
+    p.add_argument("--http2", action="store_true",
+                   help="every http GET over the native HTTP/2 client (the "
+                        "reference's ForceAttemptHTTP2 branch, "
+                        "main.go:76-80); h2c on http, TLS+ALPN on https")
+    p.add_argument("--tls-ca-file",
+                   help="CA bundle to trust for TLS endpoints (test "
+                        "endpoints with a private CA)")
+    p.add_argument("--tls-insecure-skip-verify", action="store_true",
+                   help="skip TLS certificate verification (self-signed "
+                        "test endpoints only)")
     p.add_argument("--bucket", help="GCS bucket name")
     p.add_argument("--object-name-prefix", dest="object_name_prefix",
                    help="object i is <prefix><i>")
@@ -73,10 +97,21 @@ def build_config(args) -> BenchConfig:
         v = getattr(args, attr)
         if v is not None:
             setattr(w, dest, v)
+    t = cfg.transport
     if args.protocol:
-        cfg.transport.protocol = args.protocol
+        t.protocol = args.protocol
     if args.endpoint:
-        cfg.transport.endpoint = args.endpoint
+        t.endpoint = args.endpoint
+    if args.dir:
+        w.dir = args.dir
+    if args.native_receive:
+        t.native_receive = True
+    if args.http2:
+        t.http2 = True
+    if args.tls_ca_file:
+        t.tls_ca_file = args.tls_ca_file
+    if args.tls_insecure_skip_verify:
+        t.tls_insecure_skip_verify = True
     if args.staging:
         s.mode = args.staging
     if args.depth is not None:

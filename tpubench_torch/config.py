@@ -257,29 +257,15 @@ def refuse_unported(cfg: BenchConfig) -> None:
     w, t, s, o = cfg.workload, cfg.transport, cfg.staging, cfg.obs
     raw = cfg.raw
     refused = []
-    native = w.fetch_executor.startswith("native")
-    if t.protocol == "http" and not native:
+    if t.http2 and t.protocol == "http" and w.fetch_executor.startswith("native"):
         refused.append(
-            "protocol='http' with fetch_executor='python' (ROADMAP A.2: the "
-            "Python-pool route over http; fetch_executor='native' runs it)"
+            "transport.http2 with fetch_executor='native' (ROADMAP A.2: the "
+            "executor's h2 pool); fetch_executor='python' runs http2"
         )
-    elif t.protocol not in ("fake", "http"):
-        refused.append(
-            f"protocol={t.protocol!r} (ROADMAP A.2: http/grpc/local backends)"
-        )
-    if t.http2:
-        refused.append("transport.http2 (ROADMAP A.2: http/grpc/local backends)")
     if t.key_file:
-        refused.append(
-            "transport.key_file (ROADMAP A.2: http/grpc/local backends)"
-        )
+        refused.append("transport.key_file (ROADMAP A.2: token sources)")
     if t.tail.active:
         refused.append("transport.tail (ROADMAP A.2: tail tolerance)")
-    if t.fault.active and t.retry.policy != "never":
-        refused.append(
-            "fault injection under a retry policy (ROADMAP A.2: retry); "
-            "set transport.retry.policy='never' to run faults unretried"
-        )
     if o.flight_journal:
         refused.append("obs.flight_journal (ROADMAP A.3: obs plane)")
     if o.enable_tracing:

@@ -1,8 +1,15 @@
 """ctypes binding of the native engine (``csrc/engine.cc``): the part the
-executor route calls — the fetch executor (:class:`NativeFetchPool`), the
+port's routes call — the fetch executor (:class:`NativeFetchPool`), the
 loopback source server (:class:`NativeSourceServer`), the transport
-counters and the TLS probe. A copy of the same surface of
-``tpubench/native/engine.py``.
+counters and the TLS probe, and the storage clients' surface: connection
+handles (``connect``/``conn_*``, plain or TLS), the streaming HTTP/1.1
+GET that lands body bytes in caller memory (``conn_get_begin`` /
+``conn_body_read`` / ``conn_get_end``), the HTTP/2 GET stream
+(``h2_submit_get`` / ``h2_poll``), the gRPC ReadObject (``grpc_read``) and
+aligned receive buffers (:class:`AlignedBuffer`). A copy of the same
+surface of ``tpubench/native/engine.py``; its batch calls
+(``tb_grpc_submit``, ``tb_conn_request``) come with ``read_ranges``
+(``ROADMAP.md`` A.5), their only caller.
 
 The library is built from this package's own sources
 (:mod:`tpubench_torch.native.build`), so every symbol is declared
@@ -66,16 +73,103 @@ def _check(rc: int, what: str) -> int:
     return rc
 
 
+def buffer_address(dst) -> tuple[int, int]:
+    """``(address, nbytes)`` of a writable, contiguous buffer (memoryview,
+    bytearray, numpy array — e.g. the free view of a page-locked slot),
+    without copying it. An empty buffer has no address to give: ``(0,
+    0)``."""
+    mv = memoryview(dst)
+    if mv.nbytes == 0:
+        return 0, 0
+    return ctypes.addressof(ctypes.c_char.from_buffer(mv)), mv.nbytes
+
+
+class AlignedBuffer:
+    """``posix_memalign``'d receive buffer (``tb_alloc_aligned``), seen
+    through a numpy view; the h2 and gRPC native clients land whole
+    bodies here. Freed by :meth:`free` (or when collected)."""
+
+    def __init__(self, engine: "NativeEngine", size: int, align: int = 4096):
+        self._engine = engine
+        self.size = size
+        ptr = engine.lib.tb_alloc_aligned(size, align)
+        if not ptr:
+            raise MemoryError(f"aligned alloc of {size} failed")
+        self._ptr = ptr
+        self.array = np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)), shape=(size,)
+        )
+
+    @property
+    def address(self) -> int:
+        return self._ptr
+
+    def view(self, n: Optional[int] = None) -> memoryview:
+        return memoryview(self.array)[: self.size if n is None else n]
+
+    def free(self) -> None:
+        if self._ptr:
+            self.array = None
+            self._engine.lib.tb_free_aligned(self._ptr)
+            self._ptr = 0
+
+    def __del__(self):
+        try:
+            self.free()
+        except Exception:
+            pass
+
+
 class NativeEngine:
-    """The loaded library with every entry point the route calls declared
+    """The loaded library with every entry point the port calls declared
     (a pointer passed as a default ``int`` would be cut to 32 bits)."""
 
     def __init__(self):
         lib = ctypes.CDLL(str(build_library()))
         c = ctypes
         i64p = c.POINTER(c.c_int64)
+        ip = c.POINTER(c.c_int)
         lib.tb_tls_available.restype = c.c_int
         lib.tb_tls_available.argtypes = []
+        lib.tb_alloc_aligned.restype = c.c_void_p
+        lib.tb_alloc_aligned.argtypes = [c.c_size_t, c.c_size_t]
+        lib.tb_free_aligned.restype = None
+        lib.tb_free_aligned.argtypes = [c.c_void_p]
+        lib.tb_http_connect.restype = c.c_int
+        lib.tb_http_connect.argtypes = [c.c_char_p, c.c_int]
+        lib.tb_http_close.restype = c.c_int
+        lib.tb_http_close.argtypes = [c.c_int]
+        lib.tb_conn_plain.restype = c.c_int64
+        lib.tb_conn_plain.argtypes = [c.c_int]
+        lib.tb_conn_tls.restype = c.c_int64
+        lib.tb_conn_tls.argtypes = [
+            c.c_int, c.c_char_p, c.c_char_p, c.c_int, c.c_int,
+        ]
+        lib.tb_conn_close.restype = c.c_int
+        lib.tb_conn_close.argtypes = [c.c_int64]
+        lib.tb_conn_get_begin.restype = c.c_int64
+        lib.tb_conn_get_begin.argtypes = [
+            c.c_int64, c.c_char_p, c.c_int, c.c_char_p, c.c_char_p,
+            ip, i64p, i64p,
+        ]
+        lib.tb_conn_body_read.restype = c.c_int64
+        lib.tb_conn_body_read.argtypes = [c.c_int64, c.c_void_p, c.c_int64]
+        lib.tb_conn_get_end.restype = c.c_int
+        lib.tb_conn_get_end.argtypes = [c.c_int64, ip]
+        lib.tb_h2_submit_get.restype = c.c_int64
+        lib.tb_h2_submit_get.argtypes = [
+            c.c_int64, c.c_char_p, c.c_char_p, c.c_char_p,
+            c.c_void_p, c.c_int64, c.c_uint64,
+        ]
+        lib.tb_grpc_poll.restype = c.c_int64
+        lib.tb_grpc_poll.argtypes = [
+            c.c_int64, c.POINTER(c.c_uint64), i64p, ip, ip, i64p, i64p,
+        ]
+        lib.tb_grpc_read.restype = c.c_int64
+        lib.tb_grpc_read.argtypes = [
+            c.c_int64, c.c_char_p, c.c_char_p, c.c_char_p, c.c_char_p,
+            c.c_int64, c.c_int64, c.c_void_p, c.c_int64, i64p, i64p, ip,
+        ]
         lib.tb_pool_create.restype = c.c_int64
         lib.tb_pool_create.argtypes = [
             c.c_int, c.c_int, c.c_int, c.c_char_p, c.c_int,
@@ -125,6 +219,168 @@ class NativeEngine:
 
     def tls_available(self) -> bool:
         return bool(self.lib.tb_tls_available())
+
+    def alloc(self, size: int, align: int = 4096) -> AlignedBuffer:
+        return AlignedBuffer(self, size, align)
+
+    # ------------------------------------------------------ conn handles --
+    # The same receive loop over plaintext TCP or TLS (dlopen'd OpenSSL).
+
+    def connect(
+        self,
+        host: str,
+        port: int,
+        *,
+        tls: bool = False,
+        sni: str = "",
+        cafile: str = "",
+        insecure: bool = False,
+        alpn_h2: bool = False,
+    ) -> int:
+        """Open a connection handle. TLS verification: peer cert against
+        ``cafile`` (or the system store) plus hostname/IP match on ``sni``
+        — ``insecure`` skips both (self-signed test endpoints).
+        ``alpn_h2`` offers and requires ALPN h2 (the gRPC and HTTP/2
+        clients)."""
+        fd = _check(self.lib.tb_http_connect(host.encode(), port),
+                    f"connect {host}:{port}")
+        if not tls:
+            return _check(self.lib.tb_conn_plain(fd), "conn_plain")
+        h = self.lib.tb_conn_tls(
+            fd, (sni or host).encode(), cafile.encode(),
+            1 if insecure else 0, 1 if alpn_h2 else 0,
+        )
+        if h <= 0:
+            self.lib.tb_http_close(fd)  # handshake failed: fd still ours
+            _check(int(h), f"tls handshake {host}:{port}")
+        return h
+
+    def conn_close(self, handle: int) -> None:
+        self.lib.tb_conn_close(handle)
+
+    def conn_get_begin(
+        self, handle: int, host: str, port: int, path: str, headers: str = "",
+    ) -> dict:
+        """Streaming GET, phase 1: send the request and parse the response
+        headers. Body bytes then stream via :meth:`conn_body_read`
+        straight into caller memory. ``content_len`` is -1 for a
+        close-delimited body. On NativeError the caller must
+        :meth:`conn_close` the handle."""
+        status = ctypes.c_int(0)
+        clen = ctypes.c_int64(-1)
+        fb = ctypes.c_int64(0)
+        rc = self.lib.tb_conn_get_begin(
+            handle, host.encode(), port, path.encode(), headers.encode(),
+            ctypes.byref(status), ctypes.byref(clen), ctypes.byref(fb),
+        )
+        _check(rc, f"conn_get_begin {host}:{port}{path}")
+        return {
+            "status": status.value,
+            "content_len": clen.value,
+            "first_byte_ns": fb.value,
+        }
+
+    def conn_body_read(self, handle: int, dst, want: int) -> int:
+        """Streaming GET, phase 2: up to ``want`` body bytes land directly
+        in ``dst`` (a writable buffer: a staging slot's free view, a
+        granule buffer). Returns 0 at body end. The recv runs without the
+        GIL. ``want`` is clamped to the destination's size — the engine
+        fills ``want`` fully on close-delimited bodies, so an unclamped
+        over-ask would overflow the buffer."""
+        addr, nbytes = buffer_address(dst)
+        want = min(want, nbytes)
+        if want <= 0:
+            return 0
+        return _check(
+            self.lib.tb_conn_body_read(handle, addr, want), "conn_body_read"
+        )
+
+    def conn_get_end(self, handle: int) -> bool:
+        """Streaming GET, phase 3: whether the connection may carry
+        another request (False when the body was abandoned mid-stream)."""
+        reusable = ctypes.c_int(0)
+        _check(
+            self.lib.tb_conn_get_end(handle, ctypes.byref(reusable)),
+            "conn_get_end",
+        )
+        return bool(reusable.value)
+
+    # ------------------------------------------------------- h2 and gRPC --
+    def h2_submit_get(
+        self, handle: int, authority: str, path: str, buf: AlignedBuffer,
+        headers: str = "", tag: int = 0,
+    ) -> None:
+        """Open one HTTP/2 GET stream (the reference's HTTP/2 client
+        branch, main.go:76-80): DATA payload bytes land in ``buf``; the
+        completion from :meth:`h2_poll` carries ``:status``."""
+        rc = self.lib.tb_h2_submit_get(
+            handle, authority.encode(), path.encode(), headers.encode(),
+            buf.address, buf.size, tag,
+        )
+        if rc != 0:
+            _check(int(rc), f"h2_submit_get {path}")
+
+    def h2_poll(self, handle: int) -> Optional[dict]:
+        """Wait for the next stream completion on the connection; None
+        when no stream is active. ``result`` >= 0 is the byte count
+        landed, negative that stream's error code (the connection
+        survives). Raises NativeError on connection-fatal errors (the
+        caller must then conn_close)."""
+        tag = ctypes.c_uint64(0)
+        result = ctypes.c_int64(0)
+        gs = ctypes.c_int(-1)
+        hs = ctypes.c_int(-1)
+        fb = ctypes.c_int64(0)
+        total = ctypes.c_int64(0)
+        rc = self.lib.tb_grpc_poll(
+            handle, ctypes.byref(tag), ctypes.byref(result),
+            ctypes.byref(gs), ctypes.byref(hs),
+            ctypes.byref(fb), ctypes.byref(total),
+        )
+        if rc < 0:
+            _check(int(rc), "h2_poll")
+        if rc == 0:
+            return None
+        return {
+            "tag": tag.value,
+            "result": result.value,
+            "grpc_status": gs.value,
+            "http_status": hs.value,
+            "first_byte_ns": fb.value,
+            "total_ns": total.value,
+        }
+
+    def grpc_read(
+        self, handle: int, authority: str, bucket_path: str,
+        object_name: str, buf: AlignedBuffer, read_offset: int = 0,
+        read_limit: int = 0, headers: str = "",
+    ) -> dict:
+        """One google.storage.v2.Storage/ReadObject on a connection handle
+        (the engine's h2 client): content bytes land in ``buf``.
+        Sequential RPCs reuse the handle (h2 streams 1, 3, 5, ...). On a
+        nonzero grpc-status the NativeError carries ``grpc_status``; on
+        any error the caller must :meth:`conn_close` the handle."""
+        fb = ctypes.c_int64(0)
+        total_ns = ctypes.c_int64(0)
+        grpc_status = ctypes.c_int(-1)
+        n = self.lib.tb_grpc_read(
+            handle, authority.encode(), bucket_path.encode(),
+            object_name.encode(), headers.encode(), read_offset, read_limit,
+            buf.address, buf.size, ctypes.byref(fb), ctypes.byref(total_ns),
+            ctypes.byref(grpc_status),
+        )
+        if n < 0:
+            try:
+                _check(n, f"grpc_read {object_name}")
+            except NativeError as e:
+                e.grpc_status = grpc_status.value  # type: ignore[attr-defined]
+                raise
+        return {
+            "length": n,
+            "first_byte_ns": fb.value,
+            "total_ns": total_ns.value,
+            "grpc_status": grpc_status.value,
+        }
 
     def pool_create(
         self,
@@ -317,3 +573,9 @@ def get_engine() -> NativeEngine:
         if _engine is None:
             _engine = NativeEngine()
         return _engine
+
+
+def peek_engine() -> Optional[NativeEngine]:
+    """The engine if this process has already loaded it — never builds
+    (per-run counter deltas of the read workload)."""
+    return _engine

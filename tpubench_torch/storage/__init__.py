@@ -1,8 +1,25 @@
-"""Storage backends of the port: the protocol (:mod:`.base`), the
-in-process fake store (:mod:`.fake`) and the JSON-API request side the
-native fetch executor drives (:mod:`.gcs_http`). The http reader of the
-Python route, grpc/local clients, the retrying wrapper and tail tolerance
-arrive in later slices (``ROADMAP.md`` A.2)."""
+"""Storage backends of the port — the read side of ``tpubench/storage``.
+
+* :mod:`.base` — the backend protocol;
+* :mod:`.fake` — the in-process fake store (deterministic bytes, faults);
+* :mod:`.gcs_http` — the JSON-API client: HTTP/1.1 (the reference's
+  default), native streaming receive into the caller's memory, and the
+  whole-client HTTP/2 branch; also the request parts of the native fetch
+  executor;
+* :mod:`.gcs_grpc` — the storage-v2 gRPC client, wire mode only
+  (:mod:`.grpc_wire`), with native receive;
+* :mod:`.local_fs` — files under a directory root;
+* :mod:`.retrying` — the client-level retry decorator with mid-stream
+  resume, over every backend;
+* the hermetic servers the clients are run against: :mod:`.fake_server`
+  (HTTP/1.1), :mod:`.fake_h2_server` (HTTP/2), :mod:`.fake_grpc_wire_server`
+  (gRPC).
+
+Still to come (``ROADMAP.md``): tail tolerance (hedging, stall watchdog,
+breaker) and token sources (A.2), gRPC library mode (A.2), ``read_ranges``
+(A.5), the write side of every backend (A.6), the reactor-fetch wrapper of
+the serve plane (A.7).
+"""
 
 from tpubench_torch.storage.base import (  # noqa: F401
     ObjectMeta,
@@ -12,6 +29,7 @@ from tpubench_torch.storage.base import (  # noqa: F401
     deterministic_bytes,
 )
 from tpubench_torch.storage.fake import FakeBackend, FaultPlan  # noqa: F401
+from tpubench_torch.storage.retrying import RetryingBackend
 
 
 def fault_plan(cfg):
@@ -26,21 +44,39 @@ def fault_plan(cfg):
 
 def open_backend(cfg) -> StorageBackend:
     """Backend from a BenchConfig (reference: main.go:169-177 protocol
-    switch). ``fake`` holds one object per worker, as ``tpubench``'s does;
-    ``http`` is the JSON-API backend of the native fetch executor."""
+    switch). ``fake`` holds one object per worker, as ``tpubench``'s does.
+    Every backend is wrapped in the client-level retry policy
+    (main.go:179-184) unless ``transport.retry.policy`` is ``never``."""
     proto = cfg.transport.protocol
-    if proto == "http":
+    if proto == "fake":
+        inner = FakeBackend.prepopulated(
+            prefix=cfg.workload.object_name_prefix,
+            count=max(cfg.workload.workers, cfg.workload.threads),
+            size=cfg.workload.object_size,
+            fault=fault_plan(cfg),
+        )
+    elif proto == "http":
         from tpubench_torch.storage.gcs_http import GcsHttpBackend
 
-        return GcsHttpBackend(cfg.workload.bucket, transport=cfg.transport)
-    if proto != "fake":
-        raise NotImplementedError(
-            f"protocol {proto!r} is not ported to tpubench_torch yet "
-            "(ROADMAP A.2: http/grpc/local backends)"
-        )
-    return FakeBackend.prepopulated(
-        prefix=cfg.workload.object_name_prefix,
-        count=max(cfg.workload.workers, cfg.workload.threads),
-        size=cfg.workload.object_size,
-        fault=fault_plan(cfg),
-    )
+        inner = GcsHttpBackend(cfg.workload.bucket, transport=cfg.transport)
+    elif proto == "grpc":
+        from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
+
+        inner = GcsGrpcBackend(cfg.workload.bucket, transport=cfg.transport)
+    elif proto == "local":
+        from tpubench_torch.storage.local_fs import LocalFsBackend
+
+        inner = LocalFsBackend(root=cfg.workload.dir)
+    else:
+        raise ValueError(f"unknown protocol {proto!r} (http|grpc|local|fake)")
+    if cfg.transport.retry.policy == "never":
+        return inner
+    return RetryingBackend(inner, cfg.transport.retry)
+
+
+def base_backend(backend):
+    """The client under the decorators (retry): what holds the connection
+    pools and the request parts."""
+    while hasattr(backend, "inner"):
+        backend = backend.inner
+    return backend

@@ -245,5 +245,25 @@ class FakeBackend:
             generation=gen,
         )
 
+    def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
+        # page_size is a wire concept (maxResults/pageToken): the fake
+        # servers slice pages; the store serves one listing.
+        with self._lock:
+            return sorted(
+                (
+                    ObjectMeta(n, len(o), self._generation.get(n, 1))
+                    for n, o in self._objects.items()
+                    if n.startswith(prefix)
+                ),
+                key=lambda m: m.name,
+            )
+
+    def stat(self, name: str) -> ObjectMeta:
+        with self._lock:
+            obj = self._objects.get(name)
+            if obj is None:
+                raise StorageError(f"object not found: {name}", transient=False, code=404)
+            return ObjectMeta(name, len(obj), self._generation.get(name, 1))
+
     def close(self) -> None:
         pass

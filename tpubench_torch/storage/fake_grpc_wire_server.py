@@ -1,0 +1,416 @@
+"""Hermetic storage-v2 gRPC server speaking raw HTTP/2 frames — no grpcio.
+The read plane of ``tpubench/storage/fake_grpc_wire_server.py``.
+
+``endpoint`` is ``insecure://host:port`` (h2c) by default; ``tls=True``
+serves TLS with ALPN h2 and an ephemeral self-signed certificate
+(``host:port``, ``cafile`` the PEM to trust). It serves ReadObject
+(content in messages of at most 2 MiB, as the real service chunks it),
+GetObject and ListObjects from the same :class:`FakeBackend` the HTTP
+fakes use, so one FaultPlan governs every transport in a run:
+
+- open faults (latency, error_rate, 404/416) fire inside
+  ``backend.open_read``/``stat`` and map to grpc-status trailers;
+- mid-stream read faults from the backend reader map to trailers, except
+  the injected connection reset (StorageError code 104), which kills the
+  socket so the client exercises its EOF path.
+
+The write plane (StartResumableWrite, WriteObject, BidiWriteObject,
+QueryWriteStatus, DeleteObject) comes with the store's write side
+(``ROADMAP.md`` A.6); until then those methods answer UNIMPLEMENTED.
+"""
+
+from __future__ import annotations
+
+import queue
+import socket
+import ssl
+import struct
+import threading
+from typing import Optional
+
+from tpubench_torch.storage.base import StorageError
+from tpubench_torch.storage.fake import FakeBackend
+from tpubench_torch.storage.fake_h2_server import (
+    _PREFACE,
+    _HpackError,
+    _hp_literal,
+    decode_request_headers,
+)
+from tpubench_torch.storage.fake_server import (
+    inject_open_fault,
+    make_self_signed_cert,
+)
+from tpubench_torch.storage.grpc_wire import proto
+from tpubench_torch.storage.grpc_wire.framing import (
+    OK,
+    FrameDecoder,
+    WireCodecError,
+    encode_frame,
+    storage_error_to_status,
+)
+
+_DATA, _HEADERS, _RST_STREAM, _SETTINGS, _PING, _GOAWAY = 0, 1, 3, 4, 6, 7
+_UNIMPLEMENTED = 12
+
+# Largest content per ReadObjectResponse (google.storage.v2 caps
+# ChecksummedData at 2 MiB).
+MAX_READ_CHUNK = 2 * 1024 * 1024
+
+
+class _Stream:
+    def __init__(self, stream_id: int, headers: dict):
+        self.id = stream_id
+        self.headers = headers
+        self.q: "queue.Queue[Optional[bytes]]" = queue.Queue()
+        self.cancelled = threading.Event()
+
+
+class _Rsp:
+    """Per-stream response side: lazy initial HEADERS, framed DATA
+    messages, trailers (trailers-only when nothing was sent yet)."""
+
+    def __init__(self, conn: "_GrpcConn", stream_id: int):
+        self._conn = conn
+        self._sid = stream_id
+        self._opened = False
+        self.done = False
+
+    def msg(self, m: "proto.Msg") -> None:
+        conn = self._conn
+        if not self._opened:
+            self._opened = True
+            conn.send_frame(
+                _HEADERS, 0x4, self._sid,
+                _hp_literal(":status", "200")
+                + _hp_literal("content-type", "application/grpc"),
+            )
+        mv = memoryview(encode_frame(m.encode()))
+        step = conn.client_max_frame
+        for off in range(0, len(mv), step):
+            conn.send_frame(_DATA, 0, self._sid, bytes(mv[off : off + step]))
+
+    def trailers(self, status: int, message: str = "") -> None:
+        if self.done:
+            return
+        self.done = True
+        block = b""
+        if not self._opened:
+            # Trailers-only response (legal gRPC: one HEADERS frame).
+            block += _hp_literal(":status", "200") + _hp_literal(
+                "content-type", "application/grpc"
+            )
+        block += _hp_literal("grpc-status", str(status))
+        if message:
+            block += _hp_literal(
+                "grpc-message", message.replace("\r", " ").replace("\n", " ")
+            )
+        self._conn.send_frame(_HEADERS, 0x4 | 0x1, self._sid, block)
+
+
+class _GrpcConn:
+    def __init__(self, sock: socket.socket, backend: FakeBackend):
+        self.sock = sock
+        self.backend = backend
+        self.wlock = threading.Lock()
+        self.client_max_frame = 16384
+        self._streams: dict[int, _Stream] = {}
+
+    # ---------------------------------------------------------- frame io --
+    def _recv_all(self, n: int) -> Optional[bytes]:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                return None
+            buf += chunk
+        return buf
+
+    def send_frame(self, ftype: int, flags: int, stream: int, payload: bytes):
+        hdr = struct.pack("!I", len(payload))[1:] + bytes(
+            [ftype, flags]
+        ) + struct.pack("!I", stream & 0x7FFFFFFF)
+        with self.wlock:
+            self.sock.sendall(hdr + payload)
+
+    def abort(self) -> None:
+        """Abrupt reset (the injected code-104 fault): ``SO_LINGER(1,0)``
+        then close, after ``shutdown(SHUT_RD)`` wakes the frame loop's
+        blocked ``recv`` (which would otherwise hold the socket open), so
+        the peer sees a reset at once."""
+        try:
+            self.sock.setsockopt(
+                socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0),
+            )
+        except OSError:
+            pass
+        try:
+            self.sock.shutdown(socket.SHUT_RD)
+        except OSError:
+            pass
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+    # ------------------------------------------------------------ serving --
+    def serve(self) -> None:
+        try:
+            first = self._recv_all(len(_PREFACE))
+            if first != _PREFACE:
+                return
+            self.send_frame(_SETTINGS, 0, 0, b"")
+            while True:
+                fh = self._recv_all(9)
+                if fh is None:
+                    return
+                flen = (fh[0] << 16) | (fh[1] << 8) | fh[2]
+                ftype, fflags = fh[3], fh[4]
+                stream = struct.unpack("!I", fh[5:9])[0] & 0x7FFFFFFF
+                payload = self._recv_all(flen) if flen else b""
+                if payload is None:
+                    return
+                if ftype == _SETTINGS and not fflags & 0x1:
+                    for off in range(0, len(payload) - 5, 6):
+                        ident, value = struct.unpack_from("!HI", payload, off)
+                        if ident == 0x5:  # SETTINGS_MAX_FRAME_SIZE
+                            self.client_max_frame = value
+                    self.send_frame(_SETTINGS, 0x1, 0, b"")
+                elif ftype == _PING and not fflags & 0x1:
+                    self.send_frame(_PING, 0x1, 0, payload)
+                elif ftype == _HEADERS:
+                    if not fflags & 0x4:
+                        return  # CONTINUATION unsupported: drop conn
+                    block = payload
+                    if fflags & 0x8:  # PADDED
+                        pad = block[0]
+                        block = block[1 : len(block) - pad]
+                    if fflags & 0x20:  # PRIORITY
+                        block = block[5:]
+                    try:
+                        hdrs = decode_request_headers(block)
+                    except _HpackError:
+                        continue
+                    st = _Stream(stream, hdrs)
+                    self._streams[stream] = st
+                    if fflags & 0x1:
+                        st.q.put(None)
+                    threading.Thread(
+                        target=self._dispatch, args=(st,),
+                        name=f"grpc-wire-stream-{stream}", daemon=True,
+                    ).start()
+                elif ftype == _DATA:
+                    st = self._streams.get(stream)
+                    if st is not None:
+                        if fflags & 0x8 and payload:  # PADDED
+                            pad = payload[0]
+                            payload = payload[1 : len(payload) - pad]
+                        if payload:
+                            st.q.put(payload)
+                        if fflags & 0x1:
+                            st.q.put(None)
+                elif ftype == _RST_STREAM:
+                    st = self._streams.pop(stream, None)
+                    if st is not None:
+                        st.cancelled.set()
+                        st.q.put(None)
+                elif ftype == _GOAWAY:
+                    return
+        except OSError:
+            return
+        finally:
+            for st in self._streams.values():
+                st.q.put(None)  # unblock any handler still reading
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+
+    # --------------------------------------------------------- dispatch --
+    def _dispatch(self, st: _Stream) -> None:
+        method = st.headers.get(":path", "").rsplit("/", 1)[-1]
+        handler = getattr(self, f"_rpc_{method}", None)
+        rsp = _Rsp(self, st.id)
+        try:
+            if handler is None:
+                rsp.trailers(_UNIMPLEMENTED, f"unknown method {method!r}")
+                return
+            handler(st, rsp)
+        except StorageError as e:
+            if getattr(e, "code", None) == 104:
+                self.abort()
+                return
+            status, msg = storage_error_to_status(e)
+            try:
+                rsp.trailers(status, msg)
+            except OSError:
+                pass
+        except OSError:
+            pass
+        except Exception as e:  # handler bug: surface as UNKNOWN, not a hang
+            try:
+                rsp.trailers(2, f"{type(e).__name__}: {e}")
+            except OSError:
+                pass
+
+    def _one_msg(self, st: _Stream) -> bytes:
+        """The single request message of a unary or server-streaming
+        call (raises WireCodecError on any other count)."""
+        dec = FrameDecoder()
+        msgs = []
+        while True:
+            m = dec.next()
+            if m is not None:
+                msgs.append(m)
+                continue
+            item = st.q.get()
+            if item is None:
+                dec.finish()  # partial frame at END_STREAM → WireCodecError
+                break
+            dec.feed(item)
+        if len(msgs) != 1:
+            raise WireCodecError(f"unary call carried {len(msgs)} messages")
+        return msgs[0]
+
+    def _gate(self) -> None:
+        """Open-time fault gate for the metadata unaries (reads roll
+        inside ``backend.open_read`` instead — one roll per op)."""
+        if inject_open_fault(self.backend):
+            raise StorageError("injected unavailability", transient=True, code=503)
+
+    @staticmethod
+    def _obj(meta) -> proto.Object:
+        return proto.Object(
+            name=meta.name, generation=meta.generation, size=meta.size
+        )
+
+    # --------------------------------------------------------- read plane --
+    def _rpc_ReadObject(self, st: _Stream, rsp: _Rsp) -> None:
+        req = proto.ReadObjectRequest.decode(self._one_msg(st))
+        be = self.backend
+        meta = be.stat(req.object)
+        start = req.read_offset
+        length = req.read_limit or max(meta.size - start, 0)
+        reader = be.open_read(req.object, start=start, length=length)
+        try:
+            sent_meta = False
+            mv = memoryview(bytearray(MAX_READ_CHUNK))
+            while True:
+                if st.cancelled.is_set():
+                    return
+                n = reader.readinto(mv)
+                if n <= 0:
+                    break
+                content = bytes(mv[:n])
+                rsp.msg(
+                    proto.ReadObjectResponse(
+                        checksummed_data=proto.ChecksummedData(
+                            content=content, crc32c=proto.crc32c_of(content),
+                        ),
+                        metadata=None if sent_meta else self._obj(meta),
+                    )
+                )
+                sent_meta = True
+            if not sent_meta:
+                # Empty body: metadata still rides the (only) response.
+                rsp.msg(proto.ReadObjectResponse(metadata=self._obj(meta)))
+            rsp.trailers(OK)
+        finally:
+            reader.close()
+
+    def _rpc_GetObject(self, st: _Stream, rsp: _Rsp) -> None:
+        req = proto.GetObjectRequest.decode(self._one_msg(st))
+        self._gate()
+        rsp.msg(self._obj(self.backend.stat(req.object)))
+        rsp.trailers(OK)
+
+    def _rpc_ListObjects(self, st: _Stream, rsp: _Rsp) -> None:
+        req = proto.ListObjectsRequest.decode(self._one_msg(st))
+        self._gate()
+        metas = self.backend.list(req.prefix)
+        start = int(req.page_token) if req.page_token else 0
+        if req.page_size:
+            page = metas[start : start + req.page_size]
+        else:
+            page = metas[start:]
+        nxt = ""
+        if req.page_size and start + len(page) < len(metas):
+            nxt = str(start + len(page))
+        rsp.msg(
+            proto.ListObjectsResponse(
+                objects=[self._obj(m) for m in page], next_page_token=nxt
+            )
+        )
+        rsp.trailers(OK)
+
+
+class FakeGrpcWireServer:
+    """Threaded hermetic storage-v2 gRPC server (raw frames, no grpcio);
+    a context manager."""
+
+    def __init__(self, backend: Optional[FakeBackend] = None, port: int = 0,
+                 tls: bool = False):
+        self.backend = backend or FakeBackend()
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind(("127.0.0.1", port))
+        self._sock.listen(64)
+        self._port = self._sock.getsockname()[1]
+        self._tls = tls
+        self.cafile = ""
+        self._ctx = None
+        if tls:
+            self.cafile, keyfile = make_self_signed_cert()
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(self.cafile, keyfile)
+            ctx.set_alpn_protocols(["h2"])
+            self._ctx = ctx
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def endpoint(self) -> str:
+        if self._tls:
+            return f"127.0.0.1:{self._port}"  # no scheme = TLS (like real GCS)
+        return f"insecure://127.0.0.1:{self._port}"
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            if self._ctx is not None:
+                try:
+                    conn = self._ctx.wrap_socket(conn, server_side=True)
+                except (ssl.SSLError, OSError):
+                    continue
+            threading.Thread(
+                target=_GrpcConn(conn, self.backend).serve,
+                name="grpc-wire-conn", daemon=True,
+            ).start()
+
+    def start(self) -> "FakeGrpcWireServer":
+        self._thread = threading.Thread(
+            target=self._accept_loop, name="grpc-wire-accept", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)  # wakes the blocked accept
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        if self._thread:
+            self._thread.join(timeout=5)
+
+    def __enter__(self) -> "FakeGrpcWireServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

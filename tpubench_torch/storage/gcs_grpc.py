@@ -1,0 +1,313 @@
+"""GCS gRPC (storage v2) backend — the wire mode of
+``tpubench/storage/gcs_grpc.py`` (reference ``CreateGrpcClient``,
+main.go:106-117).
+
+The port always speaks the dependency-free wire stack
+(:mod:`tpubench_torch.storage.grpc_wire`: hand-rolled protobuf and gRPC
+framing over raw h2 frames). ``tpubench`` picks library mode (``grpcio``
+plus the generated storage-v2 types) whenever both import; the port does
+not choose its mode by what happens to be installed, so it runs the same
+client on every machine.
+
+* **Connection pool**: ``grpc_conn_pool_size`` channels (main.go:30,111),
+  round-robin; each channel keeps a few h2 connections, one RPC each.
+* **2 MiB chunking**: the server streams ``ReadObjectResponse`` messages of
+  at most 2 MiB (why the reference sized its copy buffer at 2 MB,
+  main.go:123-125); the reader hands each message's bytes out through
+  ``readinto`` without buffering whole objects.
+* **Native receive** (``transport.native_receive``): the engine's h2 gRPC
+  client runs ReadObject and lands the content in an aligned buffer, with
+  a native first-byte stamp; pooled engine connections.
+
+Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item: an
+explicit ``channel=`` and Google endpoints (gRPC library mode and token
+sources, A.2), ``read_ranges`` (A.5), and the write side (A.6).
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+import warnings
+from typing import Optional
+
+from tpubench_torch.config import TransportConfig
+from tpubench_torch.native.engine import (
+    PERMANENT_CODES,
+    TB_EGRPC,
+    TB_ETOOBIG,
+    NativeError,
+)
+from tpubench_torch.storage.base import ObjectMeta, StorageError
+from tpubench_torch.storage.gcs_http import _NativeBufReader
+from tpubench_torch.storage.grpc_wire import proto as wp
+from tpubench_torch.storage.grpc_wire.client import GrpcWireChannel
+
+_SVC = "/google.storage.v2.Storage"
+DEFAULT_ENDPOINT = "storage.googleapis.com:443"
+
+# gRPC server chunk ceiling (storage v2 MAX_READ_CHUNK_BYTES is 2 MiB).
+MAX_READ_CHUNK = 2 * 1024 * 1024
+
+# grpc-status values the native path reports as raw ints, classified as the
+# reference's library mode classifies its status codes: DEADLINE_EXCEEDED,
+# RESOURCE_EXHAUSTED, ABORTED, INTERNAL, UNAVAILABLE are transient (UNKNOWN
+# is not).
+_TRANSIENT_STATUS_INTS = {4, 8, 10, 13, 14}
+_STATUS_HTTPISH = {5: 404, 11: 416, 14: 503}
+
+
+class _WireGrpcReader:
+    """Streams framed ReadObjectResponse messages off a
+    :class:`~tpubench_torch.storage.grpc_wire.client.WireCall`, carrying a
+    message's leftover bytes between ``readinto`` calls. The first-byte
+    stamp is taken on the raw message bytes, before protobuf decode."""
+
+    def __init__(self, call):
+        self._call = call
+        self._pending = memoryview(b"")
+        self.first_byte_ns: Optional[int] = None
+        self._done = False
+
+    def readinto(self, buf: memoryview) -> int:
+        if self._done and not self._pending:
+            return 0
+        while not self._pending:
+            try:
+                raw = self._call.recv_message()
+            except StorageError:
+                self._done = True
+                self._call.cancel()
+                raise
+            if raw is None:
+                self._done = True
+                return 0
+            arrival_ns = time.perf_counter_ns()
+            msg = wp.ReadObjectResponse.decode(raw)
+            if self.first_byte_ns is None:
+                self.first_byte_ns = arrival_ns
+            cd = msg.checksummed_data
+            if cd is not None and cd.content:
+                self._pending = memoryview(cd.content)
+        n = min(len(buf), len(self._pending))
+        buf[:n] = self._pending[:n]
+        self._pending = self._pending[n:]
+        return n
+
+    def close(self) -> None:
+        if self._done:
+            self._call.close()  # clean end: the connection can be reused
+        else:
+            self._call.cancel()  # abandoned mid-stream: RST + discard
+        self._done = True
+
+
+class GcsGrpcBackend:
+    def __init__(
+        self,
+        bucket: str,
+        transport: Optional[TransportConfig] = None,
+        channel=None,
+    ):
+        self.bucket = bucket
+        self.transport = transport or TransportConfig()
+        t = self.transport
+        endpoint = t.endpoint or DEFAULT_ENDPOINT
+        if channel is not None:
+            raise NotImplementedError(
+                "an explicit grpc channel needs gRPC library mode (grpcio), "
+                "which is not ported to tpubench_torch (ROADMAP A.2: gRPC "
+                "library mode)"
+            )
+        if "googleapis.com" in endpoint or t.key_file:
+            raise NotImplementedError(
+                "gRPC to a Google endpoint needs token sources and library "
+                "mode, which are not ported to tpubench_torch yet (ROADMAP "
+                "A.2: token sources, gRPC library mode); give a test server's "
+                "transport.endpoint"
+            )
+        if t.directpath:
+            # DirectPath serves storage.googleapis.com only: say so rather
+            # than ignore the knob silently (tpubench's wire-mode warning).
+            warnings.warn(
+                f"transport.directpath=True ignored for custom endpoint "
+                f"{endpoint!r}: DirectPath serves storage.googleapis.com only",
+                stacklevel=2,
+            )
+        host, port, tls = self._native_endpoint()
+        self._channels = [
+            GrpcWireChannel(
+                host, port, tls=tls, cafile=t.tls_ca_file or None,
+                insecure_skip_verify=t.tls_insecure_skip_verify,
+            )
+            for _ in range(max(1, t.grpc_conn_pool_size))
+        ]
+        self._rr = itertools.cycle(range(len(self._channels)))
+        self._rr_lock = threading.Lock()
+        # Native-receive pool (transport.native_receive): engine handles
+        # carrying h2 connections, built on first use.
+        self._native_pool_obj = None
+        self._native_pool_lock = threading.Lock()
+        self._stat_cache: dict[str, int] = {}
+        self._stat_cache_lock = threading.Lock()
+
+    @property
+    def _bucket_path(self) -> str:
+        return f"projects/_/buckets/{self.bucket}"
+
+    def _native_endpoint(self) -> tuple[str, int, bool]:
+        """(host, port, tls): ``insecure://`` is plaintext h2c with prior
+        knowledge; anything else handshakes TLS."""
+        ep = self.transport.endpoint or DEFAULT_ENDPOINT
+        tls = True
+        if ep.startswith("insecure://"):
+            ep = ep[len("insecure://"):]
+            tls = False
+        host, _, port = ep.partition(":")
+        return host, int(port or 443), tls
+
+    def _wire_chan(self) -> GrpcWireChannel:
+        with self._rr_lock:
+            return self._channels[next(self._rr)]
+
+    def _wire_unary(self, method: str, req: "wp.Msg") -> bytes:
+        """One unary RPC; errors arrive classified from the frame layer."""
+        return self._wire_chan().unary(method, req.encode())
+
+    # ------------------------------------------------------- native pool --
+    def _native_pool(self):
+        with self._native_pool_lock:
+            if self._native_pool_obj is None:
+                from tpubench_torch.storage.native_pool import build_native_pool
+
+                host, port, tls = self._native_endpoint()
+                self._native_pool_obj = build_native_pool(
+                    self.transport, host, port, tls=tls, alpn_h2=tls
+                )
+        return self._native_pool_obj
+
+    @property
+    def native_conn_stats(self) -> dict:
+        return self._native_pool().stats
+
+    def _open_read_native(self, name: str, start: int, length: Optional[int]):
+        """Native gRPC receive: the engine's h2 client runs ReadObject and
+        lands the content in a pooled aligned buffer with a native
+        first-byte stamp (h2 streams 1, 3, 5, ... per pooled connection;
+        one stale-use retry)."""
+        pool = self._native_pool()
+        engine = pool.engine
+        host, port, _ = self._native_endpoint()
+        if length is None:
+            with self._stat_cache_lock:
+                size = self._stat_cache.get(name)
+            if size is None:
+                size = self.stat(name).size
+            want = size - start
+        else:
+            want = length
+        buf = pool.buffers.acquire(max(4096, want))
+
+        def do_request(conn: int) -> dict:
+            return engine.grpc_read(
+                conn, f"{host}:{port}", self._bucket_path, name, buf,
+                read_offset=start, read_limit=length or 0,
+            )
+
+        try:
+            # An explicit grpc-status is a server answer, not pool
+            # staleness: never burn the stale retry on it, nor on the
+            # permanent protocol-shape codes.
+            r = pool.run(
+                do_request,
+                retry_stale=lambda e: (
+                    e.code not in PERMANENT_CODES
+                    and getattr(e, "grpc_status", -1) < 0
+                ),
+            )
+        except NativeError as e:
+            pool.buffers.release(buf)
+            with self._stat_cache_lock:
+                self._stat_cache.pop(name, None)
+            st = getattr(e, "grpc_status", -1)
+            if e.code == TB_EGRPC and st >= 0:
+                raise StorageError(
+                    f"native ReadObject {name}: grpc-status {st}",
+                    transient=st in _TRANSIENT_STATUS_INTS,
+                    code=_STATUS_HTTPISH.get(st, 0),
+                ) from e
+            transient = e.code not in PERMANENT_CODES
+            if e.code == TB_ETOOBIG and length is None:
+                # The buffer was sized from the (just dropped) stat cache;
+                # the object may have grown: one retry re-stats.
+                transient = True
+            raise StorageError(
+                f"native ReadObject {name}: {e}", transient=transient
+            ) from e
+        except BaseException:
+            pool.buffers.release(buf)  # includes a classified connect failure
+            raise
+        # A short stream with no contradicting grpc-status must never pass
+        # as a short success. Full reads compare against the object size;
+        # ranged reads only when a cached stat bounds the range.
+        expected = want
+        if length is not None:
+            with self._stat_cache_lock:
+                size = self._stat_cache.get(name)
+            expected = min(want, max(0, size - start)) if size is not None else 0
+        if r["grpc_status"] != 0 and r["length"] < expected:
+            pool.buffers.release(buf)
+            with self._stat_cache_lock:
+                self._stat_cache.pop(name, None)
+            raise StorageError(
+                f"native ReadObject {name}: short stream "
+                f"({r['length']} of {expected} bytes)", transient=True
+            )
+        return _NativeBufReader(
+            buf, r["length"], r["first_byte_ns"], release=pool.buffers.release,
+        )
+
+    # ----------------------------------------------------------- backend --
+    def open_read(self, name: str, start: int = 0, length: Optional[int] = None):
+        if self.transport.native_receive:
+            return self._open_read_native(name, start, length)
+        wreq = wp.ReadObjectRequest(
+            bucket=self._bucket_path, object=name,
+            read_offset=start, read_limit=length or 0,
+        )
+        call = self._wire_chan().server_stream(
+            f"{_SVC}/ReadObject", wreq.encode()
+        )
+        return _WireGrpcReader(call)
+
+    def read_ranges(self, name: str, ranges, buffers) -> list:
+        raise NotImplementedError(
+            "read_ranges (concurrent ReadObject streams on one connection) "
+            "is not ported to tpubench_torch yet (ROADMAP A.5: pod workloads)"
+        )
+
+    def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
+        wreq = wp.ListObjectsRequest(
+            parent=self._bucket_path, prefix=prefix, page_size=max(0, page_size),
+        )
+        resp = wp.ListObjectsResponse.decode(
+            self._wire_unary(f"{_SVC}/ListObjects", wreq)
+        )
+        return [ObjectMeta(o.name, o.size, o.generation) for o in resp.objects]
+
+    def stat(self, name: str) -> ObjectMeta:
+        o = wp.Object.decode(self._wire_unary(
+            f"{_SVC}/GetObject",
+            wp.GetObjectRequest(bucket=self._bucket_path, object=name),
+        ))
+        # Feeds the size cache the native reader sizes its buffer from.
+        with self._stat_cache_lock:
+            self._stat_cache[name] = o.size
+        return ObjectMeta(o.name, o.size, o.generation)
+
+    def close(self) -> None:
+        for ch in self._channels:
+            ch.close()
+        if self._native_pool_obj is not None:
+            self._native_pool_obj.close()  # also drains its BufferPool

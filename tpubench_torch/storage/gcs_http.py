@@ -1,14 +1,30 @@
-"""GCS JSON-API backend — the part of ``tpubench/storage/gcs_http.py``'s
-``GcsHttpBackend`` that the native fetch executor needs: endpoint
-parsing, the request parts the engine sends (path, headers), and ``stat``
-(one metadata GET over ``http.client``, plain or TLS) to size each
-object before the timed window.
+"""GCS JSON-API backend over pooled HTTP/1.1 connections — the read side of
+``tpubench/storage/gcs_http.py``.
 
-Not ported yet (ROADMAP A.2), and refused with ``NotImplementedError``:
-``open_read`` (the Python-pool route over http) and token sources (a
-Google endpoint needs credentials); ``config.refuse_unported`` refuses
-``transport.http2`` and ``transport.key_file`` before a backend opens.
-An endpoint that is not a Google one is anonymous, as in ``tpubench``.
+Reference parity (``CreateHttpClient``, main.go:62-104):
+
+* **HTTP/1.1** — the reference kills HTTP/2 (``TLSNextProto`` zeroed,
+  main.go:64-72); Python's ``http.client`` is HTTP/1.1-native, so that is
+  the default client here. ``transport.http2`` switches the whole client
+  to the native engine's HTTP/2 (``ForceAttemptHTTP2``, main.go:76-80):
+  media, ``stat`` and ``list`` GETs alike.
+* **Connection pool caps** — ``MaxConnsPerHost`` bounds live connections
+  (a semaphore), ``MaxIdleConnsPerHost`` the keep-alive pool
+  (main.go:31-32,66-68).
+* **User-Agent** on every request (``user_agent_round_tripper.go``).
+* **Native receive** (``transport.native_receive``): the engine sends the
+  GET and parses the headers; body bytes then stream from the socket
+  straight into whatever memory ``readinto`` is handed — on the staged
+  route, the free view of a page-locked slot.
+* **Retry** — not here: :class:`~tpubench_torch.storage.retrying.
+  RetryingBackend` wraps this backend. This module raises classified
+  ``StorageError``s (transient for 408/429/5xx and socket errors).
+
+Still refused, with ``NotImplementedError`` naming the ``ROADMAP.md``
+item: token sources (a Google endpoint or ``transport.key_file`` needs
+credentials, A.2), ``read_ranges`` (multiplexed shard reads, A.5), and
+the write side (``write``/``open_write``/``delete``, A.6). An endpoint
+that is not a Google one is anonymous, as in ``tpubench``.
 """
 
 from __future__ import annotations
@@ -16,10 +32,17 @@ from __future__ import annotations
 import http.client
 import json
 import ssl
+import threading
+import time
 import urllib.parse
 from typing import Optional
 
 from tpubench_torch.config import TransportConfig
+from tpubench_torch.native.engine import (
+    PERMANENT_CODES,
+    TB_ETOOBIG,
+    NativeError,
+)
 from tpubench_torch.storage.base import ObjectMeta, StorageError
 
 DEFAULT_ENDPOINT = "https://storage.googleapis.com"
@@ -28,33 +51,257 @@ DEFAULT_ENDPOINT = "https://storage.googleapis.com"
 # semantics: 408, 429, 5xx).
 _TRANSIENT = {408, 429, 500, 502, 503, 504}
 
+_drain_tls = threading.local()
+
+
+def _drain_scratch() -> bytearray:
+    """Per-thread 64 KiB drain sink, made once: closing a response with a
+    small remainder drains it (to keep the connection reusable) without an
+    allocation per close."""
+    buf = getattr(_drain_tls, "buf", None)
+    if buf is None:
+        buf = _drain_tls.buf = bytearray(65536)
+    return buf
+
+
+class _ConnectionPool:
+    """Keep-alive pool with the reference's two caps (main.go:31-32)."""
+
+    def __init__(self, host: str, port: int, scheme: str, transport: TransportConfig):
+        self._host, self._port, self._scheme = host, port, scheme
+        self._max_conns = threading.Semaphore(transport.max_conns_per_host)
+        self._max_idle = transport.max_idle_conns_per_host
+        self._idle: list[http.client.HTTPConnection] = []
+        self._lock = threading.Lock()
+        # Lets tests assert which pool a request rode (http2 never opens
+        # an h1.1 connection).
+        self.stats = {"connects": 0}
+        self._ctx = None
+        if scheme == "https":
+            self._ctx = ssl.create_default_context(
+                cafile=transport.tls_ca_file or None
+            )
+            if transport.tls_insecure_skip_verify:
+                self._ctx.check_hostname = False
+                self._ctx.verify_mode = ssl.CERT_NONE
+
+    def _new_conn(self) -> http.client.HTTPConnection:
+        with self._lock:
+            self.stats["connects"] += 1
+        if self._scheme == "https":
+            return http.client.HTTPSConnection(
+                self._host, self._port, context=self._ctx, timeout=60
+            )
+        return http.client.HTTPConnection(self._host, self._port, timeout=60)
+
+    def acquire(self) -> http.client.HTTPConnection:
+        self._max_conns.acquire()
+        with self._lock:
+            if self._idle:
+                return self._idle.pop()
+        return self._new_conn()
+
+    def release(self, conn: http.client.HTTPConnection, reusable: bool) -> None:
+        put_back = False
+        if reusable:
+            with self._lock:
+                if len(self._idle) < self._max_idle:
+                    self._idle.append(conn)
+                    put_back = True
+        if not put_back:
+            try:
+                conn.close()
+            except Exception:
+                pass
+        self._max_conns.release()
+
+    def close(self) -> None:
+        with self._lock:
+            for c in self._idle:
+                try:
+                    c.close()
+                except Exception:
+                    pass
+            self._idle.clear()
+
+
+class _HttpReader:
+    """Streams one media response into the caller's buffers and returns
+    its connection to the pool on close: complete responses keep-alive,
+    aborted ones closed."""
+
+    def __init__(self, pool: _ConnectionPool, conn, resp, length: int,
+                 generation: Optional[int] = None):
+        self._pool = pool
+        self._conn = conn
+        self._resp = resp
+        self._remaining = length
+        self.first_byte_ns: Optional[int] = None
+        # Served object's generation (x-goog-generation), None when the
+        # server did not stamp one.
+        self.generation = generation
+        self._done = False
+
+    def readinto(self, buf: memoryview) -> int:
+        if self._done or self._remaining == 0:
+            return 0
+        want = min(len(buf), self._remaining)
+        try:
+            n = self._resp.readinto(buf[:want])
+        except (http.client.HTTPException, OSError) as e:
+            self._done = True
+            raise StorageError(f"mid-stream read failed: {e}", transient=True) from e
+        if n == 0:
+            self._done = True
+            if self._remaining > 0:
+                raise StorageError(
+                    f"short body: {self._remaining} bytes missing", transient=True
+                )
+            return 0
+        if self.first_byte_ns is None:
+            self.first_byte_ns = time.perf_counter_ns()
+        self._remaining -= n
+        return n
+
+    def close(self) -> None:
+        if self._conn is None:
+            return
+        complete = self._remaining == 0
+        if not complete and 0 < self._remaining <= 1 << 20:
+            # Drain small remainders so the connection stays reusable.
+            sink = memoryview(_drain_scratch())
+            try:
+                while self._resp.readinto(sink):
+                    pass
+                complete = True
+            except Exception:
+                complete = False
+        self._pool.release(self._conn, reusable=complete)
+        self._conn = None
+
+
+class _NativeStreamReader:
+    """Streaming native receive: the engine parsed the response headers
+    (``tb_conn_get_begin``); each ``readinto`` hands the caller's own
+    memory — granule buffer or staging slot — to ``tb_conn_body_read``,
+    which ``recv()``s straight into it without the GIL. No intermediate
+    body buffer and no completion copy.
+
+    Holds its pooled connection until ``close()``: complete bodies return
+    it keep-alive; abandoned or failed ones discard it."""
+
+    _DRAIN_CAP = 1 << 20  # parity with _HttpReader: drain small remainders
+
+    def __init__(self, pool, conn: int, content_len: int, first_byte_ns: int):
+        self._pool = pool
+        self._conn: Optional[int] = conn
+        self._content_len = content_len  # -1 = close-delimited
+        self._consumed = 0
+        self.first_byte_ns: Optional[int] = first_byte_ns or None
+        self._done = False
+        self._failed = False
+
+    def readinto(self, buf: memoryview) -> int:
+        if self._done or self._conn is None:
+            return 0
+        try:
+            n = self._pool.engine.conn_body_read(self._conn, buf, len(buf))
+        except NativeError as e:
+            self._failed = True
+            self._done = True
+            raise StorageError(
+                f"mid-stream native read failed: {e}",
+                transient=e.code not in PERMANENT_CODES,
+            ) from e
+        if n == 0:
+            self._done = True
+            return 0
+        if self.first_byte_ns is None:
+            self.first_byte_ns = time.perf_counter_ns()
+        self._consumed += n
+        return n
+
+    def close(self) -> None:
+        if self._conn is None:
+            return
+        conn, self._conn = self._conn, None
+        if self._failed:
+            self._pool.discard(conn)
+            return
+        engine = self._pool.engine
+        try:
+            if not self._done and self._content_len >= 0:
+                left = self._content_len - self._consumed
+                if 0 < left <= self._DRAIN_CAP:
+                    sink = _drain_scratch()
+                    while engine.conn_body_read(conn, sink, len(sink)) > 0:
+                        pass
+            reusable = engine.conn_get_end(conn)
+        except Exception:
+            self._pool.discard(conn)
+        else:
+            self._pool.release(conn, reusable)
+
+
+class _NativeBufReader:
+    """Reader over a body the engine already received into an aligned
+    buffer (the h2 and gRPC native clients). ``first_byte_ns`` is the
+    engine's CLOCK_MONOTONIC stamp, comparable with
+    ``time.perf_counter_ns()`` on Linux; ``readinto`` serves slices."""
+
+    def __init__(self, buf, length: int, first_byte_ns: int, release=None):
+        self._buf = buf
+        self._len = length
+        self._pos = 0
+        self.first_byte_ns: Optional[int] = first_byte_ns
+        # Back to the backend's BufferPool when pooled, else freed.
+        self._release = release
+
+    def readinto(self, out: memoryview) -> int:
+        n = min(len(out), self._len - self._pos)
+        if n <= 0:
+            return 0
+        out[:n] = self._buf.view(self._len)[self._pos : self._pos + n]
+        self._pos += n
+        return n
+
+    def close(self) -> None:
+        if self._buf is not None:
+            if self._release is not None:
+                self._release(self._buf)
+            else:
+                self._buf.free()
+            self._buf = None
+
 
 class GcsHttpBackend:
-    """Request construction and ``stat`` for one bucket at one endpoint;
-    shared by every worker (it holds no connection between calls)."""
+    """Thread-safe JSON-API client; one instance shared by all workers
+    (the reference shares one ``*storage.Client``, main.go:200-203)."""
 
     def __init__(self, bucket: str, transport: Optional[TransportConfig] = None):
         self.bucket = bucket
         self.transport = transport or TransportConfig()
         t = self.transport
         endpoint = t.endpoint or DEFAULT_ENDPOINT
-        if "googleapis.com" in endpoint:
+        if "googleapis.com" in endpoint or t.key_file:
             raise NotImplementedError(
                 "GCS token sources (default credentials, transport.key_file) "
-                "are not ported to tpubench_torch yet (ROADMAP A.2: "
-                "http/grpc/local backends); give a non-Google "
-                "transport.endpoint"
+                "are not ported to tpubench_torch yet (ROADMAP A.2: token "
+                "sources); give a non-Google transport.endpoint"
             )
         u = urllib.parse.urlsplit(endpoint)
         self._scheme = u.scheme
         self._host = u.hostname or "storage.googleapis.com"
         self._port = u.port or (443 if self._scheme == "https" else 80)
-        self._ctx = None
-        if self._scheme == "https":
-            self._ctx = ssl.create_default_context(cafile=t.tls_ca_file or None)
-            if t.tls_insecure_skip_verify:
-                self._ctx.check_hostname = False
-                self._ctx.verify_mode = ssl.CERT_NONE
+        self._pool = _ConnectionPool(self._host, self._port, self._scheme, t)
+        # Both native pools are built on first use, under a lock (worker
+        # threads hit first use together): the HTTP/1.1 receive pool and,
+        # under http2, the h2 pool every GET rides.
+        self._native_pool_obj = None
+        self._native_pool_lock = threading.Lock()
+        self._h2_pool_obj = None
+        self._h2_pool_lock = threading.Lock()
+        self._h2_stat_cache: dict[str, int] = {}
 
     @property
     def scheme(self) -> str:
@@ -71,11 +318,84 @@ class GcsHttpBackend:
         )
         return self._host, self._port, self._opath(name) + "?alt=media", headers
 
+    # ------------------------------------------------------- native pools --
+    def _native_pool(self):
+        with self._native_pool_lock:
+            if self._native_pool_obj is None:
+                from tpubench_torch.storage.native_pool import build_native_pool
+
+                self._native_pool_obj = build_native_pool(
+                    self.transport, self._host, self._port,
+                    tls=self._scheme == "https",
+                )
+        return self._native_pool_obj
+
+    def _h2_pool(self):
+        with self._h2_pool_lock:
+            if self._h2_pool_obj is None:
+                from tpubench_torch.storage.native_pool import build_native_pool
+
+                # https: TLS with ALPN h2 required; plain http: h2c with
+                # prior knowledge.
+                self._h2_pool_obj = build_native_pool(
+                    self.transport, self._host, self._port,
+                    tls=self._scheme == "https",
+                    alpn_h2=self._scheme == "https",
+                )
+        return self._h2_pool_obj
+
+    @property
+    def native_conn_stats(self) -> dict:
+        return self._native_pool().stats
+
+    # ------------------------------------------------------------ request --
     def _headers(self) -> dict[str, str]:
         return {
             "User-Agent": self.transport.user_agent,
             "Host": f"{self._host}:{self._port}",
         }
+
+    def _request(self, method: str, path: str, headers: Optional[dict] = None):
+        """One attempt: acquire a connection, send, return (conn, resp).
+        The caller releases the connection."""
+        conn = self._pool.acquire()
+        try:
+            h = self._headers()
+            if headers:
+                h.update(headers)
+            conn.request(method, path, headers=h)
+            return conn, conn.getresponse()
+        except (http.client.HTTPException, OSError) as e:
+            self._pool.release(conn, reusable=False)
+            raise StorageError(f"{method} {path}: {e}", transient=True) from e
+
+    def _checked(self, method: str, path: str, headers=None, ok=(200, 206)):
+        conn, resp = self._request(method, path, headers)
+        if resp.status in ok:
+            return conn, resp
+        try:
+            payload = resp.read()
+        except Exception:
+            payload = b""
+        finally:
+            self._pool.release(conn, reusable=True)
+        raise StorageError(
+            f"{method} {path} -> {resp.status}: "
+            f"{payload[:200].decode('utf-8', 'replace')}",
+            transient=resp.status in _TRANSIENT,
+            code=resp.status,
+        )
+
+    def _get_json(self, path: str, what: str) -> dict:
+        """A metadata GET (stat, list page): over h2 under ``http2``,
+        else over the HTTP/1.1 pool."""
+        if self.transport.http2:
+            return json.loads(self._meta_get_h2(path, what))
+        conn, resp = self._checked("GET", path)
+        try:
+            return json.loads(resp.read())
+        finally:
+            self._pool.release(conn, reusable=True)
 
     def _opath(self, name: str) -> str:
         return (
@@ -83,42 +403,286 @@ class GcsHttpBackend:
             f"/o/{urllib.parse.quote(name, safe='')}"
         )
 
-    def _connection(self) -> http.client.HTTPConnection:
-        if self._scheme == "https":
-            return http.client.HTTPSConnection(
-                self._host, self._port, context=self._ctx, timeout=60
+    # ----------------------------------------------------------------- h2 --
+    def _h2_headers(self) -> str:
+        return "".join(
+            f"{k}: {v}\r\n" for k, v in self._headers().items()
+            if k.lower() != "host"
+        )
+
+    def _meta_get_h2(self, path: str, what: str) -> bytes:
+        """Metadata GET over the native HTTP/2 client (under ``http2`` the
+        whole read path rides h2, stat and media alike). Returns the body;
+        raises classified StorageError."""
+        pool = self._h2_pool()
+        engine = pool.engine
+        headers = self._h2_headers()
+        authority = f"{self._host}:{self._port}"
+        # A big bucket's list JSON can run to megabytes: grow the buffer
+        # once on TB_ETOOBIG rather than fail where h1.1 would succeed.
+        for cap in (256 * 1024, 16 * 1024 * 1024):
+            buf = pool.buffers.acquire(cap)
+
+            def do_request(conn: int) -> dict:
+                engine.h2_submit_get(conn, authority, path, buf, headers=headers)
+                c = engine.h2_poll(conn)
+                if c is None:
+                    raise NativeError("h2 stream vanished", code=-1001)
+                return c
+
+            try:
+                r = pool.run(do_request)
+            except NativeError as e:
+                pool.buffers.release(buf)
+                raise StorageError(
+                    f"h2 {what}: {e}", transient=e.code not in PERMANENT_CODES
+                ) from e
+            except BaseException:
+                pool.buffers.release(buf)
+                raise
+            status = r["http_status"]
+            if r["result"] == TB_ETOOBIG and cap == 256 * 1024:
+                pool.buffers.release(buf)
+                continue  # body outgrew the small buffer: one big retry
+            if r["result"] < 0:
+                pool.buffers.release(buf)
+                raise StorageError(
+                    f"h2 {what}: stream error {r['result']} (status {status})",
+                    transient=r["result"] not in PERMANENT_CODES,
+                )
+            body = bytes(buf.view(r["result"]))
+            pool.buffers.release(buf)
+            if status != 200:
+                raise StorageError(
+                    f"h2 {what} -> {status}: "
+                    f"{body[:200].decode('utf-8', 'replace')}",
+                    transient=status in _TRANSIENT,
+                    code=status,
+                )
+            return body
+        raise StorageError(  # pragma: no cover — the loop returns or raises
+            f"h2 {what}: body exceeded 16 MiB metadata buffer", transient=False
+        )
+
+    def _open_read_h2(self, name: str, start: int, length: Optional[int]):
+        """Media GET over the native HTTP/2 client: DATA frames land in an
+        aligned buffer sized from the range (or the object's size);
+        ``:status`` arrives through HPACK. One stream at a time per
+        connection, as the HTTP/1.1 path does, so an h1-vs-h2 A/B isolates
+        the protocol."""
+        pool = self._h2_pool()
+        engine = pool.engine
+        if length is None:
+            with self._h2_pool_lock:
+                size = self._h2_stat_cache.get(name)
+            if size is None:
+                size = self.stat(name).size
+                with self._h2_pool_lock:
+                    self._h2_stat_cache[name] = size
+            want = size - start
+        else:
+            want = length
+        _, _, req_path, headers = self.native_request_parts(name)
+        if start or length is not None:
+            end = "" if length is None else str(start + want - 1)
+            headers += f"Range: bytes={start}-{end}\r\n"
+        authority = f"{self._host}:{self._port}"
+        buf = pool.buffers.acquire(max(4096, want))
+
+        def do_request(conn: int) -> dict:
+            engine.h2_submit_get(conn, authority, req_path, buf, headers=headers)
+            c = engine.h2_poll(conn)
+            if c is None:
+                raise NativeError("h2 stream vanished", code=-1001)
+            return c
+
+        try:
+            r = pool.run(do_request)
+        except NativeError as e:
+            pool.buffers.release(buf)
+            with self._h2_pool_lock:
+                self._h2_stat_cache.pop(name, None)
+            raise StorageError(
+                f"h2 GET {name}: {e}", transient=e.code not in PERMANENT_CODES,
+            ) from e
+        except BaseException:
+            pool.buffers.release(buf)  # includes a classified connect failure
+            raise
+        status = r["http_status"]
+        if r["result"] < 0:
+            # Per-stream failure (the connection survived). Body exceeds
+            # buffer when the buffer was sized from the stat cache: the
+            # object may have grown, so one retry re-stats.
+            pool.buffers.release(buf)
+            with self._h2_pool_lock:
+                self._h2_stat_cache.pop(name, None)
+            transient = r["result"] not in PERMANENT_CODES
+            if r["result"] == TB_ETOOBIG and length is None:
+                transient = True
+            raise StorageError(
+                f"h2 GET {name}: stream error {r['result']} (status {status})",
+                transient=transient,
             )
-        return http.client.HTTPConnection(self._host, self._port, timeout=60)
+        if status not in (200, 206):
+            msg = bytes(buf.view(min(r["result"], 200))).decode("utf-8", "replace")
+            pool.buffers.release(buf)
+            raise StorageError(
+                f"h2 GET {name}: HTTP {status}: {msg}",
+                transient=status in _TRANSIENT,
+                code=status,
+            )
+        if (start > 0 and status == 200) or (
+            length is not None and r["result"] > want
+        ):
+            # The server ignored the Range: the bytes would be misaligned.
+            pool.buffers.release(buf)
+            raise StorageError(
+                f"h2 GET {name}: server ignored Range "
+                f"(status {status}, got {r['result']}, asked {want})",
+                transient=False,
+            )
+        return _NativeBufReader(
+            buf, r["result"], r["first_byte_ns"], release=pool.buffers.release
+        )
+
+    # ------------------------------------------------------------ backend --
+    def open_read(self, name: str, start: int = 0, length: Optional[int] = None):
+        if self.transport.http2:
+            return self._open_read_h2(name, start, length)
+        if self.transport.native_receive:
+            return self._open_read_native(name, start, length)
+        headers = {}
+        if start or length is not None:
+            end = "" if length is None else str(start + length - 1)
+            headers["Range"] = f"bytes={start}-{end}"
+        conn, resp = self._checked(
+            "GET", self._opath(name) + "?alt=media", headers=headers
+        )
+        clen = int(resp.headers.get("Content-Length", "0"))
+        gen_hdr = resp.headers.get("x-goog-generation")
+        return _HttpReader(
+            self._pool, conn, resp, clen,
+            generation=int(gen_hdr) if gen_hdr else None,
+        )
+
+    def _open_read_native(self, name: str, start: int, length: Optional[int]):
+        """The C++ receive path (``transport.native_receive``): the engine
+        sends the GET and parses the headers (``tb_conn_get_begin``); the
+        body then streams from the socket directly into the memory the
+        caller's ``readinto`` offers. Pooled keep-alive connections;
+        https rides the engine's TLS layer."""
+        pool = self._native_pool()  # raises when TLS is unavailable
+        engine = pool.engine
+        _, _, req_path, headers = self.native_request_parts(name)
+        if length is not None:
+            headers += f"Range: bytes={start}-{start + length - 1}\r\n"
+        elif start:
+            headers += f"Range: bytes={start}-\r\n"
+        # A stale pooled socket fails at begin() on first use: retransmit
+        # the idempotent GET once on a fresh socket, so pool staleness
+        # never surfaces as a request failure. Permanent protocol-shape
+        # codes never burn the retransmit (they reproduce).
+        conn, reused = pool.acquire()
+        while True:
+            try:
+                r = engine.conn_get_begin(
+                    conn, self._host, self._port, req_path, headers=headers
+                )
+                break
+            except NativeError as e:
+                pool.discard(conn)
+                if reused and e.code not in PERMANENT_CODES:
+                    reused = False
+                    pool.note_stale_retry()
+                    conn = pool.fresh()
+                    continue
+                raise StorageError(
+                    f"native GET {name}: {e}",
+                    transient=e.code not in PERMANENT_CODES,
+                ) from e
+            except BaseException:
+                pool.discard(conn)
+                raise
+        range_ignored = r["status"] in (200, 206) and (
+            # Too many bytes announced for a bounded range, or a range
+            # from a nonzero start answered with 200 (the body starts at
+            # offset 0: serving it would hand back the wrong bytes).
+            (length is not None and r["content_len"] > length)
+            or (start > 0 and r["status"] == 200)
+        )
+        if range_ignored:
+            pool.discard(conn)
+            raise StorageError(
+                f"GET {name}: server ignored Range "
+                f"(status {r['status']}, announced {r['content_len']}, "
+                f"requested start={start} length={length})",
+                transient=False,
+            )
+        if r["status"] not in (200, 206):
+            # Error payload: read its head, drain the rest only when it is
+            # small and bounded; otherwise discarding the connection is
+            # cheaper than stalling the worker.
+            msg = bytearray(4096)
+            n = 0
+            try:
+                n = engine.conn_body_read(conn, msg, len(msg))
+                clen = r["content_len"]
+                if 0 <= clen <= _NativeStreamReader._DRAIN_CAP:
+                    sink = _drain_scratch()
+                    while engine.conn_body_read(conn, sink, len(sink)) > 0:
+                        pass
+                    pool.release(conn, engine.conn_get_end(conn))
+                else:
+                    pool.discard(conn)
+            except Exception:
+                pool.discard(conn)
+            raise StorageError(
+                f"GET {name}: HTTP {r['status']}: "
+                f"{msg[:n].decode('utf-8', 'replace')[:200]}",
+                transient=r["status"] in _TRANSIENT,
+                code=r["status"],
+            )
+        return _NativeStreamReader(pool, conn, r["content_len"], r["first_byte_ns"])
+
+    def read_ranges(self, name: str, ranges, buffers) -> list:
+        raise NotImplementedError(
+            "read_ranges (multiplexed shard reads on one connection) is not "
+            "ported to tpubench_torch yet (ROADMAP A.5: pod workloads)"
+        )
+
+    def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
+        """Full listing under ``prefix``, following ``nextPageToken``;
+        ``page_size`` > 0 rides as ``maxResults``."""
+        base = (
+            f"/storage/v1/b/{urllib.parse.quote(self.bucket, safe='')}/o"
+            f"?prefix={urllib.parse.quote(prefix, safe='')}"
+        )
+        if page_size > 0:
+            base += f"&maxResults={page_size}"
+        out: list[ObjectMeta] = []
+        token = ""
+        while True:
+            path = base
+            if token:
+                path += f"&pageToken={urllib.parse.quote(token, safe='')}"
+            payload = self._get_json(path, f"LIST {prefix!r}")
+            out.extend(
+                ObjectMeta(it["name"], int(it["size"]), int(it.get("generation", 0)))
+                for it in payload.get("items", [])
+            )
+            token = payload.get("nextPageToken", "")
+            if not token:
+                return out
 
     def stat(self, name: str) -> ObjectMeta:
-        path = self._opath(name)
-        conn = self._connection()
-        try:
-            conn.request("GET", path, headers=self._headers())
-            resp = conn.getresponse()
-            payload = resp.read()
-        except (http.client.HTTPException, OSError) as e:
-            raise StorageError(f"GET {path}: {e}", transient=True) from e
-        finally:
-            conn.close()
-        if resp.status not in (200, 206):
-            raise StorageError(
-                f"GET {path} -> {resp.status}: "
-                f"{payload[:200].decode('utf-8', 'replace')}",
-                transient=resp.status in _TRANSIENT,
-                code=resp.status,
-            )
-        meta = json.loads(payload)
+        meta = self._get_json(self._opath(name), f"STAT {name}")
         return ObjectMeta(
             meta["name"], int(meta["size"]), int(meta.get("generation", 0))
         )
 
-    def open_read(self, name: str, start: int = 0, length: Optional[int] = None):
-        raise NotImplementedError(
-            "reads over http through the Python worker pool are not ported "
-            "to tpubench_torch yet (ROADMAP A.2: http/grpc/local backends); "
-            "use fetch_executor='native'"
-        )
-
     def close(self) -> None:
-        pass
+        self._pool.close()
+        if self._native_pool_obj is not None:
+            self._native_pool_obj.close()  # also drains its BufferPool
+        if self._h2_pool_obj is not None:
+            self._h2_pool_obj.close()

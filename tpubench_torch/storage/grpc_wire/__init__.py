@@ -1,0 +1,9 @@
+"""Dependency-free gRPC-over-HTTP/2 wire stack for storage v2 (a copy of
+``tpubench/storage/grpc_wire``): a hand-rolled protobuf codec
+(:mod:`.proto`), gRPC message framing and status mapping (:mod:`.framing`)
+and a client connection (:mod:`.client`) running them over a plain socket
+(h2c prior knowledge) or TLS+ALPN h2 — no ``grpcio``, no generated types.
+:class:`~tpubench_torch.storage.gcs_grpc.GcsGrpcBackend` always rides this
+stack, against :class:`~tpubench_torch.storage.fake_grpc_wire_server.
+FakeGrpcWireServer`.
+"""

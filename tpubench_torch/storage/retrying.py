@@ -1,0 +1,170 @@
+"""Client-level retry decorator for any backend — the read side of
+``tpubench/storage/retrying.py``.
+
+The reference attaches retry at the *client* (``client.SetRetry``,
+main.go:179-184) and the Go storage library transparently restarts an
+interrupted download from the current offset. This wrapper reproduces both
+for every backend:
+
+* ``open_read``/``stat``/``list`` are retried under the gax policy;
+* a reader hit by a transient mid-stream error is re-opened at
+  ``start + bytes_already_delivered`` (ranged read) and continues, so the
+  caller sees one uninterrupted stream. Bytes the failed reader handed
+  out stay delivered; the resumed reader fills the caller's next buffer
+  from the first byte not yet delivered, so no byte is delivered twice.
+
+The failure budget is *consecutive*: the attempt counter and the
+backoff/deadline window reset as soon as bytes flow again, so a long
+stream with sporadic-but-recovering transient faults never exhausts
+``max_attempts`` — only a fault the resume path cannot make progress past
+does. ``rng``/``sleep``/``clock`` are injectable so tests run
+deterministically without real sleeps.
+
+The write side (``_ResumingWriter``, ``write``/``open_write``/``delete``)
+comes with the write workloads (``ROADMAP.md`` A.6).
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Callable, Optional
+
+from tpubench_torch.config import RetryConfig
+from tpubench_torch.storage.base import ObjectMeta, StorageBackend
+from tpubench_torch.storage.retry import Backoff, _is_retryable, retry_call
+
+
+class _ResumingReader:
+    def __init__(
+        self,
+        backend: StorageBackend,
+        name: str,
+        start: int,
+        length: Optional[int],
+        retry: RetryConfig,
+        *,
+        rng: Optional[random.Random] = None,
+        sleep: Callable[[float], None] = time.sleep,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self._backend = backend
+        self._name = name
+        self._start = start
+        self._length = length
+        self._retry = retry
+        self._rng = rng
+        self._sleep = sleep
+        self._clock = clock
+        self._delivered = 0
+        self.first_byte_ns: Optional[int] = None
+        # Consecutive-failure state: persists across readinto calls while
+        # no bytes flow, resets on progress (see module docstring).
+        self._attempts = 0
+        self._backoff: Optional[Backoff] = None
+        self._window_start: Optional[float] = None
+        self._inner = retry_call(
+            lambda: backend.open_read(name, start, length), retry,
+            sleep=sleep, clock=clock, rng=rng,
+        )
+        self.reopen_count = 0
+
+    def _reopen(self) -> None:
+        try:
+            self._inner.close()
+        except Exception:
+            pass
+        new_start = self._start + self._delivered
+        new_length = None if self._length is None else self._length - self._delivered
+        self._inner = retry_call(
+            lambda: self._backend.open_read(self._name, new_start, new_length),
+            self._retry,
+            sleep=self._sleep, clock=self._clock, rng=self._rng,
+        )
+        self.reopen_count += 1
+
+    def readinto(self, buf: memoryview) -> int:
+        while True:
+            try:
+                n = self._inner.readinto(buf)
+            except BaseException as exc:  # noqa: BLE001 — classified below
+                self._attempts += 1
+                if not _is_retryable(exc, self._retry.policy):
+                    raise
+                if self._retry.max_attempts and (
+                    self._attempts >= self._retry.max_attempts
+                ):
+                    raise
+                # Same bounding as retry_call: gax backoff pause between
+                # resume attempts, and deadline_s ends an otherwise
+                # endless zero-progress resume loop. Made lazily: the
+                # happy path pays nothing; dropped again once bytes flow.
+                if self._backoff is None:
+                    self._backoff = Backoff(self._retry, rng=self._rng)
+                    self._window_start = self._clock()
+                pause = self._backoff.pause()
+                if self._retry.deadline_s and (
+                    self._clock() - self._window_start
+                ) + pause > self._retry.deadline_s:
+                    raise
+                self._sleep(pause)
+                self._reopen()
+                continue
+            if n > 0 and self.first_byte_ns is None:
+                self.first_byte_ns = self._inner.first_byte_ns
+            if n > 0:
+                self._delivered += n
+                if self._attempts:
+                    # Bytes flow again: the next fault gets the full gax
+                    # allowance (fresh counter, backoff and deadline).
+                    self._attempts = 0
+                    self._backoff = None
+                    self._window_start = None
+            return n
+
+    def close(self) -> None:
+        self._inner.close()
+
+
+class RetryingBackend:
+    """Wraps any read backend with the reference's client-level retry.
+
+    ``rng``/``sleep``/``clock`` flow through to every retry loop (open
+    retries and mid-stream resumes) for deterministic tests. ``inner`` is
+    the wrapped backend (the workload unwraps it to read the base
+    client's connection counters)."""
+
+    def __init__(
+        self,
+        inner: StorageBackend,
+        retry: Optional[RetryConfig] = None,
+        *,
+        rng: Optional[random.Random] = None,
+        sleep: Callable[[float], None] = time.sleep,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.inner = inner
+        self.retry = retry or RetryConfig()
+        self._rng = rng
+        self._sleep = sleep
+        self._clock = clock
+
+    def _call(self, fn):
+        return retry_call(
+            fn, self.retry, sleep=self._sleep, clock=self._clock, rng=self._rng
+        )
+
+    def open_read(self, name: str, start: int = 0, length: Optional[int] = None):
+        return _ResumingReader(
+            self.inner, name, start, length, self.retry,
+            rng=self._rng, sleep=self._sleep, clock=self._clock,
+        )
+
+    def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
+        return self._call(lambda: self.inner.list(prefix, page_size=page_size))
+
+    def stat(self, name: str) -> ObjectMeta:
+        return self._call(lambda: self.inner.stat(name))
+
+    def close(self) -> None:
+        self.inner.close()

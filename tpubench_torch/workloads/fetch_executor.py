@@ -62,6 +62,7 @@ from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.native.engine import PERMANENT_CODES, get_engine
 from tpubench_torch.staging.device import new_slot
 from tpubench_torch.staging.executor import copy_to_device
+from tpubench_torch.storage import base_backend
 from tpubench_torch.storage.gcs_http import _TRANSIENT as _TRANSIENT_HTTP
 from tpubench_torch.storage.gcs_http import GcsHttpBackend
 from tpubench_torch.storage.retry import Backoff
@@ -147,7 +148,11 @@ class RetryScheduler:
 
 def _require_native_http(backend):
     """Shared preconditions: the executor speaks HTTP/1.1 over plaintext
-    or TLS. Returns the engine; a failed engine build raises."""
+    or TLS. Returns ``(engine, client)``: the client is the
+    :class:`GcsHttpBackend` under the retry decorator (the runners need
+    its request parts; the executor retries on its own). A failed engine
+    build raises."""
+    backend = base_backend(backend)
     if not isinstance(backend, GcsHttpBackend) or backend.scheme not in (
         "http", "https",
     ):
@@ -161,7 +166,7 @@ def _require_native_http(backend):
             "fetch_executor='native' on an https endpoint, but the engine "
             "could not load OpenSSL (libssl.so.3)"
         )
-    return engine
+    return engine, backend
 
 
 def executor_mode(fetch_executor: str) -> str:
@@ -270,7 +275,7 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
     (``io.Discard``, main.go:140). The client retry policy applies to
     completions; the executor's one stale-connection retransmit stays
     underneath as pool hygiene."""
-    engine = _require_native_http(backend)
+    engine, backend = _require_native_http(backend)
     w = cfg.workload
     if cfg.staging.mode != "none":
         raise ValueError(
@@ -495,7 +500,7 @@ def run_read_native_staged(cfg: BenchConfig, backend,
     ``staging.depth`` slots per worker. Reads of one worker stay
     sequential (main.go:127-153); ranges within a read fetch concurrently.
     """
-    engine = _require_native_http(backend)
+    engine, backend = _require_native_http(backend)
     w = cfg.workload
     s = cfg.staging
     if s.mode != "device_put":

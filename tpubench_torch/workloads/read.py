@@ -12,7 +12,10 @@
   buffer that the stager copies (the copying route).
 
 The result JSON is ``tpubench read``'s, minus the blocks of features not
-ported yet (flight recorder, telemetry, tune, tail).
+ported yet (flight recorder, telemetry, tune, tail). Through every client
+(fake, HTTP/1.1, native receive, HTTP/2, gRPC, local), under the retry
+decorator; with native receive the socket writes straight into the
+staging slot.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from tpubench_torch.device import resolve_device
 from tpubench_torch.metrics import MetricSet
 from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.staging.stats import staging_extra
-from tpubench_torch.storage import open_backend
+from tpubench_torch.native.engine import peek_engine
+from tpubench_torch.storage import base_backend, open_backend
 from tpubench_torch.storage.base import (
     StorageBackend,
     read_object_into_sink,
@@ -105,6 +109,10 @@ class ReadWorkload:
                     sink_stats[i] = sink.finish() or {}
                 worker_bytes[i] = total_local
 
+        # Native transport counters: their delta across the run goes into
+        # the result when the engine is live.
+        eng0 = peek_engine()
+        native_stats0 = eng0.stats() if eng0 is not None else {}
         metrics.ingest.start()
         group = WorkerGroup(abort_on_error=w.abort_on_error)
         try:
@@ -133,6 +141,12 @@ class ReadWorkload:
             summaries=metrics.summaries(),
             errors=gres.error_count,
         )
+        # Native-receive connection accounting (connects/reuses/
+        # stale_retries), read from the base client's pool only if one was
+        # built, so this never builds a pool as a side effect.
+        native_pool = getattr(base_backend(self.backend), "_native_pool_obj", None)
+        if native_pool is not None:
+            res.extra["native_conn_stats"] = dict(native_pool.stats)
         if staged:
             res.extra["staging_zero_copy"] = all(zero_copy_used)
             res.extra["staged_bytes"] = staged
@@ -165,6 +179,13 @@ class ReadWorkload:
         checks = [st["checksum_ok"] for st in sink_stats if "checksum_ok" in st]
         if checks:
             res.extra["checksum_ok"] = all(checks)
+        eng1 = peek_engine()
+        if eng1 is not None:
+            delta = {
+                k: v - native_stats0.get(k, 0) for k, v in eng1.stats().items()
+            }
+            if any(delta.values()):
+                res.extra["native_transport"] = delta
         return res
 
 
