@@ -56,7 +56,31 @@ before the last line:
    mode must stage every byte with zero errors, launch its kernel once per
    transfer, keep 48 distinct streams on page-locked slots and, but for the
    faulted mode (whose resumed reads fill slots off the granule grid), ship
-   the transfers ``expected_transfers`` counts.
+   the transfers ``expected_transfers`` counts;
+7. obs — phase read's deployment with the whole obs plane on: tracing
+   (the tracer ``make_tracer`` builds, with an in-memory span store),
+   telemetry on an ephemeral loopback port with OTLP dry-run export,
+   ``obs.export='cloud'`` dry-run and the flight journal (under ``build/``,
+   removed after), in modes obs_validate (``tb_checksum``) and obs_pallas
+   (``tb_land``): ``/metrics``, scraped as the session closes, must show
+   the result's reads, bytes and stage transfers; 48 ``ReadObject`` spans;
+   the journal parses back with the result's record count; the dry-run
+   payloads are non-empty and under ``obs.metric_prefix``;
+8. tail — the deployment through ``open_backend`` with hedged reads, the
+   stall watchdog and the circuit breaker on, over a fresh store with a
+   seeded fault plan (``TAIL_FAULT``) that makes each layer act, in modes
+   tail_validate and tail_pallas: every byte staged, zero errors, hedges,
+   stalls and a breaker open→closed, and the flight summary's hedge,
+   stall and breaker counts equal to the layers' own counters (breaker
+   notes: those that found an unfinished read to land on).
+
+Every mode of phases read, protocols, obs and tail also checks its flight
+records (one read record per read; one stage record per transfer in a copy
+ring, none in the landing-kernel ring; ``stage_submit <= stage_complete ==
+hbm_staged``); phase native checks that the executor route, as in
+``tpubench``, carries none. Phase read adds mode device_put_depth3_noflight
+(the flight recorder off) and runs it and device_put_depth3 twice more in
+the reverse order; the ``flight_cost`` line gives their staged GB/s.
 
 Phase agree also runs http_validate and grpc_validate small, on the CPU and
 on the card. Then the ``kernels`` summary line (launches summed over the paths that
@@ -101,16 +125,30 @@ PROTOCOL_MODES = {
 # The faulted mode's plan (on the store, behind the server) and its retry
 # policy: a 1-10 ms backoff without jitter.
 RETRY_FAULT = dict(error_rate=0.05, read_error_rate=0.002)
+# Phase tail's fault plan on the store (behind the tail layers): every
+# open waits latency_s (twice the hedge delay, so every read hedges), a
+# quarter of the readers stall for stall_s after stall_after_bytes (three
+# stall windows: the watchdog fires), and a tenth of the opens fail (one
+# failure opens the breaker, which probes again after breaker_reset_s).
+TAIL_FAULT = dict(latency_s=0.1, stall_after_bytes=32 * MIB, stall_s=1.5,
+                  stall_rate=0.25, error_rate=0.1)
+TAIL = dict(hedge=True, hedge_delay_s=0.05, watchdog=True,
+            stall_window_s=0.5, breaker=True, breaker_failures=1,
+            breaker_reset_s=0.2)
+OBS_MODES = ("obs_validate", "obs_pallas")
+TAIL_MODES = ("tail_validate", "tail_pallas")
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
-                 paths=("read/pallas", "protocols/http_pallas")),
+                 paths=("read/pallas", "protocols/http_pallas",
+                        "obs/obs_pallas", "tail/tail_pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
                             "native/native_validate",
                             *(f"protocols/{m}" for m, v in PROTOCOL_MODES.items()
-                              if v[3] == "validate"))),
+                              if v[3] == "validate"),
+                            "obs/obs_validate", "tail/tail_validate")),
 }
 
 
@@ -145,8 +183,9 @@ def main() -> int:
     phase_agree()
     store = populate()
     counts = {  # "<phase>/<mode>" -> counts
-        **phase_read(store), **phase_native(),
+        **phase_read(store, smi), **phase_native(),
         **phase_protocols(store, smi, args.seed),
+        **phase_obs(store, smi), **phase_tail(smi, args.seed),
     }
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
@@ -370,6 +409,8 @@ def sweep(torch, landing, seed: int) -> dict:
 MODES = {
     "device_put_validate": dict(mode="device_put", validate_checksum=True),
     "device_put_depth3": dict(mode="device_put", depth=3),
+    # The same with the flight recorder off (obs.flight_records = 0).
+    "device_put_depth3_noflight": dict(mode="device_put", depth=3),
     "pallas": dict(mode="pallas"),
 }
 
@@ -388,6 +429,8 @@ def _config(workers: int, object_size: int, granule: int, mode: str,
         cfg.staging.slot_bytes = slot_bytes
     for k, v in MODES[mode].items():
         setattr(cfg.staging, k, v)
+    if mode.endswith("_noflight"):
+        cfg.obs.flight_records = 0
     return cfg
 
 
@@ -533,56 +576,202 @@ def _check_stagers(mode: str, made: list) -> int:
     return len(streams)
 
 
-def phase_read(backend) -> dict:
+class Observed:
+    """Keeps what the read workload builds for one run — its flight
+    recorder, its telemetry session's ``/metrics`` text (scraped just
+    before the session closes) and its metrics export session — by
+    wrapping the three factories the workload calls; what they build and
+    do is unchanged. Also counts the breaker's flight notes, and how many
+    found an unfinished op to land on."""
+
+    def __init__(self):
+        self.flights, self.scrapes, self.exports = [], [], []
+        self.breaker_notes: list[tuple] = []
+
+    def __enter__(self):
+        import threading
+        import urllib.request
+
+        import tpubench_torch.storage.tail as tail_mod
+        from tpubench_torch.obs import flight
+        from tpubench_torch.workloads import read as read_mod
+
+        self._saved = [
+            (read_mod, n, getattr(read_mod, n)) for n in (
+                "flight_from_config", "telemetry_from_config",
+                "metrics_session_from_config",
+            )
+        ] + [(tail_mod, "_flight_annotate", tail_mod._flight_annotate)]
+        make_flight, make_tel, make_export, annotate = (
+            f for _, _, f in self._saved
+        )
+        lock = threading.Lock()
+
+        def kept_flight(cfg):
+            rec = make_flight(cfg)
+            self.flights.append(rec)
+            return rec
+
+        def kept_telemetry(cfg):
+            sess = make_tel(cfg)
+            if sess is None:
+                return None
+            close = sess.close
+
+            def scraped_close(final_extra=None):
+                try:
+                    if sess.port is not None:
+                        with urllib.request.urlopen(
+                            f"http://127.0.0.1:{sess.port}/metrics", timeout=30
+                        ) as r:
+                            self.scrapes.append(r.read().decode())
+                finally:
+                    summary = close(final_extra)
+                return summary
+
+            sess.close = scraped_close
+            return sess
+
+        def kept_export(cfg, metrics, bytes_fn=None):
+            sess = make_export(cfg, metrics, bytes_fn=bytes_fn)
+            self.exports.append(sess)
+            return sess
+
+        def counted(kind, **info):
+            if kind == "breaker":
+                op = flight.current_op()
+                landed = op is not None and not op._done
+                with lock:
+                    self.breaker_notes.append(
+                        (info.get("state") or info.get("event"), landed)
+                    )
+            annotate(kind, **info)
+
+        read_mod.flight_from_config = kept_flight
+        read_mod.telemetry_from_config = kept_telemetry
+        read_mod.metrics_session_from_config = kept_export
+        tail_mod._flight_annotate = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def check_flight(tag: str, res, obs: Observed, reads: int, transfers: int,
+                 pallas: bool) -> dict:
+    """The flight recorder's view of a run: one read record per read; one
+    stage record per transfer in a copy ring (their bytes summing to the
+    staged bytes) and none in the landing-kernel ring, as in
+    ``tpubench``; ``stage_submit <= stage_complete == hbm_staged`` on each
+    stage record. Returns the counts."""
+    summary = res.extra.get("flight")
+    check(summary is not None and len(obs.flights) == 1
+          and obs.flights[0] is not None, f"{tag}: no flight recorder")
+    recs = obs.flights[0].records()
+    check(summary["records"] == len(recs), f"{tag}: summary vs records")
+    stage = [r for r in recs if r["kind"] == "stage"]
+    n_reads = sum(1 for r in recs if r["kind"] == "read")
+    check(n_reads == reads, f"{tag}: {n_reads} read records, want {reads}")
+    want = 0 if pallas else transfers
+    check(len(stage) == want, f"{tag}: {len(stage)} stage records, want {want}")
+    if not pallas:
+        got = sum(r["bytes"] for r in stage)
+        check(got == res.extra["staged_bytes"],
+              f"{tag}: stage records carry {got} B")
+    for r in stage:
+        ph = r["phases"]
+        check(ph["stage_submit"] <= ph["stage_complete"] == ph["hbm_staged"],
+              f"{tag}: stage phases out of order {ph}")
+    return {"read_records": n_reads, "stage_records": len(stage),
+            "stage_complete_p50_ms": summary["phases"].get(
+                "stage_complete", {}).get("p50_ms")}
+
+
+def _read_mode(backend, mode: str, smi) -> tuple[dict, dict]:
+    """One mode of phase read, checked; returns the launch counts and the
+    mode's line."""
     from tpubench_torch.kernels import landing
     from tpubench_torch.staging.device import make_sink_factory
     from tpubench_torch.workloads.read import run_read
 
-    launches = {}
-    for mode in MODES:
-        cfg = _config(WORKERS, OBJECT_SIZE, GRANULE, mode)
-        stagers = []
-        kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
+    cfg = _config(WORKERS, OBJECT_SIZE, GRANULE, mode)
+    stagers = []
+    kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
+    with Observed() as obs:
         landing.reset_launches()
         res = run_read(cfg, backend=backend, device="cuda", sink_factory=kept)
         counts = {"land": landing.land.launches,
                   "checksum": landing.checksum.launches}
-        streams = _check_stagers(mode, stagers)
-        ex = res.extra
-        stats = ex.get("staging") or {}
-        slot = _slot(cfg)
-        transfers = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, slot)
-        if "transfers" in stats:
-            check(stats["transfers"] == transfers,
-                  f"{mode}: {stats['transfers']} transfers, want {transfers}")
-        check(res.errors == 0, f"{mode}: {res.errors} errors")
-        check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
-              f"{mode}: staged {ex.get('staged_bytes')}")
-        check(ex.get("staging_zero_copy") is True, f"{mode}: not zero-copy")
-        want = {"land": 0, "checksum": 0}
-        if mode == "pallas":
-            check(ex.get("checksum_ok") is True, "pallas: checksum mismatch")
-            want["land"] = transfers
-        elif mode == "device_put_validate":
-            check(ex.get("checksum_ok") is True, "validate: checksum mismatch")
-            want["checksum"] = transfers
-        check(counts == want, f"{mode}: launches {counts}, want {want}")
-        check(transfers > 0, f"{mode}: no transfers")
+    streams = _check_stagers(mode, stagers)
+    ex = res.extra
+    stats = ex.get("staging") or {}
+    slot = _slot(cfg)
+    transfers = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, slot)
+    if "transfers" in stats:
+        check(stats["transfers"] == transfers,
+              f"{mode}: {stats['transfers']} transfers, want {transfers}")
+    check(res.errors == 0, f"{mode}: {res.errors} errors")
+    check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+          f"{mode}: staged {ex.get('staged_bytes')}")
+    check(ex.get("staging_zero_copy") is True, f"{mode}: not zero-copy")
+    want = {"land": 0, "checksum": 0}
+    if mode == "pallas":
+        check(ex.get("checksum_ok") is True, "pallas: checksum mismatch")
+        want["land"] = transfers
+    elif mode == "device_put_validate":
+        check(ex.get("checksum_ok") is True, "validate: checksum mismatch")
+        want["checksum"] = transfers
+    check(counts == want, f"{mode}: launches {counts}, want {want}")
+    check(transfers > 0, f"{mode}: no transfers")
+    if mode.endswith("_noflight"):
+        check("flight" not in ex and obs.flights == [None],
+              f"{mode}: the flight recorder ran")
+        flight = {"read_records": 0, "stage_records": 0}
+    else:
+        flight = check_flight(f"read/{mode}", res, obs, WORKERS, transfers,
+                              pallas=mode == "pallas")
+    fb = res.summaries.get("first_byte")
+    line = {
+        "phase": "read", "mode": mode, "workers": WORKERS,
+        "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
+        "transfers": transfers, "launches": counts, "streams": streams,
+        "checksum_ok": ex.get("checksum_ok"),
+        "wall_s": res.wall_seconds,
+        "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
+        "first_byte_p50_ms": fb.p50_ms if fb else None,
+        "first_byte_p99_ms": fb.p99_ms if fb else None,
+        "staging_efficiency": stats.get("staging_efficiency"),
+        "transfer_wait_s": ex["staging_breakdown"]["transfer_wait_s"],
+        "slot_bytes": slot, "flight": flight, "card": smi,
+    }
+    return counts, line
+
+
+def phase_read(backend, smi) -> dict:
+    """Each staging mode once, then the recorder's cost: depth 3 with and
+    without the flight recorder, two more runs each in the reverse order
+    (so the pair runs A B B A A B), all checked."""
+    launches = {}
+    keys = ("staged_gbps_per_chip", "first_byte_p50_ms", "first_byte_p99_ms")
+    pair = ("device_put_depth3", "device_put_depth3_noflight")
+    samples = {m: {k: [] for k in keys} for m in pair}
+    for mode in MODES:
+        counts, line = _read_mode(backend, mode, smi)
+        emit(line)
         launches[f"read/{mode}"] = counts
-        fb = res.summaries.get("first_byte")
-        emit({
-            "phase": "read", "mode": mode, "workers": WORKERS,
-            "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
-            "transfers": transfers, "launches": counts, "streams": streams,
-            "checksum_ok": ex.get("checksum_ok"),
-            "wall_s": res.wall_seconds,
-            "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
-            "first_byte_p50_ms": fb.p50_ms if fb else None,
-            "first_byte_p99_ms": fb.p99_ms if fb else None,
-            "staging_efficiency": stats.get("staging_efficiency"),
-            "transfer_wait_s": ex["staging_breakdown"]["transfer_wait_s"],
-            "slot_bytes": slot,
-        })
+        if mode in samples:
+            for k in keys:
+                samples[mode][k].append(line[k])
+    for mode in pair[::-1] * 2:
+        _, line = _read_mode(backend, mode, smi)
+        for k in keys:
+            samples[mode][k].append(line[k])
+    med = {m: {k: sorted(v)[len(v) // 2] for k, v in samples[m].items()}
+           for m in pair}
+    emit({"phase": "flight_cost", "samples": samples, "median": med,
+          "flight_over_noflight": med[pair[0]]["staged_gbps_per_chip"]
+          / med[pair[1]]["staged_gbps_per_chip"], "card": smi})
     return launches
 
 
@@ -671,6 +860,8 @@ def _check_native(mode: str, res, counts: dict, pipes: list, slot: int,
     check(res.bytes_total == WORKERS * OBJECT_SIZE, f"{mode}: {res.bytes_total} B")
     check(ex.get("executor_mode") == "reactor",
           f"{mode}: executor {ex.get('executor_mode')}")
+    # tpubench's executor route has no flight hooks, so no flight block.
+    check("flight" not in ex, f"{mode}: the executor route carries flight")
     check("completions_per_wake" in ex, f"{mode}: no completions_per_wake")
     want = {"land": 0, "checksum": 0}
     if staged:
@@ -812,23 +1003,25 @@ def phase_protocols(store, smi, seed: int) -> dict:
                 store.open_count = store.injected_errors = 0
                 stagers = []
                 kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
-                landing.reset_launches()
-                try:
-                    res = run_read(cfg, device="cuda", sink_factory=kept)
-                finally:
-                    store.fault = FaultPlan()
-                    store._rng = store.fault.rng()
-                counts = {"land": landing.land.launches,
-                          "checksum": landing.checksum.launches}
+                with Observed() as obs:
+                    landing.reset_launches()
+                    try:
+                        res = run_read(cfg, device="cuda", sink_factory=kept)
+                    finally:
+                        store.fault = FaultPlan()
+                        store._rng = store.fault.rng()
+                    counts = {"land": landing.land.launches,
+                              "checksum": landing.checksum.launches}
                 launches[f"protocols/{mode}"] = counts
-                _check_protocol(mode, cfg, res, counts, stagers, store, smi)
+                _check_protocol(mode, cfg, res, counts, stagers, store, smi,
+                                obs)
         finally:
             shutil.rmtree(servers.local_dir, ignore_errors=True)
     return launches
 
 
 def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
-                    store, smi) -> None:
+                    store, smi, obs: Observed) -> None:
     ex = res.extra
     transfers = sum(st.transfers for st, _ in stagers)
     expected = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, _slot(cfg))
@@ -848,6 +1041,8 @@ def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
     else:
         check(transfers == expected,
               f"{mode}: {transfers} transfers, want {expected}")
+    flight = check_flight(f"protocols/{mode}", res, obs, WORKERS, transfers,
+                          pallas=cfg.staging.mode == "pallas")
     conn = ex.get("native_conn_stats")
     if mode == "http_native_validate":
         check(conn is not None and conn["connects"] <= WORKERS
@@ -868,8 +1063,253 @@ def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
         "native_transport": {k: v for k, v in
                              (ex.get("native_transport") or {}).items() if v},
         "opens": store.open_count, "injected_errors": store.injected_errors,
-        "card": smi,
+        "flight": flight, "card": smi,
     })
+
+
+# -------------------------------------------------------------- phase 7 --
+def _metrics(text: str) -> dict:
+    """Prometheus exposition text -> {sample name: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def _counted_tracer(cfg):
+    """The tracer ``make_tracer(cfg)`` builds, with a span store this
+    script can count: with the OTel SDK, an ``OtelTracer`` exporting into
+    an in-memory exporter (``make_tracer``'s has no processor when no
+    exporter is named); without it, the ``RecordingTracer`` it falls back
+    to. Returns ``(tracer, span_names)``."""
+    from tpubench_torch.obs.tracing import OtelTracer, RecordingTracer
+
+    try:
+        from opentelemetry.sdk.trace.export import SimpleSpanProcessor
+        from opentelemetry.sdk.trace.export.in_memory_span_exporter import (
+            InMemorySpanExporter,
+        )
+    except ImportError:
+        tracer = RecordingTracer(sample_rate=cfg.obs.trace_sample_rate)
+        return tracer, lambda: [sp.name for sp in tracer.spans]
+    spans = InMemorySpanExporter()
+    tracer = OtelTracer(
+        sample_rate=cfg.obs.trace_sample_rate, service_name="tpubench",
+        transport=cfg.transport.protocol,
+        span_processor=SimpleSpanProcessor(spans),
+    )
+    return tracer, lambda: [sp.name for sp in spans.get_finished_spans()]
+
+
+def phase_obs(store, smi) -> dict:
+    """Phase read's deployment with the whole obs plane on: tracing (the
+    tracer ``make_tracer`` builds: OTel where its SDK is installed, else
+    the in-process recorder; see ``_counted_tracer``), telemetry on an
+    ephemeral loopback port with OTLP dry-run export,
+    ``obs.export='cloud'`` dry-run, and the flight journal under
+    ``build/`` (removed after)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.obs.flight import load_journals
+    from tpubench_torch.obs.tracing import make_tracer
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.workloads.read import run_read
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="obs-", dir=build)
+    launches = {}
+    try:
+        for mode in OBS_MODES:
+            pallas = mode == "obs_pallas"
+            cfg = _config(WORKERS, OBJECT_SIZE, GRANULE,
+                          "pallas" if pallas else "device_put_validate")
+            cfg.obs.enable_tracing = True
+            cfg.obs.export = "cloud"  # export_dry_run stays True
+            cfg.obs.flight_journal = str(Path(root) / f"{mode}.json")
+            cfg.telemetry.port = 0
+            cfg.telemetry.otlp = True
+            tracer, span_names = _counted_tracer(cfg)
+            made = type(make_tracer(cfg)).__name__
+            check(type(tracer).__name__ == made,
+                  f"{mode}: make_tracer gives {made}, not {type(tracer).__name__}")
+            stagers = []
+            kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
+            with Observed() as obs:
+                landing.reset_launches()
+                try:
+                    res = run_read(cfg, backend=store, device="cuda",
+                                   tracer=tracer, sink_factory=kept)
+                finally:
+                    tracer.shutdown()
+                counts = {"land": landing.land.launches,
+                          "checksum": landing.checksum.launches}
+            launches[f"obs/{mode}"] = counts
+            ex = res.extra
+            transfers = sum(st.transfers for st, _ in stagers)
+            expected = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE,
+                                                    _slot(cfg))
+            kernel = "land" if pallas else "checksum"
+            check(res.errors == 0 and ex.get("checksum_ok") is True,
+                  f"{mode}: errors {res.errors}, checksum {ex.get('checksum_ok')}")
+            check(transfers == expected and counts == {
+                "land": 0, "checksum": 0, kernel: transfers},
+                f"{mode}: {transfers} transfers (want {expected}), {counts}")
+            check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+                  f"{mode}: staged {ex.get('staged_bytes')}")
+            streams = _check_stagers(mode, stagers)
+            flight = check_flight(f"obs/{mode}", res, obs, WORKERS, transfers,
+                                  pallas=pallas)
+            # /metrics, scraped as the session closed, against the result.
+            check(len(obs.scrapes) == 1, f"{mode}: {len(obs.scrapes)} scrapes")
+            m = _metrics(obs.scrapes[0])
+            want = {
+                "tpubench_reads_total": WORKERS,
+                "tpubench_bytes_total": res.bytes_total,
+                "tpubench_stage_transfers_total": 0 if pallas else transfers,
+                "tpubench_stage_bytes_total":
+                    0 if pallas else ex["staged_bytes"],
+            }
+            got = {k: m.get(k) for k in want}
+            check(got == want, f"{mode}: /metrics {got}, want {want}")
+            spans = span_names()
+            check(spans.count("ReadObject") == WORKERS,
+                  f"{mode}: {spans.count('ReadObject')} ReadObject spans")
+            journal = load_journals([ex["flight_journal"]])[0]
+            check(len(journal["records"]) == ex["flight"]["records"],
+                  f"{mode}: journal holds {len(journal['records'])} records")
+            # Dry-run exports: metric points under obs.metric_prefix, and
+            # the telemetry's OTLP metric and span payloads.
+            prefix = cfg.obs.metric_prefix.rstrip("/")
+            check(len(obs.exports) == 1 and obs.exports[0] is not None,
+                  f"{mode}: no metrics export session")
+            points = obs.exports[0].exporter.exported
+            check(points and all(p["type"].startswith(prefix + "/")
+                                 for p in points),
+                  f"{mode}: cloud dry-run payloads {len(points)}")
+            otlp = ex["telemetry"]["otlp"]
+            check(otlp["payloads"] >= 1 and otlp["traces"]["spans"] > 0,
+                  f"{mode}: OTLP dry-run {otlp}")
+            fb = res.summaries.get("first_byte")
+            emit({
+                "phase": "obs", "mode": mode, "workers": WORKERS,
+                "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
+                "transfers": transfers, "expected_transfers": expected,
+                "launches": counts, "streams": streams,
+                "checksum_ok": ex["checksum_ok"], "wall_s": res.wall_seconds,
+                "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
+                "first_byte_p50_ms": fb.p50_ms if fb else None,
+                "first_byte_p99_ms": fb.p99_ms if fb else None,
+                "flight": flight, "metrics": got,
+                "tracer": type(tracer).__name__, "spans": len(spans),
+                "read_spans": spans.count("ReadObject"),
+                "journal_records": len(journal["records"]),
+                "cloud_points": len(points), "otlp_payloads": otlp["payloads"],
+                "otlp_spans": otlp["traces"]["spans"],
+                "telemetry_ticks": ex["telemetry"]["ticks"], "card": smi,
+            })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# -------------------------------------------------------------- phase 8 --
+def phase_tail(smi, seed: int) -> dict:
+    """The deployment through ``open_backend`` with hedging, the stall
+    watchdog and the circuit breaker on, over a fresh fake store whose
+    seeded ``TAIL_FAULT`` plan makes each layer act: every read hedges,
+    some readers stall mid-body, some opens fail. Retries (1-100 ms
+    backoff, no jitter) are bounded by a 60 s deadline."""
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.storage import base_backend, open_backend
+    from tpubench_torch.workloads.read import run_read
+
+    launches = {}
+    for mode in TAIL_MODES:
+        pallas = mode == "tail_pallas"
+        cfg = _config(WORKERS, OBJECT_SIZE, GRANULE,
+                      "pallas" if pallas else "device_put_validate")
+        t = cfg.transport
+        for k, v in TAIL.items():
+            setattr(t.tail, k, v)
+        for k, v in TAIL_FAULT.items():
+            setattr(t.fault, k, v)
+        t.fault.seed = seed
+        t.retry.initial_backoff_s = 0.001
+        t.retry.max_backoff_s = 0.1
+        t.retry.jitter = False
+        t.retry.deadline_s = 60.0
+        t0 = time.perf_counter()
+        backend = open_backend(cfg)
+        store = base_backend(backend)
+        setup_s = time.perf_counter() - t0
+        stagers = []
+        kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
+        try:
+            with Observed() as obs:
+                landing.reset_launches()
+                res = run_read(cfg, backend=backend, device="cuda",
+                               sink_factory=kept)
+                counts = {"land": landing.land.launches,
+                          "checksum": landing.checksum.launches}
+        finally:
+            backend.close()
+        launches[f"tail/{mode}"] = counts
+        ex = res.extra
+        transfers = sum(st.transfers for st, _ in stagers)
+        kernel = "land" if pallas else "checksum"
+        check(res.errors == 0 and ex.get("checksum_ok") is True,
+              f"{mode}: errors {res.errors}, checksum {ex.get('checksum_ok')}")
+        check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+              f"{mode}: staged {ex.get('staged_bytes')}")
+        check(transfers > 0 and counts == {
+            "land": 0, "checksum": 0, kernel: transfers},
+            f"{mode}: launches {counts}, transfers {transfers}")
+        streams = _check_stagers(mode, stagers)
+        flight = check_flight(f"tail/{mode}", res, obs, WORKERS, transfers,
+                              pallas=pallas)
+        tail = ex["tail"]
+        notes = obs.breaker_notes
+        emitted = {s: sum(1 for n, _ in notes if n == s)
+                   for s in ("open", "half_open", "closed", "shed")}
+        landed = sum(1 for _, ok in notes if ok)
+        check(tail["hedge"]["hedges"] > 0, f"{mode}: no hedge {tail}")
+        check(tail["watchdog"]["stalls"] > 0, f"{mode}: no stall {tail}")
+        check(tail["breaker"]["opens"] > 0 and emitted["closed"] > 0
+              and tail["breaker"]["opens"] == emitted["open"],
+              f"{mode}: breaker never went open -> closed {tail['breaker']} "
+              f"{emitted}")
+        ft = ex["flight"]["tail"]
+        check(ft["hedges"] == tail["hedge"]["hedges"]
+              and ft["stalls"] == tail["watchdog"]["stalls"]
+              and ft["breaker_events"] == landed,
+              f"{mode}: flight {ft} vs counters {tail}, {landed} breaker "
+              "notes with an op to land on")
+        fb = res.summaries.get("first_byte")
+        line = {
+            "phase": "tail", "mode": mode, "workers": WORKERS,
+            "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
+            "transfers": transfers, "launches": counts, "streams": streams,
+            "checksum_ok": ex["checksum_ok"], "wall_s": res.wall_seconds,
+            "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
+            "first_byte_p50_ms": fb.p50_ms if fb else None,
+            "first_byte_p99_ms": fb.p99_ms if fb else None,
+            "tail": tail, "flight_tail": ft, "breaker_notes": emitted,
+            "breaker_notes_landed": landed, "flight": flight,
+            "opens": store.open_count, "injected_errors": store.injected_errors,
+            "store_setup_s": setup_s,
+            "staging_zero_copy": ex["staging_zero_copy"], "card": smi,
+        }
+        if res.wall_seconds > 60:
+            line["reduced"] = [f"{mode}: wall {res.wall_seconds:.1f} s > 60 s"]
+        emit(line)
+    return launches
 
 
 if __name__ == "__main__":

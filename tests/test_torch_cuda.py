@@ -170,3 +170,41 @@ def test_native_receive_into_pinned_slots_on_cuda(cuda):
     assert launches == sum(st["transfers"] for st in stats) > 0
     for st in stats:
         assert st["checksum_device"] == st["checksum_host"] % (1 << 32)
+
+
+@pytest.mark.parametrize("kind, cfg", [
+    ("copy", dict(validate_checksum=True)),
+    ("copy", dict(depth=3)),
+    ("land", dict(depth=3)),
+], ids=["validate_ring", "depth3_window", "land_ring"])
+def test_stage_records_on_cuda_match_cpu(cuda, kind, cfg):
+    """The flight recorder's stage records with the card's events deciding
+    completion (the window's live reaper at depth 3): one record per
+    transfer from the copy rings, none from the landing-kernel ring, each
+    with ``stage_submit <= stage_complete == hbm_staged`` — the same
+    records, by structure, as on the CPU."""
+    from tpubench_torch.obs.flight import FlightRecorder
+
+    data = deterministic_bytes("torch/cuda/flight", 3_000_001)
+    shapes = {}
+    for dev in ("cpu", "cuda"):
+        sc = StagingConfig()
+        for k, v in cfg.items():
+            setattr(sc, k, v)
+        cls = DevicePutStager if kind == "copy" else LandStager
+        rec = FlightRecorder(capacity_per_worker=64)
+        with rec.activate():
+            stats = _feed(cls(0, GRANULE, cfg=sc, device=dev,
+                              slot_bytes=256 * 1024), data)
+        recs = rec.records()
+        for r in recs:
+            ph = r["phases"]
+            assert ph["enqueue"] <= ph["stage_submit"]
+            assert ph["stage_submit"] <= ph["stage_complete"] == ph["hbm_staged"]
+        shapes[dev] = [(r["kind"], r["object"], sorted(r["phases"]), r["bytes"])
+                       for r in recs]
+        want = 0 if kind == "land" else stats["transfers"]
+        assert len(recs) == want
+        if recs:
+            assert sum(r["bytes"] for r in recs) == stats["staged_bytes"]
+    assert shapes["cpu"] == shapes["cuda"]

@@ -215,16 +215,13 @@ def test_refusals_match_tpubench(switch, match, jax_cpu_devices):
         run_read(_switch(_cfg(endpoint), switch), device="cpu")
 
 
-@pytest.mark.parametrize("switch", ["http2", "key_file", "tail",
-                                    "google_endpoint"])
+@pytest.mark.parametrize("switch", ["http2", "key_file", "google_endpoint"])
 def test_unported_http_features_name_roadmap_a2(switch):
     cfg = _cfg("http://127.0.0.1:9")
     if switch == "http2":
         cfg.transport.http2 = True
     elif switch == "key_file":
         cfg.transport.key_file = "/nonexistent/key.json"
-    elif switch == "tail":
-        cfg.transport.tail.watchdog = True
     else:
         cfg.transport.endpoint = ""  # storage.googleapis.com: credentials
     with pytest.raises(NotImplementedError, match="ROADMAP A.2"):

@@ -49,6 +49,9 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.storage.grpc_wire.client",
         "tpubench_torch.storage.grpc_wire.framing",
         "tpubench_torch.storage.grpc_wire.proto",
+        "tpubench_torch.storage.tail", "tpubench_torch.obs.flight",
+        "tpubench_torch.obs.tracing", "tpubench_torch.obs.exporters",
+        "tpubench_torch.obs.trace", "tpubench_torch.obs.telemetry",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -64,6 +67,12 @@ def test_every_module_imports_without_jax_or_tpubench():
     ]
     assert banned == [], banned
     assert "torch" in loaded
+    # The optional export packages load only when a run asks for them.
+    lazy = [
+        m for m in loaded
+        if m.startswith(("opentelemetry", "google.cloud.monitoring"))
+    ]
+    assert lazy == [], lazy
 
 
 def test_no_source_file_names_the_jax_package_in_an_import():

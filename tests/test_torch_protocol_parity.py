@@ -10,16 +10,18 @@ Bytes, transfers, per-worker host and device checksums and the checksum
 verdict must be equal, exactly (tolerance 0), and the results must have
 the same keys. Not compared, as in ``test_torch_read_parity.py``: timings,
 the per-chip rates and ``n_chips`` (8 simulated JAX CPU devices against
-the port's one CPU), and ``extra["flight"]`` (the flight recorder is not
-ported yet, ROADMAP A.3).
+the port's one CPU). ``extra["flight"]`` is compared by structure (record
+counts per kind, phase names, key sets), not by its times.
 
 ``tpubench`` picks gRPC library mode whenever ``grpcio`` imports; the port
 is wire-only, so the JAX side is held to wire mode here by patching
 ``tpubench.storage.gcs_grpc._HAVE_LIB`` (nothing in ``tpubench`` is
 edited).
 
-One more case runs HTTP/1.1 with a seeded fault plan (open 503s and
-mid-stream failures) under retry policy ``always``: resumes land
+One case runs HTTP/1.1 with tail tolerance, tracing and telemetry on, and
+compares their counters and span names. One more case runs HTTP/1.1 with
+a seeded fault plan (open 503s and mid-stream failures) under retry
+policy ``always``: resumes land
 mid-granule (the servers send 100,000-byte chunks, the client reads
 64 KiB granules), and each side must still stage exactly the
 population's bytes, each once.
@@ -27,12 +29,15 @@ population's bytes, each once.
 
 import dataclasses
 import socket
+import threading
+import time
 
 import numpy as np
 import pytest
 
 import tpubench.storage.gcs_grpc as jax_gcs_grpc
 from tpubench.config import BenchConfig as JaxBenchConfig
+from tpubench.obs.tracing import RecordingTracer as JaxRecordingTracer
 from tpubench.staging import device as jax_staging
 from tpubench.storage.fake import FakeBackend as JaxFakeBackend
 from tpubench.storage.fake import FaultPlan as JaxFaultPlan
@@ -45,6 +50,7 @@ from tpubench.workloads.read import run_read as jax_run_read
 
 from tpubench_torch import convert
 from tpubench_torch.config import BenchConfig
+from tpubench_torch.obs.tracing import RecordingTracer
 from tpubench_torch.staging.device import make_sink_factory
 from tpubench_torch.storage.base import deterministic_bytes
 from tpubench_torch.storage.fake_grpc_wire_server import FakeGrpcWireServer
@@ -57,7 +63,7 @@ WORKERS = 2
 READS = 2
 PREFIX = "tpubench/file_"
 GRANULE = 64 * 1024
-EXTRA_ONLY_IN_JAX = {"flight"}
+EXTRA_ONLY_IN_JAX: set = set()
 
 # variant -> (protocol, server kind, transport switches)
 VARIANTS = {
@@ -207,6 +213,23 @@ def _run_both(variant: str, mode: str, endpoints=None, local_dir: str = "",
     return jres.to_dict(), tres.to_dict(), jstats, tstats
 
 
+def flight_structure(summary: dict) -> dict:
+    """A flight summary without its times: key sets, record counts per
+    kind, tail/retry counts and phase names (as in
+    ``test_torch_read_parity.py``)."""
+    return {
+        "keys": sorted(summary),
+        "records": summary["records"],
+        "stage_records": summary["staging"]["transfers"],
+        "stage_bytes": summary["staging"]["transfer_bytes"],
+        "overlapped": summary["staging"]["overlapped"],
+        "errors": summary["errors"],
+        "tail": summary["tail"],
+        "phases": sorted(summary["phases"]),
+        "hosts": summary["hosts"],
+    }
+
+
 def _byte_sum(name: str) -> int:
     return int(deterministic_bytes(name, OBJECT_SIZE).sum(dtype=np.uint64))
 
@@ -228,6 +251,7 @@ def test_protocol_parity(variant, mode, servers, local_dir):
     assert set(jres["extra"]) - EXTRA_ONLY_IN_JAX == set(tres["extra"])
     assert set(jres["summaries"]) == set(tres["summaries"])
     je, te = jres["extra"], tres["extra"]
+    assert flight_structure(je["flight"]) == flight_structure(te["flight"])
     assert je.get("checksum_ok") == te.get("checksum_ok")
     if "staging" in je:
         for key in ("transfers", "staged_bytes", "depth", "workers"):
@@ -290,3 +314,85 @@ def test_fault_plan_is_carried_to_the_ports_store():
     _, store = convert.from_reference(cfg_dict, _population())
     assert dataclasses.asdict(store.fault)["read_error_rate"] == 0.5
     assert store.fault.seed == 3
+
+
+def _hedge_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("hedge-")]
+
+
+def test_tail_tracing_and_telemetry_parity():
+    """Tail layers (hedge, watchdog, breaker), tracing and telemetry on
+    through both packages over HTTP/1.1. The stores add 200 ms to every
+    open, far above the 2 ms hedge delay, so every read (and only a read)
+    launches exactly one hedge; no fault fails a request, so the breaker
+    never opens and the watchdog (2 s window) never fires. Compared
+    exactly: the tail counters but the hedge-win split and the loser's
+    wasted bytes (those depend on which racing open answers first), the
+    flight summary's structure but its win count, the telemetry counters
+    and the span names."""
+    fault = dict(latency_s=0.2, seed=5)
+    cfg_dict = _reference_config("http", "device_put_validate", {})
+    cfg_dict["transport"]["fault"].update(fault)
+    cfg_dict["transport"]["tail"].update(
+        hedge=True, hedge_delay_s=0.002, watchdog=True, stall_window_s=2.0,
+        breaker=True,
+    )
+    cfg_dict["telemetry"].update(port=0, otlp=True)
+    _, tstore = convert.from_reference(cfg_dict, _population())
+    jstore = JaxFakeBackend.from_population(
+        _population(), fault=JaxFaultPlan(**fault)
+    )
+    jsrv, tsrv = JaxGcsServer(jstore).start(), FakeGcsServer(tstore).start()
+    jtracer, ttracer = JaxRecordingTracer(), RecordingTracer()
+    try:
+        jcfg = JaxBenchConfig.from_dict(cfg_dict)
+        tcfg = BenchConfig.from_dict(cfg_dict)
+        jcfg.transport.endpoint, tcfg.transport.endpoint = (
+            jsrv.endpoint, tsrv.endpoint
+        )
+        jres = jax_run_read(
+            jcfg, tracer=jtracer,
+            sink_factory=jax_staging.make_sink_factory(jcfg),
+        ).to_dict()
+        tres = run_read(
+            tcfg, device="cpu", tracer=ttracer,
+            sink_factory=make_sink_factory(tcfg, device="cpu"),
+        ).to_dict()
+    finally:
+        _stop(jsrv)
+        _stop(tsrv)
+    reads = WORKERS * READS
+    assert set(jres["extra"]) == set(tres["extra"])
+    je, te = jres["extra"], tres["extra"]
+    for e in (je, te):
+        assert e["checksum_ok"] is True
+        hedge = e["tail"]["hedge"]
+        assert hedge["reads"] == hedge["hedges"] == reads
+        assert hedge["hedge_wins"] + hedge["hedge_losses"] == reads
+        for k in ("hedge_wins", "hedge_losses", "wasted_bytes"):
+            hedge.pop(k)
+        e["flight"]["tail"].pop("hedge_wins")
+    assert je["tail"] == te["tail"]
+    assert te["tail"]["breaker"]["opens"] == 0
+    assert te["tail"]["watchdog"]["stalls"] == 0
+    assert flight_structure(je["flight"]) == flight_structure(te["flight"])
+    assert te["flight"]["tail"]["hedges"] == reads
+    jt, tt = je["telemetry"], te["telemetry"]
+    assert set(jt) == set(tt)
+    for e in (jt, tt):
+        # The win count rides the counters only when non-zero.
+        e["counters"].pop("tpubench_hedge_wins_total", None)
+    assert jt["counters"] == tt["counters"]
+    assert tt["counters"]["tpubench_reads_total"] == reads
+    assert tt["counters"]["tpubench_hedges_total"] == reads
+    assert tt["port"] > 0 and tt["otlp"]["payloads"] >= 1
+    assert set(jt["otlp"]) == set(tt["otlp"])
+    jnames = sorted(s.name for s in jtracer.spans)
+    tnames = sorted(s.name for s in ttracer.spans)
+    assert jnames == tnames
+    assert tnames.count("ReadObject") == reads
+    # Every hedge producer has ended (losers stop at their next chunk).
+    deadline = time.monotonic() + 2.0
+    while _hedge_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not _hedge_threads()

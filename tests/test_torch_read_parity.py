@@ -5,16 +5,17 @@ Both packages run the same config dict over the same fake-store
 population (carried across by ``tpubench_torch.convert.from_reference``)
 in the three staging modes of the main path, on the zero-copy route and
 the copying route. Bytes, transfers, host and device checksums must be
-equal — exactly; the results must have the same keys.
+equal — exactly; the results must have the same keys, ``extra`` included.
+The flight recorder's summary (``extra["flight"]``, on by default in both)
+is compared by structure: record counts per kind, the set of phase names
+and the key sets, exactly; its times are not compared.
 
 Not compared for equality, and why:
 * timings (wall, GB/s, latencies) — they measure the run, not its result;
 * ``n_chips``, ``gbps_per_chip``, ``staged_gbps_per_chip`` and ``device`` —
   the JAX test harness simulates 8 CPU devices, the port on the CPU has 1;
 * ``native_slots`` — the JAX stager uses the native engine's aligned
-  buffers where it builds, the port pins slots only on CUDA;
-* ``extra["flight"]`` — the flight recorder is not ported yet (ROADMAP
-  A.3), so it is the one key the JAX result has beyond the port's.
+  buffers where it builds, the port pins slots only on CUDA.
 """
 
 import numpy as np
@@ -25,16 +26,17 @@ from tpubench.staging import device as jax_staging
 from tpubench.storage.fake import FakeBackend as JaxFakeBackend
 from tpubench.workloads.read import run_read as jax_run_read
 
-from tpubench_torch import convert
+from tpubench_torch import cli, convert
 from tpubench_torch.config import BenchConfig, refuse_unported
 from tpubench_torch.kernels import landing
+from tpubench_torch.obs.tracing import NoopTracer, make_tracer
 from tpubench_torch.staging.device import make_sink_factory
 from tpubench_torch.storage.base import deterministic_bytes
 from tpubench_torch.workloads.read import run_read
 
 OBJECT_SIZE = 777_777  # not a granule multiple: the short-tail path
 WORKERS = 2
-EXTRA_ONLY_IN_JAX = {"flight"}
+EXTRA_ONLY_IN_JAX: set = set()
 
 MODES = {
     "device_put_validate": dict(mode="device_put", validate_checksum=True),
@@ -89,6 +91,28 @@ def _recording(factory, stats: dict):
     return lambda i: _Recording(factory(i), stats, i)
 
 
+def flight_structure(summary: dict) -> dict:
+    """What of a flight summary must agree between the packages: key
+    sets, record counts per kind (reads and stage transfers), the
+    overlapped-transfer count, the tail and retry counts, the phase names
+    and the staged bytes — everything but times."""
+    return {
+        "keys": sorted(summary),
+        "records": summary["records"],
+        "stage_records": summary["staging"]["transfers"],
+        "stage_bytes": summary["staging"]["transfer_bytes"],
+        "overlapped": summary["staging"]["overlapped"],
+        "errors": summary["errors"],
+        "retries": summary["retries"],
+        "tail": summary["tail"],
+        "phases": sorted(summary["phases"]),
+        "phase_keys": sorted(
+            {k for v in summary["phases"].values() for k in v}
+        ),
+        "hosts": summary["hosts"],
+    }
+
+
 def _run_both(mode: str, zero_copy: bool):
     cfg_dict = _reference_config(mode, zero_copy)
     jcfg = JaxBenchConfig.from_dict(cfg_dict)
@@ -120,6 +144,16 @@ def test_read_parity(mode, zero_copy):
     assert set(jres["summaries"]) == set(tres["summaries"])
     assert jres["config"] == tres["config"]
     je, te = jres["extra"], tres["extra"]
+    assert flight_structure(je["flight"]) == flight_structure(te["flight"])
+    # One read record per read; one stage record per transfer in the
+    # device_put rings, none in the pallas ring (as in tpubench).
+    stage = te["flight"]["staging"]["transfers"]
+    assert te["flight"]["records"] - stage == WORKERS * 2
+    if mode == "pallas":
+        assert stage == 0
+    else:
+        assert stage == te["staging"]["transfers"]
+        assert te["flight"]["staging"]["transfer_bytes"] == total
     assert je.get("checksum_ok") == te.get("checksum_ok")
     if "staging" in je:
         for key in ("transfers", "staged_bytes", "depth", "drain", "workers"):
@@ -183,33 +217,69 @@ def test_saved_reference_config_loads_and_round_trips():
 
 def test_ported_defaults_match_reference():
     ref, port = JaxBenchConfig().to_dict(), BenchConfig().to_dict()
-    for section in ("workload", "transport", "staging", "obs"):
+    for section in ("workload", "transport", "staging", "obs", "telemetry"):
         assert port[section] == ref[section], section
 
 
-@pytest.mark.parametrize("switch", [
-    ("transport", "key_file", "/nonexistent/key.json"),
-    ("dist", "num_processes", 2),
-    ("obs", "flight_journal", "/tmp/j.json"),
-    ("obs", "enable_tracing", True),
-    ("obs", "export", "cloud"),
-    ("tune", "enabled", True),
-    ("telemetry", "port", 0),
-    ("transport.tail", "hedge", True),
-])
-def test_unported_switch_is_refused(switch):
-    """A reference config that switches on a feature this slice leaves out
-    raises naming the ROADMAP item — never a silent no-op."""
-    section, name, value = switch
+def _switched(section: str, name: str, value):
     ref = JaxBenchConfig()
     ref.transport.protocol = "fake"
     obj = ref
     for part in section.split("."):
         obj = getattr(obj, part)
     setattr(obj, name, value)
-    cfg = BenchConfig.from_dict(ref.to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    return ref
+
+
+@pytest.mark.parametrize("switch, item", [
+    (("transport", "key_file", "/nonexistent/key.json"), "A.2"),
+    (("dist", "num_processes", 2), "A.4"),
+    (("tune", "enabled", True), "A.3"),
+    (("obs", "results_bucket", "b"), "A.2"),
+    (("obs", "profile_dir", "/tmp/p"), "A.6"),
+])
+def test_unported_switch_is_refused(switch, item):
+    """A reference config that switches on a feature this slice leaves out
+    raises naming its ROADMAP item — never a silent no-op."""
+    cfg = BenchConfig.from_dict(_switched(*switch).to_dict())
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         refuse_unported(cfg)
+
+
+@pytest.mark.parametrize("switch", [
+    ("obs", "flight_journal", "journal.json"),
+    ("obs", "enable_tracing", True),
+    ("obs", "export", "cloud"),
+    ("telemetry", "port", 0),
+    ("transport.tail", "hedge", True),
+    ("transport.tail", "watchdog", True),
+    ("transport.tail", "breaker", True),
+], ids=lambda sw: f"{sw[0]}.{sw[1]}")
+def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
+    """The switches this slice ports run through the ``read`` command on
+    the CPU and leave their block in the result (before, each was
+    refused); tracing gets a real tracer."""
+    monkeypatch.chdir(tmp_path)
+    ref = _switched(*switch)
+    ref.workload.workers = 1
+    ref.workload.read_calls_per_worker = 1
+    ref.workload.object_size = 300_001
+    ref.workload.granule_bytes = 64 * 1024
+    ref.staging.slot_bytes = 128 * 1024
+    cfg = BenchConfig.from_dict(ref.to_dict())
+    refuse_unported(cfg)
+    res = cli.read(cfg, device="cpu")
+    assert res.errors == 0 and res.extra["staged_bytes"] == 300_001
+    want = {
+        "flight_journal": "flight_journal", "enable_tracing": "flight",
+        "export": "metrics_export", "port": "telemetry",
+        "hedge": "tail", "watchdog": "tail", "breaker": "tail",
+    }[switch[1]]
+    assert want in res.extra
+    if switch[1] == "flight_journal":
+        assert (tmp_path / "journal.json").is_file()
+    if switch[1] == "enable_tracing":
+        assert not isinstance(make_tracer(cfg), NoopTracer)
 
 
 def test_deterministic_bytes_match_reference():

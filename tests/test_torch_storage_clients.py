@@ -305,13 +305,10 @@ def _refusal(what: str):
     if what == "key_file_http":
         return lambda: GcsHttpBackend("b", _transport(
             endpoint="http://127.0.0.1:9", key_file="/k.json"))
-    if what in ("key_file_config", "tail_config"):
+    if what == "key_file_config":
         cfg = BenchConfig()
         cfg.transport.protocol = "fake"
-        if what == "key_file_config":
-            cfg.transport.key_file = "/k.json"
-        else:
-            cfg.transport.tail.watchdog = True
+        cfg.transport.key_file = "/k.json"
         return lambda: refuse_unported(cfg)
     if what == "grpc_channel":
         return lambda: GcsGrpcBackend(
@@ -329,7 +326,7 @@ def _refusal(what: str):
 @pytest.mark.parametrize("what, item", [
     ("google_endpoint_http", "A.2"), ("google_endpoint_grpc", "A.2"),
     ("key_file_http", "A.2"), ("key_file_config", "A.2"),
-    ("tail_config", "A.2"), ("grpc_channel", "A.2"),
+    ("grpc_channel", "A.2"),
     ("read_ranges_http", "A.5"), ("read_ranges_grpc", "A.5"),
 ])
 def test_refusals_that_stay_name_their_roadmap_item(what, item):

@@ -10,6 +10,12 @@ The other clients read from a server (``--endpoint``, ``--bucket``,
 ``--protocol http`` (HTTP/1.1; ``--native-receive``, ``--http2``,
 ``--fetch-executor native``) and ``--protocol grpc`` (``--native-receive``).
 
+The obs plane and tail tolerance take ``tpubench read``'s flags:
+``--enable-tracing``, ``--flight-records``/``--flight-journal``,
+``--telemetry-port``/``--telemetry-otlp``, ``--export cloud`` (dry-run
+unless ``--metrics-live``), ``--hedge``/``--watchdog``/``--breaker`` (with
+the ``--fault-*`` knobs of the fake store to give them something to do).
+
 ``read`` writes the same result JSON as ``tpubench read`` and prints its
 path on the last line. It runs on CUDA unless ``--device cpu`` is given;
 without a GPU it then exits nonzero instead of carrying on on the CPU.
@@ -21,7 +27,7 @@ import argparse
 import json
 import sys
 
-from tpubench_torch.config import BenchConfig
+from tpubench_torch.config import BenchConfig, validate_telemetry_config
 from tpubench_torch.metrics.report import RunResult, write_result
 
 
@@ -78,7 +84,129 @@ def build_parser() -> argparse.ArgumentParser:
                    help="staging slot target (capped by the host budget)")
     p.add_argument("--results-dir")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    _add_obs_args(p)
+    _add_fault_args(p)
+    _add_tail_args(p)
     return ap
+
+
+def _add_obs_args(p) -> None:
+    """Tracing, flight recorder, telemetry and metric export (the flags,
+    defaults and help of ``tpubench read``)."""
+    p.add_argument("--enable-tracing", action="store_true")
+    p.add_argument("--trace-sample-rate", type=float)
+    p.add_argument("--trace-exporter", choices=("console", "cloud_trace"),
+                   help="span export path (with --enable-tracing)")
+    p.add_argument("--flight-journal",
+                   help="write the per-host flight-recorder journal JSON "
+                        "here (per-read phase timelines; multi-host "
+                        "processes suffix .p<idx>; a .gz path writes "
+                        "gzip-compressed)")
+    p.add_argument("--journal-max-bytes", type=int,
+                   help="size bound for each journal write: a flush "
+                        "that would exceed it drops the OLDEST records "
+                        "with a counted rotation_dropped note (0 = "
+                        "unbounded) — long runs streaming journals "
+                        "can't fill the disk")
+    p.add_argument("--telemetry-port", type=int,
+                   help="serve live run telemetry over loopback HTTP: "
+                        "Prometheus text exposition at /metrics + JSON "
+                        "/snapshot (0 = ephemeral port, printed at "
+                        "start; off by default)")
+    p.add_argument("--telemetry-interval", type=float,
+                   help="telemetry registry tick seconds: gauge refresh, "
+                        "recorder/native-counter sampling and the "
+                        "in-run journal stream cadence (default 1.0)")
+    p.add_argument("--telemetry-otlp", action="store_true",
+                   help="periodic OTLP-shaped JSON metric export "
+                        "(dry-run capture stamped into the result "
+                        "unless --telemetry-otlp-endpoint is set)")
+    p.add_argument("--telemetry-otlp-endpoint",
+                   help="POST OTLP/HTTP JSON metric payloads here every "
+                        "telemetry.otlp_interval_s (implies "
+                        "--telemetry-otlp; stdlib urllib, no SDK)")
+    p.add_argument("--flight-records", type=int,
+                   help="flight-recorder ring capacity per worker "
+                        "(newest records kept; 0 disables the layer)")
+    p.add_argument("--export", choices=("none", "json", "cloud"),
+                   help="metric export: cloud = in-run periodic push of full "
+                        "latency histograms (metrics_exporter.go:36-58); "
+                        "dry-run capture unless --metrics-live")
+    p.add_argument("--metrics-interval", type=float,
+                   help="export interval seconds (reference: 30)")
+    p.add_argument("--metrics-live", action="store_true",
+                   help="really push to Cloud Monitoring (needs "
+                        "google-cloud-monitoring + GCP creds; default is "
+                        "dry-run capture stamped into the result)")
+
+
+_FAULT_FLAGS = (
+    # (flag, FaultConfig field, type, help)
+    ("--fault-error-rate", "error_rate", float,
+     "fake backend: P(open raises transient 503)"),
+    ("--fault-read-error-rate", "read_error_rate", float,
+     "fake backend: P(granule read fails mid-stream)"),
+    ("--fault-latency", "latency_s", float,
+     "fake backend: added first-byte latency (s)"),
+    ("--fault-per-read-latency", "per_read_latency_s", float,
+     "fake backend: added latency per granule read (s)"),
+    ("--fault-stall-s", "stall_s", float,
+     "chaos plane: one mid-body pause of this many seconds per reader "
+     "(very large = blackhole)"),
+    ("--fault-stall-after-bytes", "stall_after_bytes", int,
+     "chaos plane: the stall triggers after this many delivered bytes "
+     "(default 0 = at first byte)"),
+    ("--fault-stall-rate", "stall_rate", float,
+     "chaos plane: P(a given reader stalls at all) — <1 makes the stall "
+     "a straggler, the shape hedged reads race against"),
+    ("--fault-drip-bps", "drip_bps", float,
+     "chaos plane: per-reader throughput cap (bytes/s; the slow-drip the "
+     "stall watchdog detects)"),
+    ("--fault-truncate-after-bytes", "truncate_after_bytes", int,
+     "chaos plane: clean EOF after N bytes, short of the announced length"),
+    ("--fault-reset-after-bytes", "reset_after_bytes", int,
+     "chaos plane: kill the stream abruptly after N bytes (reset/RST "
+     "shape)"),
+)
+
+
+def _add_fault_args(p) -> None:
+    for flag, field, typ, hlp in _FAULT_FLAGS:
+        p.add_argument(flag, type=typ, dest=f"fault_{field}", help=hlp)
+
+
+def _add_tail_args(p) -> None:
+    p.add_argument("--hedge", action="store_true",
+                   help="tail tolerance: race a second ranged read when "
+                        "the first byte is late; first winner streams, "
+                        "loser cancelled (wins/losses/waste recorded)")
+    p.add_argument("--hedge-delay", type=float,
+                   help="seconds before the hedge launches (default 0.05)")
+    p.add_argument("--hedge-from-p99", action="store_true",
+                   help="derive the hedge delay from the run's rolling "
+                        "p99 first-byte latency instead of the fixed "
+                        "--hedge-delay (which becomes the floor)")
+    p.add_argument("--watchdog", action="store_true",
+                   help="tail tolerance: cancel+resume a stream whose "
+                        "throughput stays below --stall-floor-bps for "
+                        "--stall-window seconds")
+    p.add_argument("--stall-window", type=float,
+                   help="watchdog stall window seconds (default 1.0)")
+    p.add_argument("--stall-floor-bps", type=float,
+                   help="watchdog throughput floor bytes/s (default 1024)")
+    p.add_argument("--breaker", action="store_true",
+                   help="tail tolerance: per-backend circuit breaker "
+                        "(closed→open→half-open) shedding a failing "
+                        "endpoint instead of hammering it")
+    p.add_argument("--breaker-failures", type=int,
+                   help="consecutive failures that open the breaker "
+                        "(default 5)")
+    p.add_argument("--breaker-reset", type=float,
+                   help="seconds the breaker stays open before probing "
+                        "(default 5.0)")
+    p.add_argument("--breaker-probes", type=int,
+                   help="half-open probe successes required to close "
+                        "(default 1)")
 
 
 def build_config(args) -> BenchConfig:
@@ -126,19 +254,112 @@ def build_config(args) -> BenchConfig:
         s.slot_bytes = args.slot_bytes
     if args.results_dir:
         cfg.obs.results_dir = args.results_dir
+    _apply_obs_args(cfg, args)
+    for _, field, _, _ in _FAULT_FLAGS:
+        v = getattr(args, f"fault_{field}")
+        if v is not None:
+            setattr(t.fault, field, v)
+    _apply_tail_args(cfg.transport.tail, args)
     return cfg
+
+
+def _apply_obs_args(cfg: BenchConfig, args) -> None:
+    o = cfg.obs
+    if args.enable_tracing:
+        o.enable_tracing = True
+    if args.trace_sample_rate is not None:
+        o.trace_sample_rate = args.trace_sample_rate
+    if args.trace_exporter:
+        o.trace_exporter = args.trace_exporter
+    if args.flight_journal:
+        o.flight_journal = args.flight_journal
+    if args.journal_max_bytes is not None:
+        if args.journal_max_bytes < 0:
+            raise SystemExit(
+                f"--journal-max-bytes {args.journal_max_bytes}: must be "
+                ">= 0 (0 = unbounded)"
+            )
+        o.journal_max_bytes = args.journal_max_bytes
+    tel = cfg.telemetry
+    if args.telemetry_port is not None:
+        tel.port = args.telemetry_port
+        # -1 is the documented "off" value: it must not flip the switch.
+        tel.enabled = args.telemetry_port >= 0
+    if args.telemetry_interval is not None:
+        tel.interval_s = args.telemetry_interval
+    if args.telemetry_otlp:
+        tel.otlp = True
+    if args.telemetry_otlp_endpoint:
+        tel.otlp = True
+        tel.otlp_endpoint = args.telemetry_otlp_endpoint
+    validate_telemetry_config(tel)
+    if args.flight_records is not None:
+        if args.flight_records < 0:
+            raise SystemExit(
+                f"--flight-records {args.flight_records}: must be >= 0 "
+                "(0 disables the flight recorder)"
+            )
+        o.flight_records = args.flight_records
+    if args.export:
+        o.export = args.export
+    if args.metrics_interval is not None:
+        o.metrics_interval_s = args.metrics_interval
+    if args.metrics_live:
+        if args.export and args.export != "cloud":
+            raise SystemExit("--metrics-live requires --export cloud")
+        o.export = "cloud"  # the flag implies the cloud path; never a no-op
+        o.export_dry_run = False
+
+
+def _apply_tail_args(tail, args) -> None:
+    if args.hedge:
+        tail.hedge = True
+    if args.hedge_delay is not None:
+        tail.hedge_delay_s = args.hedge_delay
+    if args.hedge_from_p99:
+        tail.hedge = True  # the adaptive delay implies hedging
+        tail.hedge_from_p99 = True
+    if args.watchdog:
+        tail.watchdog = True
+    if args.stall_window is not None:
+        tail.stall_window_s = args.stall_window
+    if args.stall_floor_bps is not None:
+        tail.stall_floor_bps = args.stall_floor_bps
+    if args.breaker:
+        tail.breaker = True
+    if args.breaker_failures is not None:
+        tail.breaker_failures = args.breaker_failures
+    if args.breaker_reset is not None:
+        tail.breaker_reset_s = args.breaker_reset
+    if args.breaker_probes is not None:
+        tail.breaker_probes = args.breaker_probes
+    if tail.hedge_delay_s < 0:
+        raise SystemExit(
+            f"--hedge-delay {tail.hedge_delay_s}: must be >= 0"
+        )
+    if tail.stall_window_s <= 0:
+        raise SystemExit(
+            f"--stall-window {tail.stall_window_s}: must be > 0"
+        )
+    if tail.stall_floor_bps < 0:
+        raise SystemExit(
+            f"--stall-floor-bps {tail.stall_floor_bps}: must be >= 0"
+        )
 
 
 def read(cfg: BenchConfig, device="cuda", backend=None) -> RunResult:
     """The ``read`` command: stage through the ring ``cfg.staging.mode``
-    selects, onto ``device``."""
+    selects, onto ``device``, under the tracer ``obs.enable_tracing``
+    asks for (shut down, so batched spans flush, when the run ends)."""
+    from tpubench_torch.obs.tracing import tracer_session
     from tpubench_torch.staging.device import make_sink_factory
     from tpubench_torch.workloads.read import run_read
 
-    return run_read(
-        cfg, backend=backend, device=device,
-        sink_factory=make_sink_factory(cfg, device=device),
-    )
+    with tracer_session(cfg) as tracer:
+        return run_read(
+            cfg, backend=backend, device=device, tracer=tracer,
+            sink_factory=make_sink_factory(cfg, device=device),
+        )
 
 
 def main(argv=None) -> int:

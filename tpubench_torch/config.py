@@ -4,8 +4,8 @@
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
 unchanged. The sections the port has no code for yet (dist, pipeline,
-tune, telemetry, coop, serve, lifecycle, drill, fleet, …) are kept as the
-raw dicts they were loaded as, so they round-trip without a dataclass.
+tune, coop, serve, lifecycle, drill, fleet, …) are kept as the raw dicts
+they were loaded as, so they round-trip without a dataclass.
 
 :func:`refuse_unported` rejects a config that switches on a feature this
 port does not have yet, naming the ``ROADMAP.md`` item that brings it —
@@ -189,9 +189,65 @@ class ObservabilityConfig:
     journal_max_bytes: int = 0
 
 
+@dataclass
+class TelemetryConfig:
+    """Live telemetry plane (:mod:`tpubench_torch.obs.telemetry`): an
+    in-process pull-based metrics registry — counters, gauges, and
+    fixed-bucket latency histograms on the reference view's bucket
+    bounds — fed from the flight channel, the run's latency recorders and
+    the native ``tb_stats_*`` counters while the run is in flight.
+
+    Exposed as a stdlib-only loopback HTTP endpoint (Prometheus text at
+    ``/metrics``, JSON at ``/snapshot``), as periodic OTLP-shaped JSON
+    export, and as the journal stream. All off by default."""
+
+    # Master switch; implied by port >= 0 or otlp.
+    enabled: bool = False
+    # -1 = no endpoint, 0 = ephemeral (the OS picks), >0 = fixed.
+    port: int = -1
+    # Registry tick (seconds): gauge refresh, recorder/native-counter
+    # sampling, and the in-run journal stream cadence.
+    interval_s: float = 1.0
+    # OTLP-shaped JSON metric export: captured dry-run without an
+    # endpoint, POSTed with stdlib urllib with one.
+    otlp: bool = False
+    otlp_interval_s: float = 30.0
+    otlp_endpoint: str = ""
+
+    @property
+    def active(self) -> bool:
+        return self.enabled or self.port >= 0 or self.otlp
+
+
+def validate_telemetry_config(tc: TelemetryConfig,
+                              where: str = "telemetry") -> None:
+    """Parse-time sanity for the telemetry knobs (one-line SystemExit)."""
+    if not (-1 <= tc.port <= 65535):
+        raise SystemExit(
+            f"{where}.port={tc.port!r}: must be -1 (off), 0 (ephemeral) "
+            "or a valid TCP port"
+        )
+    if not (tc.interval_s > 0):  # also rejects NaN
+        raise SystemExit(
+            f"{where}.interval_s={tc.interval_s!r}: must be > 0"
+        )
+    if not (tc.otlp_interval_s > 0):
+        raise SystemExit(
+            f"{where}.otlp_interval_s={tc.otlp_interval_s!r}: must be > 0"
+        )
+    if tc.otlp_endpoint and not (
+        tc.otlp_endpoint.startswith("http://")
+        or tc.otlp_endpoint.startswith("https://")
+    ):
+        raise SystemExit(
+            f"{where}.otlp_endpoint={tc.otlp_endpoint!r}: must be an "
+            "http(s) URL (the OTLP/HTTP JSON receiver)"
+        )
+
+
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
-PORTED_SECTIONS = ("workload", "transport", "staging", "obs")
+PORTED_SECTIONS = ("workload", "transport", "staging", "obs", "telemetry")
 
 
 @dataclass
@@ -200,7 +256,14 @@ class BenchConfig:
     transport: TransportConfig = field(default_factory=TransportConfig)
     staging: StagingConfig = field(default_factory=StagingConfig)
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     raw: dict[str, dict] = field(default_factory=dict)
+
+    @property
+    def process_id(self) -> int:
+        """This process's index in a multi-process run (``dist`` is kept
+        raw; the port runs one process)."""
+        return int(self.raw.get("dist", {}).get("process_id", 0))
 
     def to_dict(self) -> dict[str, Any]:
         d = {
@@ -242,6 +305,7 @@ _SUBTYPES = {
     "transport": TransportConfig,
     "staging": StagingConfig,
     "obs": ObservabilityConfig,
+    "telemetry": TelemetryConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,
@@ -264,21 +328,10 @@ def refuse_unported(cfg: BenchConfig) -> None:
         )
     if t.key_file:
         refused.append("transport.key_file (ROADMAP A.2: token sources)")
-    if t.tail.active:
-        refused.append("transport.tail (ROADMAP A.2: tail tolerance)")
-    if o.flight_journal:
-        refused.append("obs.flight_journal (ROADMAP A.3: obs plane)")
-    if o.enable_tracing:
-        refused.append("obs.enable_tracing (ROADMAP A.3: obs plane)")
-    if o.export == "cloud":
-        refused.append("obs.export='cloud' (ROADMAP A.3: obs plane)")
     if o.results_bucket:
         refused.append("obs.results_bucket (ROADMAP A.2: object-store backends)")
     if o.profile_dir:
         refused.append("obs.profile_dir (ROADMAP A.6: profiling)")
-    tel = raw.get("telemetry", {})
-    if tel.get("enabled") or tel.get("port", -1) >= 0 or tel.get("otlp"):
-        refused.append("telemetry (ROADMAP A.3: obs plane)")
     if raw.get("tune", {}).get("enabled"):
         refused.append("tune (ROADMAP A.3: tune)")
     if raw.get("dist", {}).get("num_processes", 1) > 1:
@@ -287,6 +340,7 @@ def refuse_unported(cfg: BenchConfig) -> None:
         raise NotImplementedError(
             "not ported to tpubench_torch yet: " + "; ".join(refused)
         )
+    validate_telemetry_config(cfg.telemetry)
     if s.mode not in STAGING_MODES:
         raise ValueError(
             f"unknown staging mode {s.mode!r} ({'|'.join(STAGING_MODES)})"

@@ -38,6 +38,16 @@ class LatencyRecorder:
     def as_ns_array(self) -> np.ndarray:
         return np.frombuffer(self._ns, dtype=np.int64).copy() if self._ns else np.empty(0, np.int64)
 
+    def snapshot_tail_ns(self, start: int) -> tuple[np.ndarray, int]:
+        """Mid-run-safe copy of samples [start:len) plus the new consumed
+        offset — the periodic exporters' incremental read. Slicing copies
+        without exporting the buffer, so the owner's concurrent appends
+        stay safe."""
+        end = len(self._ns)
+        if end <= start:
+            return np.empty(0, np.int64), start
+        return np.array(self._ns[start:end].tolist(), dtype=np.int64), end
+
     def summarize(self) -> LatencySummary:
         return summarize_ns(self.as_ns_array())
 

@@ -52,6 +52,7 @@ from tpubench_torch.device import (
 )
 from tpubench_torch.kernels import landing
 from tpubench_torch.metrics.recorder import LatencyRecorder
+from tpubench_torch.obs import flight as _flight
 from tpubench_torch.staging.executor import (
     InflightWindow,
     TransferEngine,
@@ -177,6 +178,11 @@ class DevicePutStager(GranuleAggregator):
         self.depth = depth
         self.transfers = 0
         self.stage_recorder = LatencyRecorder(f"w{worker_id}/stage")
+        # Flight recorder: one record per transfer (enqueue → stage_submit
+        # → stage_complete/hbm_staged) on the run's ambient recorder —
+        # appended by the fetch thread (serial ring) or the window's
+        # reaper (overlap), one appender either way.
+        self._flight = _flight.active_worker(f"w{worker_id}/stage")
         self._validate = cfg.validate_checksum
         self._host_sum = np.uint64(0)
         self._dev_sum: Optional[torch.Tensor] = None
@@ -207,6 +213,7 @@ class DevicePutStager(GranuleAggregator):
                 depth, self.device,
                 engine=transfer_engine or TransferEngine(self.stream),
                 stage_recorder=self.stage_recorder,
+                flight_ring=self._flight,
                 name=f"w{worker_id}",
             )
             # Free-slot pool (out-of-order: availability is a free list,
@@ -240,6 +247,15 @@ class DevicePutStager(GranuleAggregator):
         self.transfer_wait_ns += done_ns - t0
         self.transfer_flight_ns += done_ns - self._submit_ns[k]
         self.stage_recorder.record_ns(done_ns - self._submit_ns[k])
+        if self._flight is not None:
+            op = self._flight.begin(
+                "slot", "device_put", enqueue_ns=self._submit_ns[k],
+                install=False, kind="stage",
+            )
+            op.mark("stage_submit", self._submit_ns[k])
+            op.mark("stage_complete", done_ns)
+            op.mark("hbm_staged", done_ns)
+            op.finish(self._true_bytes[k])
         self.staged_bytes += self._true_bytes[k]
         self._futures[k] = None
 
@@ -259,6 +275,7 @@ class DevicePutStager(GranuleAggregator):
             self._window.enqueue(
                 self._slots[k], nbytes,
                 on_complete=lambda k=k: self._release_slot(k),
+                label="slot",
             )
             return
         k = self._k

@@ -8,6 +8,12 @@ transfer lands first — out-of-order completion into the slot ring.
 Backpressure is the window credit: ``enqueue`` blocks only when all K
 slots are pending, and that blocked time is the run's ``transfer_wait_ns``.
 
+Each transfer is one flight record (``kind="stage"``) when the run has a
+recorder: begun by the producer at enqueue, adopted by the reaper, which
+stamps ``stage_submit`` and, when the event reports the copy done,
+``stage_complete``/``hbm_staged`` — host times, as ``tpubench`` stamps
+after ``block_until_ready``.
+
 Each transfer's resources (the slot to free) are dropped by the reaper at
 *completion* — when the copy's event has fired — never at submit: a pinned
 slot refilled while its asynchronous copy still reads it would ship
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from tpubench_torch.device import on_stream, record_event
+from tpubench_torch.obs import flight as _flight
 from tpubench_torch.staging.stats import staging_efficiency
 
 
@@ -76,14 +83,15 @@ class _Transfer:
     """One in-flight transfer: buffer, accounting stamps, and the
     resources the reaper drops at completion."""
 
-    __slots__ = ("array", "nbytes", "on_complete", "enqueue_ns", "seq",
-                 "handle", "submit_ns")
+    __slots__ = ("array", "nbytes", "on_complete", "op", "enqueue_ns",
+                 "seq", "handle", "submit_ns")
 
-    def __init__(self, array, nbytes: int, on_complete, enqueue_ns: int,
+    def __init__(self, array, nbytes: int, on_complete, op, enqueue_ns: int,
                  seq: int):
         self.array = array
         self.nbytes = nbytes
         self.on_complete = on_complete  # free the slot
+        self.op = op  # flight record (kind="stage"), finished by the reaper
         self.enqueue_ns = enqueue_ns
         self.seq = seq
         self.handle = None
@@ -106,6 +114,7 @@ class InflightWindow:
         *,
         engine: Optional[TransferEngine] = None,
         stage_recorder=None,
+        flight_ring=None,
         name: str = "stage",
         poll_s: float = 0.0002,
         clock: Callable[[], int] = time.perf_counter_ns,
@@ -114,6 +123,7 @@ class InflightWindow:
         self._device = device
         self._depth = max(1, int(depth))
         self._recorder = stage_recorder
+        self._ring = flight_ring
         self._poll_s = poll_s
         self._clock = clock
         self._lock = threading.Lock()
@@ -158,11 +168,21 @@ class InflightWindow:
             raise self.error
 
     def enqueue(self, array, nbytes: int, on_complete=None,
+                label: str = "device_put",
                 enqueue_ns: Optional[int] = None) -> None:
         """Hand a filled buffer to the window. Blocks (backpressure)
         while K transfers are already pending; the blocked time is
         ``wait_ns`` — the quantity this executor exists to shrink."""
         enq = enqueue_ns if enqueue_ns is not None else self._clock()
+        op = None
+        if self._ring is not None:
+            op = self._ring.begin(
+                label, "device_put", enqueue_ns=enq, install=False,
+                kind="stage",
+            )
+            # The serial ring stamps stage_submit too, so window transfers
+            # carry an explicit marker (timeline_summary's `overlapped`).
+            op.note("stage", event="overlap")
         with self._cond:
             t0 = None
             while (len(self._queue) + len(self._inflight) >= self._depth
@@ -173,11 +193,15 @@ class InflightWindow:
             if t0 is not None:
                 self.wait_ns += self._clock() - t0
             if self.error is not None:
+                if op is not None:
+                    # Abandon, don't finish: the reaper may be appending
+                    # failed ops to the same single-appender ring now.
+                    op.abandon()
                 if on_complete is not None:
                     on_complete()
                 raise self.error
             self._queue.append(
-                _Transfer(array, int(nbytes), on_complete, enq, self._seq)
+                _Transfer(array, int(nbytes), on_complete, op, enq, self._seq)
             )
             self._seq += 1
             self._cond.notify_all()
@@ -236,6 +260,8 @@ class InflightWindow:
                 self._inflight = []
                 self._cond.notify_all()
             for tr in pending:
+                if tr.op is not None:
+                    tr.op.finish(error=e)
                 self._consume_callback(tr)
 
     @staticmethod
@@ -263,13 +289,23 @@ class InflightWindow:
 
     def _submit(self, tr: _Transfer) -> None:
         try:
-            s0 = self._clock()
-            tr.handle = self._engine.submit(tr.array, self._device)
-            tr.submit_ns = s0
-            self.submit_ns += self._clock() - s0
+            # The reaper adopts the transfer's op (and its trace position)
+            # for the submission, so submit-side annotations land on it.
+            if tr.op is not None:
+                _flight.adopt_op(tr.op)
+            try:
+                s0 = self._clock()
+                tr.handle = self._engine.submit(tr.array, self._device)
+                tr.submit_ns = s0
+                self.submit_ns += self._clock() - s0
+            finally:
+                if tr.op is not None:
+                    _flight.adopt_op(None)
         except BaseException as e:  # raised at the producer's next enqueue
             self._fail(tr, e)
             return
+        if tr.op is not None:
+            tr.op.mark("stage_submit", tr.submit_ns)
         with self._cond:
             self._queue.remove(tr)
             self._inflight.append(tr)
@@ -324,6 +360,17 @@ class InflightWindow:
                 # the queueing behind earlier transfers is part of the
                 # quantity that sizes the pipeline.
                 self._recorder.record_ns(done - tr.enqueue_ns)
+            if tr.op is not None:
+                # Completion phases stamp when the event first reports
+                # the copy done, on the transfer's record, from the
+                # reaper thread; the adoption is cleared before the next.
+                _flight.adopt_op(tr.op)
+                try:
+                    _flight.note_phase("stage_complete", done)
+                    _flight.note_phase("hbm_staged", done)
+                    tr.op.finish(tr.nbytes)
+                finally:
+                    _flight.adopt_op(None)
             self._engine.delete(tr.handle)
         except BaseException as e:
             self._fail(tr, e)
@@ -338,6 +385,8 @@ class InflightWindow:
         self._consume_callback(tr)
 
     def _fail(self, tr: _Transfer, e: BaseException) -> None:
+        if tr.op is not None:
+            tr.op.finish(error=e)
         with self._cond:
             if self.error is None:
                 self.error = e

@@ -11,12 +11,14 @@
 * :mod:`.local_fs` — files under a directory root;
 * :mod:`.retrying` — the client-level retry decorator with mid-stream
   resume, over every backend;
+* :mod:`.tail` — tail tolerance (hedged reads, stall watchdog, circuit
+  breaker), inside the retry decorator;
 * the hermetic servers the clients are run against: :mod:`.fake_server`
   (HTTP/1.1), :mod:`.fake_h2_server` (HTTP/2), :mod:`.fake_grpc_wire_server`
   (gRPC).
 
-Still to come (``ROADMAP.md``): tail tolerance (hedging, stall watchdog,
-breaker) and token sources (A.2), gRPC library mode (A.2), ``read_ranges``
+Still to come (``ROADMAP.md``): token sources (A.2), gRPC library mode
+(A.2), ``read_ranges``
 (A.5), the write side of every backend (A.6), the reactor-fetch wrapper of
 the serve plane (A.7).
 """
@@ -30,6 +32,12 @@ from tpubench_torch.storage.base import (  # noqa: F401
 )
 from tpubench_torch.storage.fake import FakeBackend, FaultPlan  # noqa: F401
 from tpubench_torch.storage.retrying import RetryingBackend
+from tpubench_torch.storage.tail import (  # noqa: F401
+    CircuitOpenError,
+    StallError,
+    collect_tail_stats,
+    wrap_tail,
+)
 
 
 def fault_plan(cfg):
@@ -42,11 +50,13 @@ def fault_plan(cfg):
     return FaultPlan(**dataclasses.asdict(fc)) if fc.active else None
 
 
-def open_backend(cfg) -> StorageBackend:
+def open_backend(cfg, tracer=None) -> StorageBackend:
     """Backend from a BenchConfig (reference: main.go:169-177 protocol
     switch). ``fake`` holds one object per worker, as ``tpubench``'s does.
-    Every backend is wrapped in the client-level retry policy
-    (main.go:179-184) unless ``transport.retry.policy`` is ``never``."""
+    Every backend is wrapped in the tail layers the config switches on and
+    then in the client-level retry policy (main.go:179-184) unless
+    ``transport.retry.policy`` is ``never``. ``tracer`` gives the HTTP and
+    gRPC clients their request spans."""
     proto = cfg.transport.protocol
     if proto == "fake":
         inner = FakeBackend.prepopulated(
@@ -58,25 +68,34 @@ def open_backend(cfg) -> StorageBackend:
     elif proto == "http":
         from tpubench_torch.storage.gcs_http import GcsHttpBackend
 
-        inner = GcsHttpBackend(cfg.workload.bucket, transport=cfg.transport)
+        inner = GcsHttpBackend(
+            cfg.workload.bucket, transport=cfg.transport, tracer=tracer
+        )
     elif proto == "grpc":
         from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
 
-        inner = GcsGrpcBackend(cfg.workload.bucket, transport=cfg.transport)
+        inner = GcsGrpcBackend(
+            cfg.workload.bucket, transport=cfg.transport, tracer=tracer
+        )
     elif proto == "local":
         from tpubench_torch.storage.local_fs import LocalFsBackend
 
         inner = LocalFsBackend(root=cfg.workload.dir)
     else:
         raise ValueError(f"unknown protocol {proto!r} (http|grpc|local|fake)")
+    # Tail layers wrap INSIDE the retry decorator, so a StallError or
+    # CircuitOpenError rides the same resume/backoff as a server 503.
+    inner = wrap_tail(
+        inner, cfg.transport.tail, chunk_bytes=cfg.workload.granule_bytes,
+    )
     if cfg.transport.retry.policy == "never":
         return inner
     return RetryingBackend(inner, cfg.transport.retry)
 
 
 def base_backend(backend):
-    """The client under the decorators (retry): what holds the connection
-    pools and the request parts."""
+    """The client under the decorators (retry, tail): what holds the
+    connection pools and the request parts."""
     while hasattr(backend, "inner"):
         backend = backend.inner
     return backend

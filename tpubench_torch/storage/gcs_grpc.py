@@ -39,6 +39,8 @@ from tpubench_torch.native.engine import (
     TB_ETOOBIG,
     NativeError,
 )
+from tpubench_torch.obs.flight import note_phase as flight_note
+from tpubench_torch.obs.tracing import NoopTracer, SpanCarrier
 from tpubench_torch.storage.base import ObjectMeta, StorageError
 from tpubench_torch.storage.gcs_http import _NativeBufReader
 from tpubench_torch.storage.grpc_wire import proto as wp
@@ -62,13 +64,15 @@ class _WireGrpcReader:
     """Streams framed ReadObjectResponse messages off a
     :class:`~tpubench_torch.storage.grpc_wire.client.WireCall`, carrying a
     message's leftover bytes between ``readinto`` calls. The first-byte
-    stamp is taken on the raw message bytes, before protobuf decode."""
+    stamp is taken on the raw message bytes, before protobuf decode.
+    ``carrier`` (optional) is the request span, ended at close."""
 
-    def __init__(self, call):
+    def __init__(self, call, carrier=None):
         self._call = call
         self._pending = memoryview(b"")
         self.first_byte_ns: Optional[int] = None
         self._done = False
+        self._carrier = carrier
 
     def readinto(self, buf: memoryview) -> int:
         if self._done and not self._pending:
@@ -76,9 +80,11 @@ class _WireGrpcReader:
         while not self._pending:
             try:
                 raw = self._call.recv_message()
-            except StorageError:
+            except StorageError as e:
                 self._done = True
                 self._call.cancel()
+                if self._carrier is not None:
+                    self._carrier.close(e)
                 raise
             if raw is None:
                 self._done = True
@@ -87,6 +93,8 @@ class _WireGrpcReader:
             msg = wp.ReadObjectResponse.decode(raw)
             if self.first_byte_ns is None:
                 self.first_byte_ns = arrival_ns
+                if self._carrier is not None:
+                    self._carrier.event("first_byte")
             cd = msg.checksummed_data
             if cd is not None and cd.content:
                 self._pending = memoryview(cd.content)
@@ -101,6 +109,8 @@ class _WireGrpcReader:
         else:
             self._call.cancel()  # abandoned mid-stream: RST + discard
         self._done = True
+        if self._carrier is not None:
+            self._carrier.close()
 
 
 class GcsGrpcBackend:
@@ -109,9 +119,11 @@ class GcsGrpcBackend:
         bucket: str,
         transport: Optional[TransportConfig] = None,
         channel=None,
+        tracer=None,
     ):
         self.bucket = bucket
         self.transport = transport or TransportConfig()
+        self._tracer = tracer or NoopTracer()
         t = self.transport
         endpoint = t.endpoint or DEFAULT_ENDPOINT
         if channel is not None:
@@ -210,10 +222,16 @@ class GcsGrpcBackend:
         buf = pool.buffers.acquire(max(4096, want))
 
         def do_request(conn: int) -> dict:
-            return engine.grpc_read(
-                conn, f"{host}:{port}", self._bucket_path, name, buf,
-                read_offset=start, read_limit=length or 0,
-            )
+            with self._tracer.span(
+                "gcs_grpc.read_native", object=name, bucket=self.bucket
+            ) as sp:
+                flight_note("stream_open")
+                r = engine.grpc_read(
+                    conn, f"{host}:{port}", self._bucket_path, name, buf,
+                    read_offset=start, read_limit=length or 0,
+                )
+                sp.event("first_byte", native_ns=r["first_byte_ns"])
+            return r
 
         try:
             # An explicit grpc-status is a server answer, not pool
@@ -276,10 +294,19 @@ class GcsGrpcBackend:
             bucket=self._bucket_path, object=name,
             read_offset=start, read_limit=length or 0,
         )
-        call = self._wire_chan().server_stream(
-            f"{_SVC}/ReadObject", wreq.encode()
+        carrier = SpanCarrier(
+            self._tracer, "gcs_grpc.read_object",
+            object=name, bucket=self.bucket,
         )
-        return _WireGrpcReader(call)
+        try:
+            call = self._wire_chan().server_stream(
+                f"{_SVC}/ReadObject", wreq.encode()
+            )
+            flight_note("stream_open")
+            return _WireGrpcReader(call, carrier=carrier)
+        except BaseException as e:
+            carrier.close(e)
+            raise
 
     def read_ranges(self, name: str, ranges, buffers) -> list:
         raise NotImplementedError(

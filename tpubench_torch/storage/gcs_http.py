@@ -43,6 +43,8 @@ from tpubench_torch.native.engine import (
     TB_ETOOBIG,
     NativeError,
 )
+from tpubench_torch.obs.flight import note_phase as flight_note
+from tpubench_torch.obs.tracing import NoopTracer, SpanCarrier
 from tpubench_torch.storage.base import ObjectMeta, StorageError
 
 DEFAULT_ENDPOINT = "https://storage.googleapis.com"
@@ -88,6 +90,7 @@ class _ConnectionPool:
     def _new_conn(self) -> http.client.HTTPConnection:
         with self._lock:
             self.stats["connects"] += 1
+        flight_note("connect")  # flight-recorder phase (no-op off-op)
         if self._scheme == "https":
             return http.client.HTTPSConnection(
                 self._host, self._port, context=self._ctx, timeout=60
@@ -128,10 +131,14 @@ class _ConnectionPool:
 class _HttpReader:
     """Streams one media response into the caller's buffers and returns
     its connection to the pool on close: complete responses keep-alive,
-    aborted ones closed."""
+    aborted ones closed.
+
+    ``carrier`` (optional) is the client-internal request span: it covers
+    request→body-complete, gets a ``first_byte`` event, and ends when the
+    reader closes — with the error attached when the body failed."""
 
     def __init__(self, pool: _ConnectionPool, conn, resp, length: int,
-                 generation: Optional[int] = None):
+                 carrier=None, generation: Optional[int] = None):
         self._pool = pool
         self._conn = conn
         self._resp = resp
@@ -141,6 +148,7 @@ class _HttpReader:
         # server did not stamp one.
         self.generation = generation
         self._done = False
+        self._carrier = carrier
 
     def readinto(self, buf: memoryview) -> int:
         if self._done or self._remaining == 0:
@@ -150,16 +158,24 @@ class _HttpReader:
             n = self._resp.readinto(buf[:want])
         except (http.client.HTTPException, OSError) as e:
             self._done = True
-            raise StorageError(f"mid-stream read failed: {e}", transient=True) from e
+            err = StorageError(f"mid-stream read failed: {e}", transient=True)
+            if self._carrier is not None:
+                self._carrier.close(err)
+            raise err from e
         if n == 0:
             self._done = True
             if self._remaining > 0:
-                raise StorageError(
+                err = StorageError(
                     f"short body: {self._remaining} bytes missing", transient=True
                 )
+                if self._carrier is not None:
+                    self._carrier.close(err)
+                raise err
             return 0
         if self.first_byte_ns is None:
             self.first_byte_ns = time.perf_counter_ns()
+            if self._carrier is not None:
+                self._carrier.event("first_byte")
         self._remaining -= n
         return n
 
@@ -178,6 +194,8 @@ class _HttpReader:
                 complete = False
         self._pool.release(self._conn, reusable=complete)
         self._conn = None
+        if self._carrier is not None:
+            self._carrier.close()  # idempotent; failure paths closed it already
 
 
 class _NativeStreamReader:
@@ -192,7 +210,8 @@ class _NativeStreamReader:
 
     _DRAIN_CAP = 1 << 20  # parity with _HttpReader: drain small remainders
 
-    def __init__(self, pool, conn: int, content_len: int, first_byte_ns: int):
+    def __init__(self, pool, conn: int, content_len: int, first_byte_ns: int,
+                 carrier=None):
         self._pool = pool
         self._conn: Optional[int] = conn
         self._content_len = content_len  # -1 = close-delimited
@@ -200,6 +219,7 @@ class _NativeStreamReader:
         self.first_byte_ns: Optional[int] = first_byte_ns or None
         self._done = False
         self._failed = False
+        self._carrier = carrier
 
     def readinto(self, buf: memoryview) -> int:
         if self._done or self._conn is None:
@@ -209,10 +229,13 @@ class _NativeStreamReader:
         except NativeError as e:
             self._failed = True
             self._done = True
-            raise StorageError(
+            err = StorageError(
                 f"mid-stream native read failed: {e}",
                 transient=e.code not in PERMANENT_CODES,
-            ) from e
+            )
+            if self._carrier is not None:
+                self._carrier.close(err)
+            raise err from e
         if n == 0:
             self._done = True
             return 0
@@ -227,7 +250,7 @@ class _NativeStreamReader:
         conn, self._conn = self._conn, None
         if self._failed:
             self._pool.discard(conn)
-            return
+            return  # carrier already closed with the error
         engine = self._pool.engine
         try:
             if not self._done and self._content_len >= 0:
@@ -241,6 +264,8 @@ class _NativeStreamReader:
             self._pool.discard(conn)
         else:
             self._pool.release(conn, reusable)
+        if self._carrier is not None:
+            self._carrier.close()  # idempotent
 
 
 class _NativeBufReader:
@@ -278,9 +303,13 @@ class GcsHttpBackend:
     """Thread-safe JSON-API client; one instance shared by all workers
     (the reference shares one ``*storage.Client``, main.go:200-203)."""
 
-    def __init__(self, bucket: str, transport: Optional[TransportConfig] = None):
+    def __init__(self, bucket: str, transport: Optional[TransportConfig] = None,
+                 tracer=None):
         self.bucket = bucket
         self.transport = transport or TransportConfig()
+        # Client-internal request spans, nested under the workload's
+        # ReadObject spans (the reference's OC bridge).
+        self._tracer = tracer or NoopTracer()
         t = self.transport
         endpoint = t.endpoint or DEFAULT_ENDPOINT
         if "googleapis.com" in endpoint or t.key_file:
@@ -424,10 +453,16 @@ class GcsHttpBackend:
             buf = pool.buffers.acquire(cap)
 
             def do_request(conn: int) -> dict:
-                engine.h2_submit_get(conn, authority, path, buf, headers=headers)
-                c = engine.h2_poll(conn)
-                if c is None:
-                    raise NativeError("h2 stream vanished", code=-1001)
+                with self._tracer.span(
+                    "gcs_http.meta_h2", path=path, bucket=self.bucket
+                ) as sp:
+                    engine.h2_submit_get(
+                        conn, authority, path, buf, headers=headers
+                    )
+                    c = engine.h2_poll(conn)
+                    if c is None:
+                        raise NativeError("h2 stream vanished", code=-1001)
+                    sp.event("first_byte", native_ns=c["first_byte_ns"])
                 return c
 
             try:
@@ -490,10 +525,17 @@ class GcsHttpBackend:
         buf = pool.buffers.acquire(max(4096, want))
 
         def do_request(conn: int) -> dict:
-            engine.h2_submit_get(conn, authority, req_path, buf, headers=headers)
-            c = engine.h2_poll(conn)
-            if c is None:
-                raise NativeError("h2 stream vanished", code=-1001)
+            with self._tracer.span(
+                "gcs_http.get_h2", object=name, bucket=self.bucket
+            ) as sp:
+                engine.h2_submit_get(
+                    conn, authority, req_path, buf, headers=headers
+                )
+                flight_note("stream_open")
+                c = engine.h2_poll(conn)
+                if c is None:
+                    raise NativeError("h2 stream vanished", code=-1001)
+                sp.event("first_byte", native_ns=c["first_byte_ns"])
             return c
 
         try:
@@ -555,15 +597,27 @@ class GcsHttpBackend:
         if start or length is not None:
             end = "" if length is None else str(start + length - 1)
             headers["Range"] = f"bytes={start}-{end}"
-        conn, resp = self._checked(
-            "GET", self._opath(name) + "?alt=media", headers=headers
+        # Request span over request→body-complete: the reader ends it at
+        # close(). Everything up to the reader's construction stays inside
+        # the guard, so a failed open never leaks an entered span.
+        carrier = SpanCarrier(
+            self._tracer, "gcs_http.get", object=name, bucket=self.bucket
         )
-        clen = int(resp.headers.get("Content-Length", "0"))
-        gen_hdr = resp.headers.get("x-goog-generation")
-        return _HttpReader(
-            self._pool, conn, resp, clen,
-            generation=int(gen_hdr) if gen_hdr else None,
-        )
+        try:
+            conn, resp = self._checked(
+                "GET", self._opath(name) + "?alt=media", headers=headers
+            )
+            flight_note("stream_open")
+            carrier.event("response_headers", status=resp.status)
+            clen = int(resp.headers.get("Content-Length", "0"))
+            gen_hdr = resp.headers.get("x-goog-generation")
+            return _HttpReader(
+                self._pool, conn, resp, clen, carrier=carrier,
+                generation=int(gen_hdr) if gen_hdr else None,
+            )
+        except BaseException as e:
+            carrier.close(e)
+            raise
 
     def _open_read_native(self, name: str, start: int, length: Optional[int]):
         """The C++ receive path (``transport.native_receive``): the engine
@@ -583,6 +637,12 @@ class GcsHttpBackend:
         # never surfaces as a request failure. Permanent protocol-shape
         # codes never burn the retransmit (they reproduce).
         conn, reused = pool.acquire()
+        carrier = SpanCarrier(
+            self._tracer, "gcs_http.get_native", object=name, bucket=self.bucket
+        )
+        # stream_open BEFORE begin(): begin() reads the response headers
+        # and stamps the native first byte, and phases must stay ordered.
+        flight_note("stream_open")
         while True:
             try:
                 r = engine.conn_get_begin(
@@ -593,16 +653,27 @@ class GcsHttpBackend:
                 pool.discard(conn)
                 if reused and e.code not in PERMANENT_CODES:
                     reused = False
-                    pool.note_stale_retry()
-                    conn = pool.fresh()
+                    pool.note_stale_retry()  # also flight-annotates
+                    carrier.event("stale_retry")
+                    try:
+                        conn = pool.fresh()
+                    except BaseException as e2:
+                        carrier.close(e2)
+                        raise
                     continue
-                raise StorageError(
+                err = StorageError(
                     f"native GET {name}: {e}",
                     transient=e.code not in PERMANENT_CODES,
-                ) from e
-            except BaseException:
+                )
+                carrier.close(err)
+                raise err from e
+            except BaseException as e:
                 pool.discard(conn)
+                carrier.close(e)
                 raise
+        carrier.event("response_headers", status=r["status"])
+        if r["first_byte_ns"]:
+            carrier.event("first_byte", native_ns=r["first_byte_ns"])
         range_ignored = r["status"] in (200, 206) and (
             # Too many bytes announced for a bounded range, or a range
             # from a nonzero start answered with 200 (the body starts at
@@ -612,12 +683,14 @@ class GcsHttpBackend:
         )
         if range_ignored:
             pool.discard(conn)
-            raise StorageError(
+            err = StorageError(
                 f"GET {name}: server ignored Range "
                 f"(status {r['status']}, announced {r['content_len']}, "
                 f"requested start={start} length={length})",
                 transient=False,
             )
+            carrier.close(err)
+            raise err
         if r["status"] not in (200, 206):
             # Error payload: read its head, drain the rest only when it is
             # small and bounded; otherwise discarding the connection is
@@ -636,13 +709,17 @@ class GcsHttpBackend:
                     pool.discard(conn)
             except Exception:
                 pool.discard(conn)
-            raise StorageError(
+            err = StorageError(
                 f"GET {name}: HTTP {r['status']}: "
                 f"{msg[:n].decode('utf-8', 'replace')[:200]}",
                 transient=r["status"] in _TRANSIENT,
                 code=r["status"],
             )
-        return _NativeStreamReader(pool, conn, r["content_len"], r["first_byte_ns"])
+            carrier.close(err)
+            raise err
+        return _NativeStreamReader(
+            pool, conn, r["content_len"], r["first_byte_ns"], carrier=carrier
+        )
 
     def read_ranges(self, name: str, ranges, buffers) -> list:
         raise NotImplementedError(

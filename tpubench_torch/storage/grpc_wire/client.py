@@ -29,6 +29,7 @@ import threading
 import time
 from typing import Optional
 
+from tpubench_torch.obs.flight import annotate
 from tpubench_torch.storage.base import StorageError
 from tpubench_torch.storage.fake_h2_server import (
     _PREFACE,
@@ -214,6 +215,7 @@ class WireCall:
         conn.send_frame(
             _HEADERS, _FLAG_END_HEADERS, self.stream_id, block
         )
+        annotate("grpc_frame", dir="open", method=method)
 
     # -------------------------------------------------------------- send --
     def send_message(self, msg: bytes, end: bool = False) -> None:
@@ -235,12 +237,14 @@ class WireCall:
         except OSError as e:
             self._conn.broken = True
             raise _transient(f"{self.method}: send failed: {e}") from e
+        annotate("grpc_frame", dir="send", bytes=len(msg))
 
     # -------------------------------------------------------------- recv --
     def recv_message(self) -> Optional[bytes]:
         while True:
             msg = self._decoder.next()
             if msg is not None:
+                annotate("grpc_frame", dir="recv", bytes=len(msg))
                 return msg
             if self._trailers_status is not None:
                 if self._trailers_status != OK:

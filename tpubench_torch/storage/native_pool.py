@@ -28,6 +28,8 @@ from tpubench_torch.native.engine import (
     NativeError,
     get_engine,
 )
+from tpubench_torch.obs.flight import annotate as flight_annotate
+from tpubench_torch.obs.flight import note_phase as flight_note
 from tpubench_torch.storage.base import StorageError
 
 
@@ -129,6 +131,7 @@ class NativeConnPool:
         h = self._connect()
         with self._lock:
             self.stats["connects"] += 1
+        flight_note("connect")  # flight-recorder phase (no-op off-op)
         return h
 
     def fresh(self) -> int:
@@ -165,6 +168,7 @@ class NativeConnPool:
     def note_stale_retry(self) -> None:
         with self._lock:
             self.stats["stale_retries"] += 1
+        flight_annotate("retry", reason="stale")
 
     def run(
         self,

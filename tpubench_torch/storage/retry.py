@@ -17,6 +17,7 @@ import time
 from typing import Callable, Optional, TypeVar
 
 from tpubench_torch.config import RetryConfig
+from tpubench_torch.obs.flight import annotate as _flight_annotate
 from tpubench_torch.storage.base import StorageError
 
 T = TypeVar("T")
@@ -74,4 +75,9 @@ def retry_call(
                 raise
             if on_retry is not None:
                 on_retry(attempt, exc, pause)
+            # Flight-recorder annotation: the retry becomes part of THIS
+            # read's record (no-op when no op is active).
+            _flight_annotate(
+                "retry", attempt=attempt, error=type(exc).__name__
+            )
             sleep(pause)

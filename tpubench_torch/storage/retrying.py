@@ -31,6 +31,7 @@ import time
 from typing import Callable, Optional
 
 from tpubench_torch.config import RetryConfig
+from tpubench_torch.obs.flight import annotate as _flight_annotate
 from tpubench_torch.storage.base import ObjectMeta, StorageBackend
 from tpubench_torch.storage.retry import Backoff, _is_retryable, retry_call
 
@@ -107,6 +108,12 @@ class _ResumingReader:
                     self._clock() - self._window_start
                 ) + pause > self._retry.deadline_s:
                     raise
+                # backoff_s rides the note so the trace export can turn
+                # the retry into a span covering its pause.
+                _flight_annotate(
+                    "retry", attempt=self._attempts, reason="resume",
+                    error=type(exc).__name__, backoff_s=round(pause, 6),
+                )
                 self._sleep(pause)
                 self._reopen()
                 continue

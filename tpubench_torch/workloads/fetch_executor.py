@@ -60,6 +60,7 @@ from tpubench_torch.metrics import MetricSet
 from tpubench_torch.metrics.recorder import LatencyRecorder
 from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.native.engine import PERMANENT_CODES, get_engine
+from tpubench_torch.obs.exporters import metrics_session_from_config
 from tpubench_torch.staging.device import new_slot
 from tpubench_torch.staging.executor import copy_to_device
 from tpubench_torch.storage import base_backend
@@ -367,8 +368,13 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
         if per_worker_next[wid] < reads_per:
             runnable.append(wid)
 
+    session = metrics_session_from_config(
+        cfg, metrics, bytes_fn=lambda: bytes_total
+    )
     metrics.ingest.start()
     try:
+        if session is not None:
+            session.__enter__()
         pump()
         last_completion = time.monotonic()
         while completed < total_reads:
@@ -391,6 +397,8 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
         # measured window).
         metrics.ingest.stop()
         metrics.ingest.bytes = bytes_total
+        if session is not None:
+            session.__exit__(None, None, None)  # guaranteed final flush
         pool.close()
 
     res = RunResult(
@@ -407,6 +415,8 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
     _stamp_executor(res, w, pool, fellback, wake_batches)
     _stamp_native_delta(res, engine, native_stats0)
     _stamp_retries(res, cfg, retry, first_error)
+    if session is not None:
+        res.extra["metrics_export"] = session.summary()
     return res
 
 
@@ -686,9 +696,14 @@ def run_read_native_staged(cfg: BenchConfig, backend,
             st.next_off = 0 if st.call < reads_per else sizes[wid]
             st.failed = False
 
+    session = metrics_session_from_config(
+        cfg, metrics, bytes_fn=lambda: bytes_total
+    )
     metrics.ingest.start()
     last_progress = time.monotonic()
     try:
+        if session is not None:
+            session.__enter__()
         while completed_reads < total_reads:
             if inflight and time.monotonic() - last_progress > 120:
                 raise RuntimeError("staged executor stalled (120s)")
@@ -724,6 +739,8 @@ def run_read_native_staged(cfg: BenchConfig, backend,
         metrics.ingest.bytes = bytes_total
         for pipe in pipes:
             metrics.stage_latency.append(pipe.stage_recorder)
+        if session is not None:
+            session.__exit__(None, None, None)
         # Drain before free: in-flight fetches (native threads) and
         # in-flight copies may still touch the slots. close() joins the
         # executor's threads; then every pending event is waited on
@@ -762,4 +779,6 @@ def run_read_native_staged(cfg: BenchConfig, backend,
     _stamp_retries(res, cfg, retry, first_error)
     if s.validate_checksum:
         res.extra["checksum_ok"] = all(p.checksum() is True for p in pipes)
+    if session is not None:
+        res.extra["metrics_export"] = session.summary()
     return res

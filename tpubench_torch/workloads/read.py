@@ -11,15 +11,19 @@
   straight into the staging slot (zero-copy) or through a reused granule
   buffer that the stager copies (the copying route).
 
-The result JSON is ``tpubench read``'s, minus the blocks of features not
-ported yet (flight recorder, telemetry, tune, tail). Through every client
-(fake, HTTP/1.1, native receive, HTTP/2, gRPC, local), under the retry
+The result JSON is ``tpubench read``'s, minus the block of the one
+feature not ported yet (tune). Through every client (fake, HTTP/1.1,
+native receive, HTTP/2, gRPC, local), under the tail layers and the retry
 decorator; with native receive the socket writes straight into the
-staging slot.
+staging slot. The obs plane rides along as in ``tpubench``: one
+``ReadObject`` span per read with its flight record begun inside it, the
+staging rings' per-transfer records on the same recorder, live telemetry,
+and the metrics export session.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Protocol
@@ -28,9 +32,17 @@ from tpubench_torch.config import BenchConfig, refuse_unported
 from tpubench_torch.device import resolve_device
 from tpubench_torch.metrics import MetricSet
 from tpubench_torch.metrics.report import RunResult
-from tpubench_torch.staging.stats import staging_extra
 from tpubench_torch.native.engine import peek_engine
-from tpubench_torch.storage import base_backend, open_backend
+from tpubench_torch.obs.exporters import metrics_session_from_config
+from tpubench_torch.obs.flight import (
+    flight_from_config,
+    host_journal_path,
+    transport_label,
+)
+from tpubench_torch.obs.telemetry import telemetry_from_config
+from tpubench_torch.obs.tracing import NoopTracer, Tracer
+from tpubench_torch.staging.stats import staging_extra
+from tpubench_torch.storage import base_backend, collect_tail_stats, open_backend
 from tpubench_torch.storage.base import (
     StorageBackend,
     read_object_into_sink,
@@ -57,6 +69,7 @@ SinkFactory = Callable[[int], Sink]
 class ReadWorkload:
     cfg: BenchConfig
     backend: StorageBackend
+    tracer: Tracer
     sink_factory: Optional[SinkFactory] = None
 
     def run(self) -> RunResult:
@@ -67,9 +80,46 @@ class ReadWorkload:
         worker_bytes = [0] * n
         sink_stats: list[dict] = [{} for _ in range(n)]
         zero_copy_used = [False] * n
+        # Flight recorder: per-worker record rings, one phase record per
+        # read (worker-owned, like the latency recorders above).
+        flight = flight_from_config(self.cfg)
+        tlabel = transport_label(self.cfg)
+        flights = [
+            flight.worker(f"w{i}") if flight is not None else None
+            for i in range(n)
+        ]
+        # Native transport counters: their delta across the run goes into
+        # the result (and the journal) when the engine is live.
+        eng0 = peek_engine()
+        native_stats0 = eng0.stats() if eng0 is not None else {}
+
+        # Live telemetry: registry fed record by record off the flight
+        # tap, read latency sampled off the per-worker recorders, journal
+        # streamed each tick.
+        jpath_stream = None
+        if self.cfg.obs.flight_journal:
+            # One process: dist.num_processes > 1 is refused upstream.
+            jpath_stream = host_journal_path(
+                self.cfg.obs.flight_journal, self.cfg.process_id, 1
+            )
+        tel = telemetry_from_config(self.cfg)
+        tel_summary = None
+        if tel is not None:
+            tel.resource["workload"] = "read"
+            if flight is not None:
+                tel.attach_flight(flight)
+                if jpath_stream:
+                    tel.stream_journal(
+                        flight, jpath_stream,
+                        extra_fn=lambda: {"workload": "read"},
+                        max_bytes=self.cfg.obs.journal_max_bytes,
+                    )
+            tel.attach_recorders(metrics.read_latency)
+            tel.start()
 
         def worker(i: int, cancel) -> None:
             read_rec, fb_rec = recorders[i]
+            wf = flights[i]
             name = f"{w.object_name_prefix}{i}"  # main.go:121
             sink = self.sink_factory(i) if self.sink_factory else None
             zero_copy = (
@@ -88,43 +138,91 @@ class ReadWorkload:
                 for _ in range(w.read_calls_per_worker):
                     if cancel.is_set():
                         break
-                    t0 = time.perf_counter_ns()
-                    reader = self.backend.open_read(name)
-                    if zero_copy:
-                        nbytes, fb_ns = read_object_into_sink(
-                            reader, sink, w.granule_bytes
+                    with self.tracer.span(
+                        "ReadObject", bucket=w.bucket, object=name
+                    ) as span:
+                        t0 = time.perf_counter_ns()
+                        # The op begins INSIDE the span's scope, so its
+                        # flight record joins the span's trace.
+                        op = (
+                            wf.begin(name, tlabel, enqueue_ns=t0)
+                            if wf is not None else None
                         )
-                    else:
-                        nbytes, fb_ns = read_object_through(
-                            reader, granule, submit
-                        )
-                    t1 = time.perf_counter_ns()
-                    read_rec.record_ns(t1 - t0)
-                    if fb_ns is not None:
-                        fb_rec.record_ns(fb_ns - t0)
-                    total_local += nbytes
-                    worker_bytes[i] = total_local
+                        if op is not None:
+                            span.event(
+                                "trace_context", trace_id=op.trace_id,
+                                span_id=op.span_id,
+                            )
+                        try:
+                            reader = self.backend.open_read(name)
+                            if zero_copy:
+                                nbytes, fb_ns = read_object_into_sink(
+                                    reader, sink, w.granule_bytes
+                                )
+                            else:
+                                nbytes, fb_ns = read_object_through(
+                                    reader, granule, submit
+                                )
+                            t1 = time.perf_counter_ns()
+                        except BaseException as e:
+                            if op is not None:
+                                op.finish(error=e)
+                            raise
+                        read_rec.record_ns(t1 - t0)
+                        if fb_ns is not None:
+                            fb_rec.record_ns(fb_ns - t0)
+                            span.event("first_byte")
+                        if op is not None:
+                            if fb_ns is not None:
+                                op.mark("first_byte", fb_ns)
+                            op.mark("body_complete", t1)
+                            op.finish(nbytes)
+                        total_local += nbytes
+                        worker_bytes[i] = total_local
             finally:
                 if sink is not None:
                     sink_stats[i] = sink.finish() or {}
                 worker_bytes[i] = total_local
 
-        # Native transport counters: their delta across the run goes into
-        # the result when the engine is live.
-        eng0 = peek_engine()
-        native_stats0 = eng0.stats() if eng0 is not None else {}
+        session = metrics_session_from_config(
+            self.cfg, metrics, bytes_fn=lambda: sum(worker_bytes)
+        )
         metrics.ingest.start()
         group = WorkerGroup(abort_on_error=w.abort_on_error)
+        result_errors = 0
         try:
-            gres = group.run(n, worker, name="read")
+            if session is not None:
+                session.__enter__()
+            try:
+                # Ambient recorder: the staging rings (built inside the
+                # workers) append their per-transfer records to it.
+                with (flight.activate() if flight is not None
+                      else contextlib.nullcontext()):
+                    gres = group.run(n, worker, name="read")
+                result_errors = gres.error_count
+            finally:
+                metrics.ingest.stop()
+                metrics.ingest.bytes = sum(worker_bytes)
+                # Stage-latency recorders created by sinks live in their
+                # stats; merged BEFORE the session's final flush.
+                for st in sink_stats:
+                    rec = st.get("stage_recorder")
+                    if rec is not None:
+                        metrics.stage_latency.append(rec)
         finally:
-            metrics.ingest.stop()
-            metrics.ingest.bytes = sum(worker_bytes)
-            # Stage-latency recorders created by sinks live in their stats.
-            for st in sink_stats:
-                rec = st.get("stage_recorder")
-                if rec is not None:
-                    metrics.stage_latency.append(rec)
+            if session is not None:
+                session.__exit__(None, None, None)  # guaranteed final flush
+            if tel is not None:
+                # Workers joined and every sink finished: closed here so
+                # the HTTP server and tick thread never outlive a run.
+                block = staging_extra(sink_stats)
+                tel.set_chips(
+                    int(sink_stats[0].get("n_chips", 1) or 1)
+                    if sink_stats else 1
+                )
+                tel_summary = tel.close(
+                    final_extra={"staging": block} if block else None
+                )
 
         wall = metrics.ingest.seconds
         gbps = metrics.ingest.gbps()
@@ -139,14 +237,22 @@ class ReadWorkload:
             gbps_per_chip=gbps / n_chips,
             n_chips=n_chips,
             summaries=metrics.summaries(),
-            errors=gres.error_count,
+            errors=result_errors,
         )
+        if session is not None:
+            res.extra["metrics_export"] = session.summary()
+        if tel_summary is not None:
+            res.extra["telemetry"] = tel_summary
         # Native-receive connection accounting (connects/reuses/
         # stale_retries), read from the base client's pool only if one was
         # built, so this never builds a pool as a side effect.
         native_pool = getattr(base_backend(self.backend), "_native_pool_obj", None)
         if native_pool is not None:
             res.extra["native_conn_stats"] = dict(native_pool.stats)
+        # Tail counters (hedge wins/losses/waste, stalls, breaker state).
+        tail_stats = collect_tail_stats(self.backend)
+        if tail_stats:
+            res.extra["tail"] = tail_stats
         if staged:
             res.extra["staging_zero_copy"] = all(zero_copy_used)
             res.extra["staged_bytes"] = staged
@@ -180,12 +286,23 @@ class ReadWorkload:
         if checks:
             res.extra["checksum_ok"] = all(checks)
         eng1 = peek_engine()
+        native_delta = None
         if eng1 is not None:
-            delta = {
+            native_delta = {
                 k: v - native_stats0.get(k, 0) for k, v in eng1.stats().items()
             }
-            if any(delta.values()):
-                res.extra["native_transport"] = delta
+            if any(native_delta.values()):
+                res.extra["native_transport"] = native_delta
+        if flight is not None:
+            res.extra["flight"] = flight.summary()
+            if jpath_stream:
+                extra = {"workload": "read", "n_chips": n_chips}
+                if native_delta:
+                    extra["native_transport"] = native_delta
+                res.extra["flight_journal"] = flight.write_journal(
+                    jpath_stream, extra=extra,
+                    max_bytes=self.cfg.obs.journal_max_bytes,
+                )
         return res
 
 
@@ -194,17 +311,20 @@ def run_read(
     backend: Optional[StorageBackend] = None,
     sink_factory: Optional[SinkFactory] = None,
     device="cuda",
+    tracer: Optional[Tracer] = None,
 ) -> RunResult:
     """Run the read workload. ``device`` must be ``"cpu"`` to run without
     CUDA; features the port does not have yet raise
     ``NotImplementedError`` before anything runs. ``fetch_executor``
     ``native*`` runs on the C++ fetch executor
     (:mod:`tpubench_torch.workloads.fetch_executor`), which stages without
-    ``sink_factory``."""
+    ``sink_factory``. ``tracer`` opens the per-read spans; the backend
+    gets the same one, so its request spans nest under them."""
     resolve_device(device)
     refuse_unported(cfg)
+    tracer = tracer or NoopTracer()
     owns_backend = backend is None
-    backend = backend or open_backend(cfg)
+    backend = backend or open_backend(cfg, tracer=tracer)
     try:
         if cfg.workload.fetch_executor.startswith("native"):
             from tpubench_torch.workloads.fetch_executor import (
@@ -216,7 +336,8 @@ def run_read(
                 return run_read_native_executor(cfg, backend)
             return run_read_native_staged(cfg, backend, device=device)
         return ReadWorkload(
-            cfg=cfg, backend=backend, sink_factory=sink_factory,
+            cfg=cfg, backend=backend, tracer=tracer,
+            sink_factory=sink_factory,
         ).run()
     finally:
         if owns_backend:
