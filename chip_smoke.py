@@ -72,7 +72,29 @@ before the last line:
    tail_validate and tail_pallas: every byte staged, zero errors, hedges,
    stalls and a breaker open→closed, and the flight summary's hedge,
    stall and breaker counts equal to the layers' own counters (breaker
-   notes: those that found an unfinished read to land on).
+   notes: those that found an unfinished read to land on);
+9. pod — ``pod-ingest`` through ``cli.execute`` (the
+   one-rank NCCL group it brings up on a loopback port, the run, the group
+   torn down) of one 1 GiB object (the largest size of the reference's
+   sweep) from the fake store, modes all_gather and ring: verified, the
+   device checksum equal to the host's byte sum mod 2³², NCCL the group's
+   backend, the gather on the card, one ``tb_checksum`` launch per shard
+   per collective call (warm-up included) and the pod flight record
+   staged and gathered; fetch, stage and gather GB/s and seconds;
+10. gather — ``gather-bench`` at world size 1, each of the four
+   collectives on a 4 MiB shard: ``single_device``, no errors, every
+   output equal to its input, and every ``tb_checksum`` of the two
+   gathers equal to the shard's byte sum mod 2³² taken on the host;
+11. probe — ``probe --cycles 3 --cycle-sleep 0.5``;
+12. profile — read depth 3, read pallas and pod/all_gather again under
+   ``--profile-dir`` (``build/chip_smoke/profile``): the trace's
+   ``tb_checksum``/``tb_land`` events must equal the launch counters; the
+   device busy share (the union of kernel and copy intervals over the
+   traced window) and the fetch threads' waits on the device.
+
+Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB)
+and at phase pod's (1 GiB, 8,388,608 × 128) against its plain version,
+the latter with its time and bound.
 
 Every mode of phases read, protocols, obs and tail also checks its flight
 records (one read record per read; one stage record per transfer in a copy
@@ -137,6 +159,15 @@ TAIL = dict(hedge=True, hedge_delay_s=0.05, watchdog=True,
             breaker_reset_s=0.2)
 OBS_MODES = ("obs_validate", "obs_pallas")
 TAIL_MODES = ("tail_validate", "tail_pallas")
+# Phase pod: one 1 GiB object, the largest size of the reference's sweep
+# (benchmark-script/read_operations/read_operations.sh:8-14), on a 128-byte
+# lane; one rank holds the whole of it as its shard (8,388,608 x 128).
+POD_OBJECT = 1 << 30
+POD_MODES = {"all_gather": [], "ring": ["--ring"]}
+GATHER_MODES = ("all_gather", "ring", "reduce_scatter", "psum")
+GATHER_REPS = 5
+GATHER_SHARD_MB = 4  # phase gather's shard: 32,768 x 128
+BUILD = "build/chip_smoke"
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
@@ -148,7 +179,9 @@ KERNELS = {
                             "native/native_validate",
                             *(f"protocols/{m}" for m, v in PROTOCOL_MODES.items()
                               if v[3] == "validate"),
-                            "obs/obs_validate", "tail/tail_validate")),
+                            "obs/obs_validate", "tail/tail_validate",
+                            "pod/all_gather", "pod/ring",
+                            "gather/all_gather", "gather/ring")),
 }
 
 
@@ -187,6 +220,11 @@ def main() -> int:
         **phase_protocols(store, smi, args.seed),
         **phase_obs(store, smi), **phase_tail(smi, args.seed),
     }
+    pod_counts, pod_store = phase_pod(smi)
+    counts.update(pod_counts)
+    counts.update(phase_gather(smi))
+    phase_probe(smi)
+    phase_profile(store, pod_store, smi)
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -306,7 +344,8 @@ def phase_kernels(torch, seed: int) -> dict:
 
     shapes = {
         "land": [("main_path", LAND_ROWS * 128), ("block", 512 * 128)],
-        "checksum": [("main_path", CHECKSUM_ROWS * 128), ("block", 512 * 128)],
+        "checksum": [("main_path", CHECKSUM_ROWS * 128), ("block", 512 * 128),
+                     ("gather_shard", GATHER_SHARD_MB * MIB)],
     }
     ragged, wraps = 777_777, 17 * MIB + 13
     edges = checksum_edges(landing.checksum_plan, landing.sm_count(torch.device("cuda")))
@@ -364,8 +403,33 @@ def phase_kernels(torch, seed: int) -> dict:
               "gbps": moved / (times["ms"] / 1e3) / 1e9,
               "library_calls_ms": libs, **rec})
         out[name] = rec
+    out["checksum"]["pod_shard"] = pod_shard_checksum(torch, landing, seed)
     emit({"phase": "kernels", "sweep": sweep(torch, landing, seed)})
     return out
+
+
+def pod_shard_checksum(torch, landing, seed: int) -> dict:
+    """``tb_checksum`` at phase pod's shape (one rank's 1 GiB shard,
+    8,388,608 x 128): bit-exact against its plain version, then timed as
+    above on two such buffers (2 GiB, beyond the L2 cache)."""
+    n = POD_OBJECT
+    xs = [_random_bytes(torch, n, seed + i) for i in range(2)]
+    err = _verify(torch, landing, "checksum", xs[0], seed)
+    check(err == 0, f"checksum at the pod shard: max_abs_err {err}")
+    acc = landing.new_acc("cuda")
+    kernel, plain = _launchers(torch, landing, "checksum", xs, acc)
+    rec = {
+        "bytes": n, "max_abs_err": err,
+        "ms": _time_ms(torch, kernel, 50),
+        "plain_ms": _time_ms(torch, plain, 5),
+        "library_ms": _time_ms(
+            torch, lambda i: xs[i % 2].sum(dtype=torch.int32), 20),
+        "library_call": "x.sum(dtype=torch.int32)", **_bound(n, n),
+    }
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    emit({"phase": "kernels", "kernel": "checksum", "shape": "pod_shard",
+          "rows": n // 128, "lane": 128, **rec})
+    return rec
 
 
 def _bound(moved: int, n: int) -> dict:
@@ -1310,6 +1374,343 @@ def phase_tail(smi, seed: int) -> dict:
             line["reduced"] = [f"{mode}: wall {res.wall_seconds:.1f} s > 60 s"]
         emit(line)
     return launches
+
+
+# -------------------------------------------------------------- phase 9 --
+def _cli(argv: list):
+    """``(args, cfg)`` as the CLI parses and folds ``argv``."""
+    from tpubench_torch import cli
+
+    args = cli.build_parser().parse_args(
+        [*argv, "--results-dir", f"{BUILD}/results"])
+    return args, cli.build_config(args)
+
+
+class PodObserved:
+    """Keeps what pod-ingest builds for one run — its flight recorder, and
+    for every call of its collective the group's backend, the gathered
+    tensor's device and the checksum — by wrapping the workload's
+    factories; what they build and do is unchanged."""
+
+    def __init__(self):
+        self.flights, self.calls = [], []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from tpubench_torch.workloads import pod_ingest
+
+        names = ("flight_from_config", "make_reassemble", "make_ring_reassemble")
+        self._saved = [(n, getattr(pod_ingest, n)) for n in names]
+        make_flight, gather, ring = (f for _, f in self._saved)
+
+        def kept_flight(cfg):
+            rec = make_flight(cfg)
+            self.flights.append(rec)
+            return rec
+
+        def watched(make):
+            def build(pod):
+                fn = make(pod)
+
+                def call(staged):
+                    gathered, csum = fn(staged)
+                    self.calls.append((dist.get_backend(pod.group),
+                                       gathered.device.type, int(csum)))
+                    return gathered, csum
+
+                return call
+
+            return build
+
+        pod_ingest.flight_from_config = kept_flight
+        pod_ingest.make_reassemble = watched(gather)
+        pod_ingest.make_ring_reassemble = watched(ring)
+        return self
+
+    def __exit__(self, *exc):
+        from tpubench_torch.workloads import pod_ingest
+
+        for name, fn in self._saved:
+            setattr(pod_ingest, name, fn)
+
+
+def phase_pod(smi) -> tuple[dict, object]:
+    """``pod-ingest`` through ``cli.execute`` (the
+    one-rank NCCL group it brings up, the run, the group torn down) over a
+    fake store holding one 1 GiB object, in modes all_gather and ring:
+    verified, the device checksum equal to the host's byte sum mod 2³²,
+    NCCL as the group's backend, the gather on the card, one
+    ``tb_checksum`` launch per shard per collective call (warm-up
+    included), and the pod's flight record staged and gathered. Returns
+    the launch counts and the store (phase profile reads it again)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage.fake import FakeBackend
+
+    t0 = time.perf_counter()
+    store = FakeBackend.prepopulated("tpubench/file_", 1, POD_OBJECT)
+    host_sum = int(store._objects["tpubench/file_0"].sum(dtype=np.uint64)) % MOD
+    emit({"phase": "pod_setup", "object_size": POD_OBJECT,
+          "shard_rows": POD_OBJECT // 128, "lane": 128,
+          "populate_s": time.perf_counter() - t0})
+    launches = {}
+    for mode, flags in POD_MODES.items():
+        args, cfg = _cli(["pod-ingest", "--protocol", "fake", "--workers", "1",
+                          "--object-size", str(POD_OBJECT), *flags])
+        with PodObserved() as obs:
+            landing.reset_launches()
+            res = cli.execute("pod-ingest", cfg, device="cuda", backend=store,
+                              args=args)
+            counts = {"land": landing.land.launches,
+                      "checksum": landing.checksum.launches}
+        launches[f"pod/{mode}"] = counts
+        ex = res.extra
+        check(not dist.is_initialized(), f"pod/{mode}: the group outlived the run")
+        check(res.errors == 0 and ex["verified"] is True,
+              f"pod/{mode}: errors {res.errors}, verified {ex['verified']}")
+        check(ex["mode"] == mode and res.bytes_total == POD_OBJECT,
+              f"pod/{mode}: {ex['mode']}, {res.bytes_total} B")
+        check(len(obs.calls) == 2, f"pod/{mode}: {len(obs.calls)} collective calls")
+        check(all(b == "nccl" for b, _, _ in obs.calls),
+              f"pod/{mode}: backends {obs.calls}")
+        check(all(d == "cuda" for _, d, _ in obs.calls),
+              f"pod/{mode}: gathered on {obs.calls}")
+        check(all(c == host_sum for _, _, c in obs.calls),
+              f"pod/{mode}: device checksum {obs.calls} vs host {host_sum}")
+        check(counts == {"land": 0, "checksum": len(obs.calls)},
+              f"pod/{mode}: launches {counts} for {len(obs.calls)} calls")
+        recs = obs.flights[0].records()
+        pod_recs = [r for r in recs if r["kind"] == "object"]
+        check(len(pod_recs) == 1 and {"hbm_staged", "gather_complete"}
+              <= set(pod_recs[0]["phases"]),
+              f"pod/{mode}: pod record {pod_recs}")
+        check(sum(1 for r in recs if r["kind"] == "read") == 1,
+              f"pod/{mode}: shard records")
+        emit({"phase": "pod", "mode": mode, "object_size": POD_OBJECT,
+              "shard_bytes": ex["shard_bytes"], "n_chips": res.n_chips,
+              "backend": obs.calls[0][0], "verified": ex["verified"],
+              "checksum": obs.calls[-1][2], "host_sum": host_sum,
+              "launches": counts,
+              **{k: ex[k] for k in (
+                  "fetch_seconds", "stage_seconds", "gather_seconds",
+                  "compile_seconds", "fetch_gbps", "stage_gbps",
+                  "gather_gbps", "ici_bytes_moved")},
+              "wall_s": res.wall_seconds, "gbps": res.gbps, "card": smi})
+    return launches, store
+
+
+# ------------------------------------------------------------- phase 10 --
+def phase_gather(smi) -> dict:
+    """``gather-bench`` at world size 1 (a one-rank NCCL group), each of
+    the four collectives on a 4 MiB shard: labelled ``single_device``, no
+    errors, every call's output equal to its input (at n = 1 the gathers,
+    the reduce-scatter and the all-reduce are identities), and every
+    ``tb_checksum`` of the gathers equal to the staged shard's byte sum
+    mod 2³², summed on the host."""
+    import numpy as np
+    import torch
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.workloads import gather_bench
+
+    launches = {}
+    for mode in GATHER_MODES:
+        args, cfg = _cli(["gather-bench", "--collective", mode,
+                          "--shard-mb", str(GATHER_SHARD_MB),
+                          "--reps", str(GATHER_REPS)])
+        # (input, output, checksum or None) of every call, compared after
+        # the run.
+        calls = []
+        make = gather_bench.COLLECTIVES[mode]
+
+        def watched(pod, make=make):
+            fn = make(pod)
+
+            def call(staged):
+                out = fn(staged)
+                calls.append((staged.array, *out) if isinstance(out, tuple)
+                             else (staged.array, out, None))
+                return out
+
+            return call
+
+        gather_bench.COLLECTIVES[mode] = watched
+        try:
+            landing.reset_launches()
+            res = cli.execute("gather-bench", cfg, device="cuda", args=args)
+            counts = {"land": landing.land.launches,
+                      "checksum": landing.checksum.launches}
+        finally:
+            gather_bench.COLLECTIVES[mode] = make
+        launches[f"gather/{mode}"] = counts
+        ex = res.extra
+        row = ex["scaling"][0]
+        check(ex["single_device"] is True and res.errors == 0
+              and len(ex["scaling"]) == 1 and row["devices"] == 1,
+              f"gather/{mode}: {ex}")
+        check(len(calls) == GATHER_REPS + 1, f"gather/{mode}: {len(calls)} calls")
+        check(all(torch.equal(i, o) for i, o, _ in calls),
+              f"gather/{mode}: output differs from input at n = 1")
+        gathers = mode in ("all_gather", "ring")
+        host_sums = [int(i.cpu().numpy().sum(dtype=np.uint64)) % MOD
+                     for i, _, _ in calls]
+        sums = [None if c is None else int(c) for _, _, c in calls]
+        check(sums == (host_sums if gathers else [None] * len(calls)),
+              f"gather/{mode}: checksums {sums}, host sums {host_sums}")
+        want = GATHER_REPS + 1 if gathers else 0
+        check(counts == {"land": 0, "checksum": want},
+              f"gather/{mode}: launches {counts}, want {want}")
+        emit({"phase": "gather", "mode": mode, "single_device": True,
+              "shard_bytes": row["shard_bytes"], "reps": row["reps"],
+              "ms_per_call": row["seconds"] * 1e3,
+              "ici_bytes_moved": row["ici_bytes_moved"], "launches": counts,
+              "identity": True, "checksums_equal_host": gathers,
+              "card": smi})
+    return launches
+
+
+# ------------------------------------------------------------- phase 11 --
+def phase_probe(smi) -> None:
+    """``probe --cycles 3 --cycle-sleep 0.5``: the host→card copy from
+    page-locked arrays, swept over sizes, and three identical cycles."""
+    from tpubench_torch import cli
+
+    args, cfg = _cli(["probe", "--cycles", "3", "--cycle-sleep", "0.5"])
+    res = cli.execute("probe", cfg, device="cuda", args=args)
+    ex = res.extra
+    check(ex["device"].startswith("cuda") and res.gbps > 0
+          and len(ex["cycle_samples_gbps"]) == 3, f"probe: {ex}")
+    emit({"phase": "probe", **{k: ex[k] for k in (
+        "device", "size_sweep_gbps", "sweep_anomalies",
+        "fixed_cost_speedup_8MB_over_2MB", "cycle_samples_gbps", "peak_gbps",
+        "median_gbps", "floor_gbps", "shaped", "slow_start")},
+        "wall_s": res.wall_seconds, "card": smi})
+
+
+# ------------------------------------------------------------- phase 12 --
+def _union(spans: list) -> list:
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap_us(a: list, b: list) -> float:
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _wait_vs_device(path: str) -> dict:
+    """From a trace: how long the fetch threads were blocked on the
+    device (``staging/transfer_wait``, the stagers' ``transfer_wait_ns``:
+    summed over threads and as a union) and what share of that union the
+    card was busy."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    def span(e):
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+
+    waits = [span(e) for e in events if e.get("name") == "staging/transfer_wait"]
+    device = _union([span(e) for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")])
+    wait_union = _union(waits)
+    union_us = sum(e - s for s, e in wait_union)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    syncs = [e for e in events if e.get("cat") == "cuda_sync"]
+    return {
+        "transfer_waits": len(waits),
+        "transfer_wait_s_total": sum(e - s for s, e in waits) / 1e6,
+        "transfer_wait_union_s": union_us / 1e6,
+        "device_busy_during_wait_share": (
+            _overlap_us(wait_union, device) / union_us if union_us else None),
+        "memcpy": {"count": len(copies),
+                   "total_s": sum(float(e.get("dur", 0)) for e in copies) / 1e6},
+        "cuda_sync": {"count": len(syncs),
+                      "total_s": sum(float(e.get("dur", 0)) for e in syncs) / 1e6},
+    }
+
+
+def _profiled(path: str, run, smi) -> None:
+    """One run under ``obs.profile_dir``: the trace's ``tb_checksum`` and
+    ``tb_land`` kernel events must equal the launch counters; prints the
+    device busy share (the union of kernel and copy intervals over the
+    traced window) and the fetch threads' waits on the device."""
+    import glob
+    import os
+    import shutil
+
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.obs.profiling import trace_summary
+
+    out = f"{BUILD}/profile/{path.replace('/', '_')}"
+    shutil.rmtree(out, ignore_errors=True)
+    landing.reset_launches()
+    res = run(out)
+    counts = {"land": landing.land.launches, "checksum": landing.checksum.launches}
+    (trace,) = glob.glob(f"{out}/trace_*.json")
+    summary = trace_summary(trace)
+    in_trace = {k: sum(n for name, n in summary["kernels"].items()
+                       if f"{k}_kernel" in name) for k in ("land", "checksum")}
+    check(summary["device_events"] > 0, f"profile/{path}: no device event")
+    check(in_trace == counts,
+          f"profile/{path}: kernels in the trace {in_trace}, launches {counts}")
+    check(res.errors == 0, f"profile/{path}: {res.errors} errors")
+    line = {
+        "phase": "profile", "path": path, "trace": trace,
+        "trace_mb": os.path.getsize(trace) / 1e6, "launches": counts,
+        "kernels_in_trace": in_trace,
+        "events_by_category": summary["events_by_category"],
+        "window_s": summary["window_us"] / 1e6,
+        "device_busy_s": summary["device_busy_us"] / 1e6,
+        "device_busy_share": summary["device_busy_share"],
+        "regions": summary["regions"], "wall_s": res.wall_seconds,
+        **_wait_vs_device(trace), "card": smi,
+    }
+    if "staged_gbps_per_chip" in res.extra:
+        line["staged_gbps_per_chip"] = res.extra["staged_gbps_per_chip"]
+    emit(line)
+
+
+def phase_profile(store, pod_store, smi) -> None:
+    """Phase read's device_put_depth3 and pallas modes and pod/all_gather,
+    each once more through ``cli.execute`` with ``obs.profile_dir`` under
+    ``build/`` (torch.profiler: every thread's host ops, the card's
+    kernels and copies, the host's waits on the card)."""
+    from tpubench_torch import cli
+
+    for mode in ("device_put_depth3", "pallas"):
+        def run(out, mode=mode):
+            cfg = _config(WORKERS, OBJECT_SIZE, GRANULE, mode)
+            cfg.obs.profile_dir = out
+            return cli.execute("read", cfg, device="cuda", backend=store)
+
+        _profiled(f"read/{mode}", run, smi)
+
+    def run_pod(out):
+        args, cfg = _cli(["pod-ingest", "--protocol", "fake", "--workers", "1",
+                          "--object-size", str(POD_OBJECT),
+                          "--profile-dir", out])
+        return cli.execute("pod-ingest", cfg, device="cuda", backend=pod_store,
+                           args=args)
+
+    _profiled("pod/all_gather", run_pod, smi)
 
 
 if __name__ == "__main__":

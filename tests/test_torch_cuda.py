@@ -208,3 +208,58 @@ def test_stage_records_on_cuda_match_cpu(cuda, kind, cfg):
         if recs:
             assert sum(r["bytes"] for r in recs) == stats["staged_bytes"]
     assert shapes["cpu"] == shapes["cuda"]
+
+
+def test_one_rank_nccl_pod_ingest_matches_cpu(cuda, tmp_path):
+    """``pod-ingest`` through ``cli.execute`` on a one-rank NCCL group
+    (brought up and torn down by the run), both modes, against the same
+    run on a one-rank gloo group on the CPU."""
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage.fake import FakeBackend
+
+    store = FakeBackend.prepopulated("tpubench/file_", 1, 3_000_001)
+    for flags in ([], ["--ring"]):
+        args = cli.build_parser().parse_args([
+            "pod-ingest", "--protocol", "fake", "--workers", "1",
+            "--object-size", "3000001", "--results-dir", str(tmp_path),
+            *flags])
+        cfg = cli.build_config(args)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            landing.reset_launches()
+            out[dev] = cli.execute("pod-ingest", cfg, device=dev,
+                                   backend=store, args=args)
+            assert not dist.is_initialized()
+            launches = landing.checksum.launches
+        assert launches == 2  # one shard, warm-up + timed gather
+        for res in out.values():
+            assert res.errors == 0 and res.extra["verified"] is True
+        for key in ("shard_bytes", "ici_bytes_moved", "holes_global", "mode"):
+            assert out["cpu"].extra[key] == out["cuda"].extra[key], key
+
+
+@pytest.mark.parametrize("mode", ["all_gather", "ring", "reduce_scatter", "psum"])
+def test_one_rank_nccl_gather_bench(cuda, mode):
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.config import BenchConfig
+
+    args = cli.build_parser().parse_args([
+        "gather-bench", "--shard-mb", "1", "--reps", "2", "--collective", mode])
+    res = cli.execute("gather-bench", BenchConfig(), device="cuda", args=args)
+    assert not dist.is_initialized()
+    assert res.errors == 0 and res.extra["single_device"] is True
+    assert [r["devices"] for r in res.extra["scaling"]] == [1]
+
+
+def test_probe_copies_from_page_locked_arrays(cuda):
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.workloads import probe
+
+    assert probe.host_array(2 * 1024 * 1024, cuda).is_pinned()
+    res = probe.run_probe(BenchConfig(), cycles=1, sleep_s=0, device="cuda")
+    assert res.extra["device"].startswith("cuda:") and res.gbps > 0

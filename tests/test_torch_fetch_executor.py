@@ -9,6 +9,7 @@ with ``device="cpu"``; the card's counterpart is in
 ``tests/test_torch_cuda.py``.
 """
 
+import threading
 import urllib.parse
 
 import numpy as np
@@ -231,16 +232,20 @@ def test_unported_http_features_name_roadmap_a2(switch):
 # (g) -------------------------------------------------------------------
 class _PendingEvent:
     """Stand-in for the event after a slot's copy: ``query()`` answers
-    False for its first ``polls`` calls; ``synchronize()`` completes it."""
+    False for its first ``polls`` calls (setting ``held``, if given, at the
+    last of them); ``synchronize()`` completes it."""
 
-    def __init__(self, polls: int):
+    def __init__(self, polls: int, held: threading.Event = None):
         self.polls = polls
         self.pending_answers = 0
         self.done = False
+        self.held = held
 
     def query(self) -> bool:
         if not self.done and self.pending_answers < self.polls:
             self.pending_answers += 1
+            if self.pending_answers == self.polls and self.held is not None:
+                self.held.set()
             return False
         self.done = True
         return True
@@ -251,13 +256,17 @@ class _PendingEvent:
 
 def test_slot_returns_only_after_its_event_completes(monkeypatch):
     """A slot whose copy's event still reports pending is never handed to
-    a new range; once the event completes, the slot comes back. The
-    server answers each range after 10 ms, so the runner's loop polls the
-    pending events while fetches are in flight rather than finding none in
-    flight and waiting on a copy outright (which completes the event
-    without a poll, and made the last check depend on timing)."""
+    a new range; once the event completes, the slot comes back.
+
+    The store holds worker 1's first range until some event has answered
+    "pending" three times. While that range is in flight the runner's
+    loop keeps polling the pending events (it waits on a copy outright,
+    completing it without a poll, only when no fetch is in flight), so
+    the slots held back behind them come back through the poll: the last
+    check no longer depends on how fast the machine is."""
     events = {}  # (worker, slot) -> the event of the slot's last launch
     reuses = []  # at each reuse of a slot: had its last event completed?
+    held = threading.Event()
 
     class Gated(fetch_executor._SlotPipeline):
         def __init__(self, worker_id, *args, **kwargs):
@@ -276,16 +285,22 @@ def test_slot_returns_only_after_its_event_completes(monkeypatch):
 
         def launch(self, slot, nbytes):
             (landed, _), submit_ns, n = super().launch(slot, nbytes)
-            ev = events[(self.wid, slot)] = _PendingEvent(polls=3)
+            ev = events[(self.wid, slot)] = _PendingEvent(polls=3, held=held)
             return (landed, ev), submit_ns, n
 
         def complete(self, slot, submit_ns, nbytes):
             assert events[(self.wid, slot)].done, "slot freed while pending"
             super().complete(slot, submit_ns, nbytes)
 
+    class HoldsWorker1(FakeBackend):
+        def open_read(self, name, start=0, length=None):
+            if name == f"{PREFIX}1" and not held.is_set():
+                held.wait(timeout=30)
+            return super().open_read(name, start=start, length=length)
+
     monkeypatch.setattr(fetch_executor, "_SlotPipeline", Gated)
-    slow = FakeBackend.prepopulated(PREFIX, count=2, size=SIZE,
-                                    fault=FaultPlan(latency_s=0.005))
+    slow = HoldsWorker1.prepopulated(PREFIX, count=2, size=SIZE,
+                                     fault=FaultPlan(latency_s=0.005))
     with FakeGcsServer(slow) as srv:
         res = run_read(_cfg(srv.endpoint, reads=3, validate=False),
                        device="cpu")

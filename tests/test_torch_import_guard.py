@@ -52,6 +52,11 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.storage.tail", "tpubench_torch.obs.flight",
         "tpubench_torch.obs.tracing", "tpubench_torch.obs.exporters",
         "tpubench_torch.obs.trace", "tpubench_torch.obs.telemetry",
+        "tpubench_torch.obs.profiling", "tpubench_torch.dist.bringup",
+        "tpubench_torch.dist.reassemble", "tpubench_torch.dist.shard",
+        "tpubench_torch.workloads.pod_ingest",
+        "tpubench_torch.workloads.gather_bench",
+        "tpubench_torch.workloads.probe",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -98,6 +103,28 @@ def test_run_read_without_cuda_raises(monkeypatch):
     cfg.workload.object_size = 1024
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_read(cfg)
+
+
+@pytest.mark.parametrize("entry", ["pod_ingest", "gather_bench", "probe"])
+def test_pod_entry_points_without_cuda_raise(entry, monkeypatch):
+    """``pod-ingest``, ``gather-bench`` and ``probe`` raise without a GPU
+    unless asked for the CPU — before any process group is brought up."""
+    import torch.distributed as dist
+
+    from tpubench_torch.workloads.gather_bench import run_gather_bench
+    from tpubench_torch.workloads.pod_ingest import run_pod_ingest
+    from tpubench_torch.workloads.probe import run_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BenchConfig()
+    cfg.transport.protocol = "fake"
+    cfg.workload.workers = 1
+    cfg.workload.object_size = 1024
+    run = {"pod_ingest": run_pod_ingest, "gather_bench": run_gather_bench,
+           "probe": run_probe}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(cfg)
+    assert not dist.is_initialized()
 
 
 def test_native_route_without_cuda_raises(monkeypatch):
@@ -148,6 +175,17 @@ def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
     res = json.loads(Path(path).read_text())
     assert res["extra"]["checksum_ok"] is True
     assert res["extra"]["staged_bytes"] == 2 * 300_001
+
+
+@pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe"])
+def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
+    argv = [cmd, "--protocol", "fake", "--workers", "1", "--object-size",
+            "70001", "--results-dir", str(tmp_path)]
+    no_gpu = _run("from tpubench_torch.cli import main; import sys; "
+                  f"sys.exit(main({argv!r}))", CUDA_VISIBLE_DEVICES="")
+    assert no_gpu.returncode != 0
+    assert "device='cpu'" in no_gpu.stderr
+    assert not list(tmp_path.iterdir())
 
 
 def test_unported_protocol_raises_not_implemented():

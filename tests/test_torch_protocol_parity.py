@@ -188,11 +188,38 @@ def _recording(factory, stats: dict):
     return lambda i: _Recording(factory(i), stats, i)
 
 
+def _in_turn(factory, workers: int):
+    """Sink factory that runs the read workers one after another: worker
+    ``i`` makes its sink (in its own thread, before its first request)
+    only once worker ``i-1``'s sink has finished. A faulted store draws
+    every request's fault from one seeded RNG in arrival order, so with
+    workers in turn each one meets the same faults in both packages."""
+    finished = [threading.Event() for _ in range(workers)]
+
+    def make(i):
+        if i and not finished[i - 1].wait(timeout=60):
+            raise TimeoutError(f"worker {i - 1} did not finish its reads")
+        sink = factory(i)
+        finish = sink.finish
+
+        def done():
+            try:
+                return finish()
+            finally:
+                finished[i].set()
+
+        sink.finish = done
+        return sink
+
+    return make
+
+
 def _run_both(variant: str, mode: str, endpoints=None, local_dir: str = "",
               fault: dict = None):
     """Both packages on the same config and population; ``endpoints`` is
     the (JAX, port) server endpoint pair. Returns the two results and the
-    per-worker stager stats."""
+    per-worker stager stats. With a ``fault`` plan the workers run in
+    turn (:func:`_in_turn`)."""
     protocol, _, switches = VARIANTS[variant]
     cfg_dict = _reference_config(protocol, mode, switches)
     if fault:
@@ -203,13 +230,12 @@ def _run_both(variant: str, mode: str, endpoints=None, local_dir: str = "",
     if endpoints is not None:
         jcfg.transport.endpoint, tcfg.transport.endpoint = endpoints
     jstats, tstats = {}, {}
-    jres = jax_run_read(
-        jcfg, sink_factory=_recording(jax_staging.make_sink_factory(jcfg), jstats)
-    )
-    tres = run_read(
-        tcfg, device="cpu",
-        sink_factory=_recording(make_sink_factory(tcfg, device="cpu"), tstats),
-    )
+    jfactory = _recording(jax_staging.make_sink_factory(jcfg), jstats)
+    tfactory = _recording(make_sink_factory(tcfg, device="cpu"), tstats)
+    if fault:
+        jfactory, tfactory = _in_turn(jfactory, WORKERS), _in_turn(tfactory, WORKERS)
+    jres = jax_run_read(jcfg, sink_factory=jfactory)
+    tres = run_read(tcfg, device="cpu", sink_factory=tfactory)
     return jres.to_dict(), tres.to_dict(), jstats, tstats
 
 
@@ -275,7 +301,9 @@ def test_protocol_parity(variant, mode, servers, local_dir):
 def test_faulted_http_under_retry_resumes_mid_granule():
     """Seeded open 503s and mid-stream failures under retry policy
     ``always``: each side resumes (more opens than reads) and still stages
-    every byte exactly once — equal bytes and checksums, no error."""
+    every byte exactly once — equal bytes and checksums, no error. The
+    workers read in turn, so each meets the same seeded faults in both
+    packages and ships the same transfers."""
     fault = dict(error_rate=0.2, read_error_rate=0.25, seed=11)
     cfg_dict = _reference_config("http", "device_put_validate", {})
     cfg_dict["transport"]["fault"].update(fault)

@@ -217,7 +217,8 @@ def test_saved_reference_config_loads_and_round_trips():
 
 def test_ported_defaults_match_reference():
     ref, port = JaxBenchConfig().to_dict(), BenchConfig().to_dict()
-    for section in ("workload", "transport", "staging", "obs", "telemetry"):
+    for section in ("workload", "transport", "staging", "dist", "obs",
+                    "telemetry"):
         assert port[section] == ref[section], section
 
 
@@ -233,10 +234,8 @@ def _switched(section: str, name: str, value):
 
 @pytest.mark.parametrize("switch, item", [
     (("transport", "key_file", "/nonexistent/key.json"), "A.2"),
-    (("dist", "num_processes", 2), "A.4"),
     (("tune", "enabled", True), "A.3"),
     (("obs", "results_bucket", "b"), "A.2"),
-    (("obs", "profile_dir", "/tmp/p"), "A.6"),
 ])
 def test_unported_switch_is_refused(switch, item):
     """A reference config that switches on a feature this slice leaves out
@@ -254,11 +253,17 @@ def test_unported_switch_is_refused(switch, item):
     ("transport.tail", "hedge", True),
     ("transport.tail", "watchdog", True),
     ("transport.tail", "breaker", True),
+    ("dist", "num_processes", 2),
+    ("obs", "profile_dir", "prof"),
 ], ids=lambda sw: f"{sw[0]}.{sw[1]}")
 def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
-    """The switches this slice ports run through the ``read`` command on
-    the CPU and leave their block in the result (before, each was
-    refused); tracing gets a real tracer."""
+    """The switches ported so far run through the ``read`` command on the
+    CPU and leave their block in the result (before, each was refused);
+    tracing gets a real tracer. ``dist.num_processes`` runs this process
+    as one host of a two-process pod (``cli.read`` brings no group up; a
+    pod of processes runs in ``tests/test_torch_dist.py``): process 1's
+    journal takes the ``.p1`` suffix. ``obs.profile_dir`` runs through
+    ``cli.execute``, which holds the profiler, and leaves a trace."""
     monkeypatch.chdir(tmp_path)
     ref = _switched(*switch)
     ref.workload.workers = 1
@@ -266,18 +271,30 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
     ref.workload.object_size = 300_001
     ref.workload.granule_bytes = 64 * 1024
     ref.staging.slot_bytes = 128 * 1024
+    if switch[0] == "dist":
+        ref.dist.process_id = 1
+        ref.obs.flight_journal = "journal.json"
     cfg = BenchConfig.from_dict(ref.to_dict())
     refuse_unported(cfg)
-    res = cli.read(cfg, device="cpu")
+    if switch[1] == "profile_dir":
+        res = cli.execute("read", cfg, device="cpu")
+    else:
+        res = cli.read(cfg, device="cpu")
     assert res.errors == 0 and res.extra["staged_bytes"] == 300_001
     want = {
         "flight_journal": "flight_journal", "enable_tracing": "flight",
         "export": "metrics_export", "port": "telemetry",
         "hedge": "tail", "watchdog": "tail", "breaker": "tail",
+        "num_processes": "flight_journal", "profile_dir": "flight",
     }[switch[1]]
     assert want in res.extra
     if switch[1] == "flight_journal":
         assert (tmp_path / "journal.json").is_file()
+    if switch[1] == "num_processes":
+        assert (tmp_path / "journal.json.p1").is_file()
+        assert not (tmp_path / "journal.json").exists()
+    if switch[1] == "profile_dir":
+        assert len(list((tmp_path / "prof").glob("trace_*.json"))) == 1
     if switch[1] == "enable_tracing":
         assert not isinstance(make_tracer(cfg), NoopTracer)
 

@@ -394,18 +394,41 @@ def test_hedge_producer_adopts_trace_context_as_reference():
     )
 
 
+class SteppingClock:
+    """A scripted clock for the hedged reader's consumer thread: each call
+    returns the time and moves it on by ``step`` until ``stop()`` is true,
+    after which it stands still. Hedge launches and stall verdicts then
+    follow from the count of the reader's own clock reads, not from the
+    machine's speed."""
+
+    def __init__(self, step: float):
+        self.t, self.step = 0.0, step
+        self.stop = lambda: False
+
+    def __call__(self) -> float:
+        t = self.t
+        if not self.stop():
+            self.t += self.step
+        return t
+
+
 def _hedged_blackhole_resume(pkg) -> tuple:
     """Primary and hedge both blackholed: the hedged reader's async
     watchdog raises StallError while both producers block, the retry
-    layer reopens, and the third open delivers exact bytes."""
+    layer reopens, and the third open delivers exact bytes.
+
+    On the scripted clock (0.1 s a read) the first reader hedges at its
+    first loop turn (2 ms delay) and stalls at its fourth (0.3 s window);
+    from the stall on the clock stands still, so the resumed reader can
+    neither hedge nor stall: three opens in all."""
     gb = GatedBackend(pkg, block_first=2)
-    # The window is long enough that the third, ungated stream never
-    # looks stalled on a loaded machine.
+    clock = SteppingClock(0.1)
     t = pkg["config"].TailConfig(
         hedge=True, hedge_delay_s=0.002, watchdog=True,
         stall_window_s=0.3, stall_floor_bps=1.0,
     )
-    hb = pkg["tail"].wrap_tail(gb, t, chunk_bytes=16 * 1024)
+    hb = pkg["tail"].wrap_tail(gb, t, clock=clock, chunk_bytes=16 * 1024)
+    clock.stop = lambda: hb.stats["stalls"] > 0
     rb = pkg["retrying"].RetryingBackend(hb, pkg["config"].RetryConfig(
         jitter=False, initial_backoff_s=0.0, max_backoff_s=0.0,
         max_attempts=10,
@@ -420,15 +443,13 @@ def _hedged_blackhole_resume(pkg) -> tuple:
         gb.gate.set()
     assert bytes(got) == deterministic_bytes("f/0", 100_000).tobytes()
     st = pkg["tail"].collect_tail_stats(rb)
-    # The resumed reader may hedge too (if its first byte takes over the
-    # 2 ms delay), so the open count is checked, not compared.
-    assert gb.opens >= 3
-    return total, st["hedge"]["reads"], st["watchdog"]["stalls"]
+    return (total, gb.opens, st["hedge"]["reads"], st["hedge"]["hedges"],
+            st["watchdog"]["stalls"])
 
 
 def test_hedged_async_watchdog_resume_as_reference():
     assert _hedged_blackhole_resume(PORT) == _hedged_blackhole_resume(JAX) == (
-        100_000, 2, 1,
+        100_000, 3, 2, 1, 1,
     )
 
 

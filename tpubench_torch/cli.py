@@ -1,5 +1,6 @@
-"""tpubench_torch CLI: the ``read`` subcommand of ``tpubench`` on PyTorch
-and CUDA, plus ``info`` (what the port would run on).
+"""tpubench_torch CLI: ``tpubench``'s ``read``, ``pod-ingest``,
+``gather-bench`` and ``probe`` on PyTorch and CUDA, plus ``info`` (what
+the port would run on).
 
     python -m tpubench_torch.cli read --protocol fake --workers 2 \\
         --read-call-per-worker 2 --object-size 5242903 \\
@@ -15,8 +16,19 @@ The obs plane and tail tolerance take ``tpubench read``'s flags:
 ``--telemetry-port``/``--telemetry-otlp``, ``--export cloud`` (dry-run
 unless ``--metrics-live``), ``--hedge``/``--watchdog``/``--breaker`` (with
 the ``--fault-*`` knobs of the fake store to give them something to do).
+``--profile-dir`` traces the command with ``torch.profiler``.
 
-``read`` writes the same result JSON as ``tpubench read`` and prints its
+``pod-ingest`` (``--ring``) fetches one object's byte-range shards, one
+per rank, stages them and all-gathers them; ``gather-bench`` sweeps a
+collective (``--collective``, ``--shard-mb``, ``--reps``) over pod sizes;
+``probe`` measures the host→device copy. Several processes run one
+command each with ``--num-processes``/``--process-id``/``--coordinator``
+(or ``TPUBENCH_NUM_PROCESSES``/``_PROCESS_ID``/``_COORDINATOR``): NCCL on
+CUDA, gloo with ``--device cpu``. A single process's pod commands build a
+one-rank group. ``read`` then writes one result per process (tagged
+``p<idx>``); the pod commands write rank 0's.
+
+Each command writes the same result JSON as ``tpubench``'s and prints its
 path on the last line. It runs on CUDA unless ``--device cpu`` is given;
 without a GPU it then exits nonzero instead of carrying on on the CPU.
 """
@@ -25,17 +37,53 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from tpubench_torch.config import BenchConfig, validate_telemetry_config
 from tpubench_torch.metrics.report import RunResult, write_result
+
+# Commands whose result is pod-global (the collectives run inside the
+# workload): rank 0 writes the one report. ``read`` measures its own host,
+# so every process reports.
+POD_COLLECTIVE_CMDS = {"pod-ingest", "gather-bench"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tpubench_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sub.add_parser("info", help="print the device capability report")
-    p = sub.add_parser("read", help="root read benchmark (main.go)")
+
+    def add(name: str, help: str) -> argparse.ArgumentParser:
+        p = sub.add_parser(name, help=help)
+        _add_common(p)
+        return p
+
+    add("read", "root read benchmark (main.go)")
+    pod = add("pod-ingest", "sharded object → every rank's device memory, "
+                            "all-gathered over the process group")
+    pod.add_argument("--ring", action="store_true",
+                     help="explicit send/recv ring instead of all_gather")
+    gb = add("gather-bench", "collective bandwidth against pod size")
+    gb.add_argument("--shard-mb", type=float, default=4.0)
+    gb.add_argument("--reps", type=int, default=5)
+    gb.add_argument("--collective",
+                    choices=("all_gather", "ring", "reduce_scatter", "psum"),
+                    default="",
+                    help="which collective to benchmark (default "
+                         "all_gather; --ring is shorthand for ring)")
+    gb.add_argument("--ring", action="store_true",
+                    help="shorthand for --collective ring")
+    probe = add("probe", "host→device transfer-physics probe (fixed cost, "
+                         "size sweep, burst/floor shaping, slow start)")
+    probe.add_argument("--cycles", type=int, default=8,
+                       help="identical measure cycles for burst/floor "
+                            "detection")
+    probe.add_argument("--cycle-sleep", type=float, default=2.0)
+    return ap
+
+
+def _add_common(p) -> None:
     p.add_argument("--config", help="JSON config file (tpubench --save-config)")
     p.add_argument("--protocol", choices=("http", "grpc", "local", "fake"),
                    help="storage protocol: http (JSON API), grpc (storage "
@@ -84,10 +132,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="staging slot target (capped by the host budget)")
     p.add_argument("--results-dir")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--profile-dir",
+                   help="trace the command with torch.profiler (host ops, "
+                        "and the card's kernels and copies on CUDA) into a "
+                        "Chrome trace JSON in this directory")
+    p.add_argument("--num-processes", type=int,
+                   help="multi-process: total process count (one per GPU); "
+                        "also TPUBENCH_NUM_PROCESSES")
+    p.add_argument("--process-id", type=int,
+                   help="multi-process: this process's rank; also "
+                        "TPUBENCH_PROCESS_ID")
+    p.add_argument("--coordinator",
+                   help="multi-process: host:port of process 0's "
+                        "rendezvous; also TPUBENCH_COORDINATOR")
     _add_obs_args(p)
     _add_fault_args(p)
     _add_tail_args(p)
-    return ap
 
 
 def _add_obs_args(p) -> None:
@@ -254,6 +314,9 @@ def build_config(args) -> BenchConfig:
         s.slot_bytes = args.slot_bytes
     if args.results_dir:
         cfg.obs.results_dir = args.results_dir
+    if args.profile_dir:
+        cfg.obs.profile_dir = args.profile_dir
+    _apply_dist_args(cfg, args)
     _apply_obs_args(cfg, args)
     for _, field, _, _ in _FAULT_FLAGS:
         v = getattr(args, f"fault_{field}")
@@ -261,6 +324,34 @@ def build_config(args) -> BenchConfig:
             setattr(t.fault, field, v)
     _apply_tail_args(cfg.transport.tail, args)
     return cfg
+
+
+def _apply_dist_args(cfg: BenchConfig, args) -> None:
+    """Flags win over the environment, so one launch template serves every
+    process of a pod (``tpubench/cli.py:990-1016``)."""
+    d = cfg.dist
+    env = os.environ
+    if env.get("TPUBENCH_NUM_PROCESSES"):
+        d.num_processes = int(env["TPUBENCH_NUM_PROCESSES"])
+    if env.get("TPUBENCH_PROCESS_ID"):
+        d.process_id = int(env["TPUBENCH_PROCESS_ID"])
+    if env.get("TPUBENCH_COORDINATOR"):
+        d.coordinator_address = env["TPUBENCH_COORDINATOR"]
+    pid_given = bool(env.get("TPUBENCH_PROCESS_ID"))
+    if args.num_processes is not None:
+        d.num_processes = args.num_processes
+    if args.process_id is not None:
+        d.process_id = args.process_id
+        pid_given = True
+    if args.coordinator:
+        d.coordinator_address = args.coordinator
+    if d.num_processes <= 1 and (pid_given or d.coordinator_address):
+        # A pod member that dropped --num-processes must not run alone
+        # while the rest of the pod waits for it.
+        raise SystemExit(
+            "--process-id/--coordinator set but --num-processes is 1: "
+            "pass the pod's total process count on every host"
+        )
 
 
 def _apply_obs_args(cfg: BenchConfig, args) -> None:
@@ -362,6 +453,74 @@ def read(cfg: BenchConfig, device="cuda", backend=None) -> RunResult:
         )
 
 
+def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
+            args=None) -> RunResult:
+    """One command as ``main`` runs it: bring-up (a one-rank group for the
+    pod commands of a single process), the run under ``obs.profile_dir``'s
+    profiler, the topology stamped when several processes ran. ``args``
+    carries the command's own flags (parser defaults when ``None``)."""
+    from tpubench_torch.dist import bringup
+    from tpubench_torch.obs.profiling import maybe_profile
+
+    if args is None:
+        args = build_parser().parse_args([cmd])
+    with bringup.session(cfg.dist, device,
+                         one_rank_group=cmd in POD_COLLECTIVE_CMDS) as topo:
+        with maybe_profile(cfg.obs.profile_dir, device):
+            if cmd == "read":
+                res = read(cfg, device=device, backend=backend)
+            elif cmd == "pod-ingest":
+                from tpubench_torch.workloads.pod_ingest import run_pod_ingest
+
+                res = run_pod_ingest(cfg, backend=backend, ring=args.ring,
+                                     device=device)
+            elif cmd == "gather-bench":
+                from tpubench_torch.workloads.gather_bench import (
+                    run_gather_bench,
+                )
+
+                res = run_gather_bench(
+                    cfg, shard_mb=args.shard_mb, reps=args.reps,
+                    ring=args.ring, collective=args.collective, device=device,
+                )
+            elif cmd == "probe":
+                from tpubench_torch.workloads.probe import run_probe
+
+                res = run_probe(cfg, cycles=args.cycles,
+                                sleep_s=args.cycle_sleep, device=device)
+            else:
+                raise SystemExit(f"unknown command {cmd!r}")
+        if cfg.obs.profile_dir:
+            print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
+        if topo["process_count"] > 1:
+            res.extra["topology"] = topo
+    return res
+
+
+def finish(res: RunResult, cfg: BenchConfig, pod_collective: bool) -> None:
+    """Write the result (``tpubench``'s ``_finish``): with several
+    processes, a pod command's report is rank 0's alone; ``read`` writes
+    one per process, tagged ``p<idx>``."""
+    topo = res.extra.get("topology")
+    tag = ""
+    if topo and topo.get("process_count", 1) > 1:
+        idx = topo.get("process_index", 0)
+        if pod_collective:
+            if idx != 0:
+                print(f"process {idx}/{topo['process_count']} done "
+                      f"(report at process 0)")
+                return
+        else:
+            tag = f"p{idx}"
+    print(res.format())
+    if "staging" in res.extra:
+        from tpubench_torch.staging.stats import format_staging_block
+
+        print(format_staging_block(res.extra["staging"]))
+    path = write_result(res, cfg.obs.results_dir, tag=tag)
+    print(f"result: {path}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "info":
@@ -370,14 +529,8 @@ def main(argv=None) -> int:
         print(json.dumps(capability_report()))
         return 0
     cfg = build_config(args)
-    res = read(cfg, device=args.device)
-    print(res.format())
-    if "staging" in res.extra:
-        from tpubench_torch.staging.stats import format_staging_block
-
-        print(format_staging_block(res.extra["staging"]))
-    path = write_result(res, cfg.obs.results_dir)
-    print(f"result: {path}")
+    res = execute(args.cmd, cfg, device=args.device, args=args)
+    finish(res, cfg, pod_collective=args.cmd in POD_COLLECTIVE_CMDS)
     return 0
 
 

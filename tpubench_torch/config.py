@@ -3,7 +3,7 @@
 
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (dist, pipeline,
+unchanged. The sections the port has no code for yet (pipeline,
 tune, coop, serve, lifecycle, drill, fleet, …) are kept as the raw dicts
 they were loaded as, so they round-trip without a dataclass.
 
@@ -170,6 +170,20 @@ class StagingConfig:
 
 
 @dataclass
+class DistConfig:
+    """Multi-process fan-out (``tpubench/config.py:1381-1393``): one
+    process per GPU, brought up by :func:`tpubench_torch.dist.bringup.
+    initialize` (CLI ``--num-processes``/``--process-id``/
+    ``--coordinator``, or ``TPUBENCH_NUM_PROCESSES``/``_PROCESS_ID``/
+    ``_COORDINATOR``); 1 = single-process."""
+
+    num_processes: int = 1
+    process_id: int = 0
+    coordinator_address: str = ""  # host:port of process 0
+    mesh_axis: str = "pod"  # name of the 1-D pod axis
+
+
+@dataclass
 class ObservabilityConfig:
     """Metrics/tracing knobs (``metrics_exporter.go``, ``trace_exporter.go``)."""
 
@@ -247,7 +261,8 @@ def validate_telemetry_config(tc: TelemetryConfig,
 
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
-PORTED_SECTIONS = ("workload", "transport", "staging", "obs", "telemetry")
+PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
+                   "telemetry")
 
 
 @dataclass
@@ -255,15 +270,10 @@ class BenchConfig:
     workload: WorkloadConfig = field(default_factory=WorkloadConfig)
     transport: TransportConfig = field(default_factory=TransportConfig)
     staging: StagingConfig = field(default_factory=StagingConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     raw: dict[str, dict] = field(default_factory=dict)
-
-    @property
-    def process_id(self) -> int:
-        """This process's index in a multi-process run (``dist`` is kept
-        raw; the port runs one process)."""
-        return int(self.raw.get("dist", {}).get("process_id", 0))
 
     def to_dict(self) -> dict[str, Any]:
         d = {
@@ -304,6 +314,7 @@ _SUBTYPES = {
     "workload": WorkloadConfig,
     "transport": TransportConfig,
     "staging": StagingConfig,
+    "dist": DistConfig,
     "obs": ObservabilityConfig,
     "telemetry": TelemetryConfig,
     "retry": RetryConfig,
@@ -330,12 +341,8 @@ def refuse_unported(cfg: BenchConfig) -> None:
         refused.append("transport.key_file (ROADMAP A.2: token sources)")
     if o.results_bucket:
         refused.append("obs.results_bucket (ROADMAP A.2: object-store backends)")
-    if o.profile_dir:
-        refused.append("obs.profile_dir (ROADMAP A.6: profiling)")
     if raw.get("tune", {}).get("enabled"):
         refused.append("tune (ROADMAP A.3: tune)")
-    if raw.get("dist", {}).get("num_processes", 1) > 1:
-        refused.append("dist.num_processes > 1 (ROADMAP A.4: dist + NCCL)")
     if refused:
         raise NotImplementedError(
             "not ported to tpubench_torch yet: " + "; ".join(refused)

@@ -117,6 +117,13 @@ def record_event(stream):
     return ev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU, whose
+    work is done when it returns)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def nvidia_smi_line() -> Optional[str]:
     """``name, power.limit`` of the first card as ``nvidia-smi`` reports
     it, or ``None`` where the tool is missing or fails."""

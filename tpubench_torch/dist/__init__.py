@@ -1,0 +1,12 @@
+"""Multi-process fan-out and pod-level reassembly (``tpubench/dist`` on
+``torch.distributed``).
+
+* :mod:`.bringup` — process-group bring-up (NCCL on CUDA, gloo on the CPU);
+* :mod:`.shard` — host×worker→object and object→byte-range shard tables;
+* :mod:`.reassemble` — the pod of ranks and its four collectives
+  (all-gather, send/recv ring, reduce-scatter, all-reduce) over the shards,
+  with the per-rank checksum taken by ``tb_checksum``.
+
+Where the reference has one process driving n local chips, the port has n
+ranks, one device each.
+"""

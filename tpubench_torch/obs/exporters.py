@@ -593,7 +593,7 @@ def cloud_exporter_from_config(cfg) -> Optional[CloudMonitoringExporter]:
         # one identical time series and N-1 pushes are rejected.
         base_labels={
             "transport": cfg.transport.protocol,
-            "process": str(cfg.process_id),
+            "process": str(cfg.dist.process_id),
         },
     )
 

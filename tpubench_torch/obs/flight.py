@@ -535,7 +535,7 @@ def flight_from_config(cfg) -> Optional[FlightRecorder]:
     if cap <= 0:
         return None
     return FlightRecorder(
-        capacity_per_worker=cap, host=cfg.process_id
+        capacity_per_worker=cap, host=cfg.dist.process_id
     )
 
 

@@ -1007,6 +1007,6 @@ def telemetry_from_config(cfg) -> Optional[TelemetrySession]:
 
     return TelemetrySession(tc, resource={
         "transport": transport_label(cfg),
-        "process": str(cfg.process_id),
+        "process": str(cfg.dist.process_id),
         "workload": "",
     })

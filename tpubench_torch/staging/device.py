@@ -53,12 +53,18 @@ from tpubench_torch.device import (
 from tpubench_torch.kernels import landing
 from tpubench_torch.metrics.recorder import LatencyRecorder
 from tpubench_torch.obs import flight as _flight
+from tpubench_torch.obs.profiling import hot_region
 from tpubench_torch.staging.executor import (
     InflightWindow,
     TransferEngine,
     copy_to_device,
 )
 from tpubench_torch.staging.stats import staging_efficiency
+
+
+# The profiler region of a fetch thread blocked on the device (the
+# stagers' ``transfer_wait_ns``).
+TRANSFER_WAIT = "staging/transfer_wait"
 
 
 def new_slot(shape: tuple, pinned: bool) -> torch.Tensor:
@@ -241,9 +247,10 @@ class DevicePutStager(GranuleAggregator):
         fut = self._futures[k]
         if fut is None:
             return
-        t0 = time.perf_counter_ns()
-        fut[1].synchronize()  # the copy (and checksum) of slot k landed
-        done_ns = time.perf_counter_ns()
+        with hot_region(TRANSFER_WAIT):
+            t0 = time.perf_counter_ns()
+            fut[1].synchronize()  # the copy (and checksum) of slot k landed
+            done_ns = time.perf_counter_ns()
         self.transfer_wait_ns += done_ns - t0
         self.transfer_flight_ns += done_ns - self._submit_ns[k]
         self.stage_recorder.record_ns(done_ns - self._submit_ns[k])
@@ -307,17 +314,14 @@ class DevicePutStager(GranuleAggregator):
         """Overlap path: a free slot to fill, blocking (= backpressure)
         while every slot's copy is still pending."""
         with self._free_cond:
-            t0 = None
-            while not self._free:
-                if self._window.error is not None:
-                    break
-                if t0 is None:
+            if not self._free and self._window.error is None:
+                with hot_region(TRANSFER_WAIT):
                     t0 = time.perf_counter_ns()
-                # Short timeout: a transfer failure must get to the error
-                # check above.
-                self._free_cond.wait(0.05)
-            if t0 is not None:
-                self.transfer_wait_ns += time.perf_counter_ns() - t0
+                    while not self._free and self._window.error is None:
+                        # Short timeout: a transfer failure must get to
+                        # the error check.
+                        self._free_cond.wait(0.05)
+                    self.transfer_wait_ns += time.perf_counter_ns() - t0
             self._window.raise_if_failed()
             return self._free.pop()
 

@@ -32,7 +32,12 @@ from tpubench_torch.device import (
 )
 from tpubench_torch.kernels import landing
 from tpubench_torch.metrics.recorder import LatencyRecorder
-from tpubench_torch.staging.device import GranuleAggregator, new_slot
+from tpubench_torch.obs.profiling import hot_region
+from tpubench_torch.staging.device import (
+    TRANSFER_WAIT,
+    GranuleAggregator,
+    new_slot,
+)
 from tpubench_torch.staging.executor import copy_to_device
 
 LANE = 128
@@ -95,9 +100,10 @@ class LandStager(GranuleAggregator):
         if item is None:
             return
         _landed, done, submit_ns, n = item
-        t0 = time.perf_counter_ns()
-        done.synchronize()  # copy + landing of slot k complete: reusable
-        self.transfer_wait_ns += time.perf_counter_ns() - t0
+        with hot_region(TRANSFER_WAIT):
+            t0 = time.perf_counter_ns()
+            done.synchronize()  # copy + landing of slot k complete: reusable
+            self.transfer_wait_ns += time.perf_counter_ns() - t0
         self.stage_recorder.record_ns(time.perf_counter_ns() - submit_ns)
         self.staged_bytes += n
         self._inflight[k] = None

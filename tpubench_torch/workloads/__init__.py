@@ -1,1 +1,4 @@
-"""Workloads of the port: the root read benchmark (:mod:`.read`)."""
+"""Workloads of the port: the root read benchmark (:mod:`.read`, with
+the native executor route in :mod:`.fetch_executor`), pod-scale ingest
+(:mod:`.pod_ingest`), the collective sweep (:mod:`.gather_bench`) and the
+transfer probe (:mod:`.probe`)."""

@@ -98,9 +98,9 @@ class ReadWorkload:
         # streamed each tick.
         jpath_stream = None
         if self.cfg.obs.flight_journal:
-            # One process: dist.num_processes > 1 is refused upstream.
+            d = self.cfg.dist
             jpath_stream = host_journal_path(
-                self.cfg.obs.flight_journal, self.cfg.process_id, 1
+                self.cfg.obs.flight_journal, d.process_id, d.num_processes
             )
         tel = telemetry_from_config(self.cfg)
         tel_summary = None
