@@ -90,7 +90,24 @@ before the last line:
    ``--profile-dir`` (``build/chip_smoke/profile``): the trace's
    ``tb_checksum``/``tb_land`` events must equal the launch counters; the
    device busy share (the union of kernel and copy intervals over the
-   traced window) and the fetch threads' waits on the device.
+   traced window) and the fetch threads' waits on the device;
+13. tune — ``tune`` through ``cli.execute`` over phase read's deployment
+   and store (window 0.5 s, session 6 s, seed 3 so the first depth probe
+   is a grow): tune/online_depth3 (copy ring at depth 3, knobs workers and
+   staging_depth, flight journal under ``build/``), tune/online_validate
+   (``tb_checksum`` ring, knob workers) and tune/sweep_pallas (the
+   coordinate sweep over workers 1..48 and depth 1-4, one read a worker,
+   ``tb_land``). Zero errors, every read byte staged, no controller
+   error; depth 3: 48 rings attached to one registry on 48 streams, each
+   ring at the last depth it took (a ring that finished at the session's
+   end keeps its depth), the registry at the controller's final depth,
+   every ring grown live and every slot a grow made page-locked (each
+   fan-out's wall time printed); validate:
+   ``checksum_ok`` and one launch per transfer; sweep: per cell
+   ``checksum_ok`` and ``tb_land`` launches == the cell's transfers ==
+   workers × ``expected_transfers``. Then ``report`` over the three
+   results, ``report timeline``/``trace`` and ``top --once`` over the
+   journal: exit 0, the controller's decisions counted.
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB)
 and at phase pod's (1 GiB, 8,388,608 × 128) against its plain version,
@@ -172,7 +189,8 @@ KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
                  paths=("read/pallas", "protocols/http_pallas",
-                        "obs/obs_pallas", "tail/tail_pallas")),
+                        "obs/obs_pallas", "tail/tail_pallas",
+                        "tune/sweep_pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
@@ -181,7 +199,8 @@ KERNELS = {
                               if v[3] == "validate"),
                             "obs/obs_validate", "tail/tail_validate",
                             "pod/all_gather", "pod/ring",
-                            "gather/all_gather", "gather/ring")),
+                            "gather/all_gather", "gather/ring",
+                            "tune/online_validate")),
 }
 
 
@@ -225,6 +244,7 @@ def main() -> int:
     counts.update(phase_gather(smi))
     phase_probe(smi)
     phase_profile(store, pod_store, smi)
+    counts.update(phase_tune(store, smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -1711,6 +1731,276 @@ def phase_profile(store, pod_store, smi) -> None:
                            args=args)
 
     _profiled("pod/all_gather", run_pod, smi)
+
+
+# ------------------------------------------------------------- phase 13 --
+# Phase tune: the deployment of phase read under the tune plane, driven as
+# `tpubench_torch tune` drives it (cli.execute), over phase read's store.
+TUNE_WINDOW_S, TUNE_DURATION_S = 0.5, 6.0
+# Seed 3 makes the controller's first staging_depth probe a grow (3 -> 6,
+# staging_depth_ceiling(3)): the live grow of 48 page-locked rings runs.
+TUNE_SEED = 3
+TUNE_MODES = {
+    "online_depth3": ["--tune-mode", "online", "--staging", "device_put",
+                      "--depth", "3", "--tune-knobs", "workers,staging_depth",
+                      "--read-call-per-worker", "1000"],
+    "online_validate": ["--tune-mode", "online", "--staging", "device_put",
+                        "--validate", "--tune-knobs", "workers",
+                        "--read-call-per-worker", "1000"],
+    "sweep_pallas": ["--tune-mode", "sweep", "--staging", "pallas",
+                     "--tune-knobs", "workers,staging_depth",
+                     "--read-call-per-worker", "1"],
+}
+
+
+class TuneObserved:
+    """Keeps what a tune session builds: each run it makes (its config,
+    result, ``tb_land`` launches and landing-ring transfers, as deltas of
+    counters the phase zeroes before the session), every stager a
+    StagerRegistry attached, each depth the registry fanned out (with its
+    wall time and the slots it made), and each stager's live grows
+    (checked page-locked after every set_depth). Wraps the functions;
+    what they do is unchanged."""
+
+    def __init__(self):
+        self.runs, self.attached, self.fanouts = [], [], []
+        self.land_transfers = 0
+        self.grown = 0  # slots allocated by live grows
+        self.grown_rings: set = set()
+        self.unpinned = 0
+        # id(stager) -> the last depth it took while open
+        self.took: dict = {}
+
+    def __enter__(self):
+        from tpubench_torch.kernels import landing
+        from tpubench_torch.staging.device import DevicePutStager
+        from tpubench_torch.staging.executor import StagerRegistry
+        from tpubench_torch.staging.land_stage import LandStager
+        from tpubench_torch.workloads import tune_cmd
+
+        self._saved = [(StagerRegistry, "attach", StagerRegistry.attach),
+                       (StagerRegistry, "set_depth", StagerRegistry.set_depth),
+                       (DevicePutStager, "set_depth",
+                        DevicePutStager.set_depth),
+                       (LandStager, "finish", LandStager.finish),
+                       (tune_cmd, "_run_target", tune_cmd._run_target)]
+        attach, fan, grow, land_finish, run = (f for _, _, f in self._saved)
+        obs = self
+        lock = __import__("threading").Lock()
+
+        def counted_run(cfg, workload, **kw):
+            n0, t0 = landing.land.launches, obs.land_transfers
+            res = run(cfg, workload, **kw)
+            obs.runs.append((cfg, res, landing.land.launches - n0,
+                             obs.land_transfers - t0))
+            return res
+
+        def counted_finish(stager):
+            stats = land_finish(stager)
+            with lock:
+                obs.land_transfers += stats["transfers"]
+            return stats
+
+        def kept_attach(reg, stager):
+            obs.attached.append((reg, stager))
+            return attach(reg, stager)
+
+        def timed_fan(reg, depth):
+            made0 = obs.grown
+            t0 = time.perf_counter()
+            fan(reg, depth)
+            obs.fanouts.append({"depth": int(depth),
+                                "seconds": time.perf_counter() - t0,
+                                "slots_made": obs.grown - made0})
+
+        def checked_grow(stager, depth):
+            # Called on the registry's grow threads: counts under a lock.
+            n0 = len(stager._slots)
+            if not getattr(stager, "_closed", True):
+                obs.took[id(stager)] = int(depth)
+            out = grow(stager, depth)
+            new = stager._slots[n0:]
+            unpinned = sum(1 for t in new if not t.is_pinned())
+            with lock:
+                obs.grown += len(new)
+                obs.unpinned += unpinned
+                if new:
+                    obs.grown_rings.add(id(stager))
+            return out
+
+        StagerRegistry.attach = kept_attach
+        StagerRegistry.set_depth = timed_fan
+        DevicePutStager.set_depth = checked_grow
+        LandStager.finish = counted_finish
+        tune_cmd._run_target = counted_run
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _tune_online_checks(mode: str, res, obs: TuneObserved) -> dict:
+    ex, tn = res.extra, res.extra["tune"]["adaptive"]
+    check(tn.get("enabled") and tn.get("error") is None,
+          f"tune/{mode}: controller error {tn.get('error')}")
+    check(tn["n_windows"] >= 3, f"tune/{mode}: {tn['n_windows']} windows")
+    check(res.errors == 0, f"tune/{mode}: {res.errors} errors")
+    check(ex.get("staged_bytes") == res.bytes_total > 0,
+          f"tune/{mode}: staged {ex.get('staged_bytes')} of "
+          f"{res.bytes_total}")
+    out = {"n_windows": tn["n_windows"], "initial": tn["initial"],
+           "final": tn["final"], "converged": tn["converged"],
+           "windows_to_converge": tn["windows_to_converge"],
+           "accepts": tn["accepts"], "reverts": tn["reverts"],
+           "guard_violations": tn["guard_violations"],
+           "values": [w["values"] for w in tn["windows"]]}
+    if "staging_depth" not in tn["initial"]:
+        return out
+    regs = {id(r) for r, _ in obs.attached}
+    stagers = [st for _, st in obs.attached]
+    streams = {st.stream.cuda_stream for st in stagers}
+    check(len(regs) == 1 and len(stagers) == WORKERS
+          and len(streams) == WORKERS,
+          f"tune/{mode}: {len(stagers)} rings in {len(regs)} registries on "
+          f"{len(streams)} streams")
+    commanded = obs.attached[0][0]._depth
+    final = tn["final"]["staging_depth"]
+    check((commanded or 3) == final,
+          f"tune/{mode}: registry at {commanded}, controller at {final}")
+    # A ring that finished (at the session's cancel) before a later
+    # command keeps the depth it had then; every other ring ends at the
+    # last depth the controller commanded.
+    depths = sorted({st.depth for st in stagers})
+    check(all(st.depth == obs.took.get(id(st), 3) for st in stagers),
+          f"tune/{mode}: ring depths {depths} vs the depths they took")
+    at_last = sum(1 for st in stagers if st.depth == (commanded or 3))
+    grows = [f for f in obs.fanouts if f["slots_made"]]
+    check(grows and len(obs.grown_rings) == WORKERS and obs.unpinned == 0,
+          f"tune/{mode}: live grows {grows} reached "
+          f"{len(obs.grown_rings)} rings, {obs.grown} slots made, "
+          f"{obs.unpinned} not page-locked")
+    out.update(rings=len(stagers), streams=len(streams), ring_depths=depths,
+               rings_at_last_command=at_last,
+               rings_grown=len(obs.grown_rings),
+               fanouts=obs.fanouts, slots_grown=obs.grown,
+               grow_s=[f["seconds"] for f in grows])
+    return out
+
+
+def phase_tune(store, smi) -> dict:
+    """``tune`` over phase read's deployment, three modes (module
+    docstring), then ``report``, ``report timeline``, ``report trace`` and
+    ``top --once`` over what they wrote."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.metrics.report import write_result
+
+    out_dir = f"{BUILD}/tune"
+    journal = f"{out_dir}/online_depth3_journal.json"
+    launches, results = {}, []
+    for mode, flags in TUNE_MODES.items():
+        argv = ["tune", "--protocol", "fake", "--workers", str(WORKERS),
+                "--object-size", str(OBJECT_SIZE), "--granule-bytes",
+                str(GRANULE), "--tune-window", str(TUNE_WINDOW_S),
+                "--tune-duration", str(TUNE_DURATION_S), *flags]
+        if mode == "online_depth3":
+            argv += ["--flight-journal", journal]
+        args, cfg = _cli(argv)
+        cfg.tune.seed = TUNE_SEED
+        with TuneObserved() as obs:
+            landing.reset_launches()
+            t0 = time.perf_counter()
+            res = cli.execute("tune", cfg, device="cuda", backend=store,
+                              args=args)
+            wall = time.perf_counter() - t0
+            counts = {"land": landing.land.launches,
+                      "checksum": landing.checksum.launches}
+        cells = obs.runs
+        launches[f"tune/{mode}"] = counts
+        results.append(write_result(res, out_dir, tag=mode))
+        line = {"phase": "tune", "mode": mode, "workers": WORKERS,
+                "object_size": OBJECT_SIZE, "launches": counts,
+                "session_s": wall, "card": smi}
+        if mode == "sweep_pallas":
+            rows = []
+            for c, r, n, got in cells:
+                slot = _slot(c)
+                want = c.workload.workers * expected_transfers(
+                    OBJECT_SIZE, GRANULE, slot)
+                check(r.errors == 0 and r.extra.get("checksum_ok") is True,
+                      f"tune/{mode}: cell {c.workload.workers}x"
+                      f"{c.staging.depth} errors {r.errors} checksum "
+                      f"{r.extra.get('checksum_ok')}")
+                check(n == got == want, f"tune/{mode}: cell "
+                      f"{c.workload.workers}x{c.staging.depth} launches {n}, "
+                      f"transfers {got}, want {want}")
+                rows.append({"workers": c.workload.workers,
+                             "depth": c.staging.depth, "slot_bytes": slot,
+                             "transfers": got, "launches": n,
+                             "staged_gbps_per_chip":
+                                 r.extra["staged_gbps_per_chip"],
+                             "read_p99_ms": r.summaries["read"].p99_ms})
+            sw = res.extra["tune"]["sweep"]
+            check(sw["axes"] == {"workers": [1, 2, 4, 8, 16, 32, 48],
+                                 "staging_depth": [1, 2, 3, 4]},
+                  f"tune/{mode}: axes {sw['axes']}")
+            check(counts["land"] == sum(c[2] for c in cells)
+                  and counts["checksum"] == 0,
+                  f"tune/{mode}: launches {counts}")
+            line.update(cells=rows, best=sw["best"]["values"],
+                        recommended=res.extra["tune"]["recommended"])
+        else:
+            check(len(cells) == 1, f"tune/{mode}: {len(cells)} runs")
+            line.update(_tune_online_checks(mode, res, obs))
+            ex = res.extra
+            transfers = ex["staging"]["transfers"]
+            kernel = "checksum" if mode == "online_validate" else None
+            want = {"land": 0, "checksum": 0}
+            if kernel:
+                check(ex.get("checksum_ok") is True,
+                      f"tune/{mode}: checksum {ex.get('checksum_ok')}")
+                want[kernel] = transfers
+            check(counts == want, f"tune/{mode}: launches {counts}, "
+                  f"want {want}")
+            fb = res.summaries.get("first_byte")
+            line.update(transfers=transfers,
+                        staged_bytes=ex["staged_bytes"],
+                        checksum_ok=ex.get("checksum_ok"),
+                        wall_s=res.wall_seconds,
+                        staged_gbps_per_chip=ex["staged_gbps_per_chip"],
+                        first_byte_p50_ms=fb.p50_ms if fb else None,
+                        first_byte_p99_ms=fb.p99_ms if fb else None)
+        emit(line)
+    n_windows = json.load(open(results[0]))["extra"]["tune"]["adaptive"][
+        "n_windows"]
+    texts = {}
+    for name, argv in (
+        ("report", ["report", *results]),
+        ("timeline", ["report", "timeline", journal]),
+        ("trace", ["report", "trace", journal]),
+        ("top", ["top", "--once", "--no-color", journal]),
+    ):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"tune/{name}: exit {rc}")
+        texts[name] = (buf.getvalue(), time.perf_counter() - t0)
+    check(f"tune decisions: {n_windows} " in texts["timeline"][0],
+          f"tune/timeline: tune records not counted ({n_windows} windows)")
+    check(f"tune={n_windows}d/" in texts["top"][0],
+          f"tune/top: tune records not counted ({n_windows} windows)")
+    check("== tune (sweep over read) ==" in texts["report"][0]
+          and "== trace report:" in texts["trace"][0],
+          "tune/report: blocks missing")
+    emit({"phase": "tune_report", "results": results, "journal": journal,
+          "seconds": {k: v[1] for k, v in texts.items()},
+          "lines": {k: len(v[0].splitlines()) for k, v in texts.items()}})
+    return launches
 
 
 if __name__ == "__main__":

@@ -57,6 +57,10 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.workloads.pod_ingest",
         "tpubench_torch.workloads.gather_bench",
         "tpubench_torch.workloads.probe",
+        "tpubench_torch.tune.controller", "tpubench_torch.workloads.tune_cmd",
+        "tpubench_torch.workloads.report_cmd",
+        "tpubench_torch.workloads.chaos", "tpubench_torch.obs.live",
+        "tpubench_torch.replay.gate",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"

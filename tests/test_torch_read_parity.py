@@ -234,7 +234,6 @@ def _switched(section: str, name: str, value):
 
 @pytest.mark.parametrize("switch, item", [
     (("transport", "key_file", "/nonexistent/key.json"), "A.2"),
-    (("tune", "enabled", True), "A.3"),
     (("obs", "results_bucket", "b"), "A.2"),
 ])
 def test_unported_switch_is_refused(switch, item):
@@ -243,6 +242,15 @@ def test_unported_switch_is_refused(switch, item):
     cfg = BenchConfig.from_dict(_switched(*switch).to_dict())
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         refuse_unported(cfg)
+
+
+def test_tune_over_train_ingest_is_refused():
+    """``tune --tune-workload train-ingest`` names its ROADMAP item (the
+    workload is not ported), through the CLI as through ``run_tune``."""
+    args = ["tune", "--tune-workload", "train-ingest", "--protocol", "fake",
+            "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        cli.main(args)
 
 
 @pytest.mark.parametrize("switch", [
@@ -255,6 +263,7 @@ def test_unported_switch_is_refused(switch, item):
     ("transport.tail", "breaker", True),
     ("dist", "num_processes", 2),
     ("obs", "profile_dir", "prof"),
+    ("tune", "enabled", True),
 ], ids=lambda sw: f"{sw[0]}.{sw[1]}")
 def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
     """The switches ported so far run through the ``read`` command on the
@@ -263,7 +272,9 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
     as one host of a two-process pod (``cli.read`` brings no group up; a
     pod of processes runs in ``tests/test_torch_dist.py``): process 1's
     journal takes the ``.p1`` suffix. ``obs.profile_dir`` runs through
-    ``cli.execute``, which holds the profiler, and leaves a trace."""
+    ``cli.execute``, which holds the profiler, and leaves a trace.
+    ``tune.enabled`` runs the online controller (the staging depth is its
+    one knob at one worker) and stamps its trace."""
     monkeypatch.chdir(tmp_path)
     ref = _switched(*switch)
     ref.workload.workers = 1
@@ -286,6 +297,7 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
         "export": "metrics_export", "port": "telemetry",
         "hedge": "tail", "watchdog": "tail", "breaker": "tail",
         "num_processes": "flight_journal", "profile_dir": "flight",
+        "enabled": "tune",
     }[switch[1]]
     assert want in res.extra
     if switch[1] == "flight_journal":
@@ -297,6 +309,8 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
         assert len(list((tmp_path / "prof").glob("trace_*.json"))) == 1
     if switch[1] == "enable_tracing":
         assert not isinstance(make_tracer(cfg), NoopTracer)
+    if switch[1] == "enabled":
+        assert res.extra["tune"]["initial"] == {"staging_depth": 3}
 
 
 def test_deterministic_bytes_match_reference():

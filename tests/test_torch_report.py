@@ -1,0 +1,161 @@
+"""``report``, ``report timeline``, ``report trace`` and ``top`` of the
+port against ``tpubench``'s on the same documents: result JSONs and a
+flight journal written by the port on the CPU (a validated read, a tuned
+read, a tune sweep), and the bench/multichip artifacts committed at the
+root of the repository. The text must be equal, character for character
+(``top``'s journal ages read one fixed clock in both), and ``--fail-on``
+must give the same exit codes and lines. A document carrying the block of
+a workload the port does not have yet is refused, naming its ROADMAP
+item.
+"""
+
+import json
+import types
+from pathlib import Path
+
+import pytest
+
+import tpubench.cli as jax_cli
+import tpubench.obs.live as jax_live
+from tpubench.obs.trace import render_trace_report as jax_render_trace
+from tpubench.workloads import report_cmd as jax_report
+
+import tpubench_torch.obs.live as port_live
+from tpubench_torch import cli
+from tpubench_torch.config import BenchConfig
+from tpubench_torch.metrics.report import write_result
+from tpubench_torch.obs.flight import load_journals
+from tpubench_torch.obs.trace import render_trace_report
+from tpubench_torch.workloads import report_cmd, tune_cmd
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _cfg(mode="device_put", **staging):
+    cfg = BenchConfig()
+    cfg.transport.protocol = "fake"
+    cfg.workload.workers = 3
+    cfg.workload.read_calls_per_worker = 2
+    cfg.workload.object_size = 300_001
+    cfg.workload.granule_bytes = 64 * 1024
+    cfg.staging.mode = mode
+    cfg.staging.slot_bytes = 128 * 1024
+    for k, v in staging.items():
+        setattr(cfg.staging, k, v)
+    cfg.obs.export = "none"
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def docs(tmp_path_factory):
+    """Result files and journals written by the port on the CPU."""
+    d = tmp_path_factory.mktemp("report")
+    out = {}
+    cfg = _cfg(validate_checksum=True)
+    cfg.obs.flight_journal = str(d / "validate.json")
+    out["validate"] = write_result(cli.read(cfg, device="cpu"), str(d),
+                                   tag="validate")
+    cfg = _cfg(depth=3)
+    cfg.workload.read_calls_per_worker = 10_000_000
+    cfg.tune.enabled = True
+    cfg.tune.window_s = 0.05
+    cfg.tune.warmup_windows = 1
+    cfg.tune.duration_s = 0.5
+    cfg.tune.knobs = ["workers", "staging_depth"]
+    cfg.obs.flight_journal = str(d / "tuned.json")
+    out["tuned"] = write_result(cli.read(cfg, device="cpu"), str(d),
+                                tag="tuned")
+    cfg = _cfg("pallas")
+    cfg.workload.read_calls_per_worker = 1
+    cfg.tune.knobs = ["workers", "staging_depth"]
+    out["sweep"] = write_result(
+        tune_cmd.run_tune(cfg, mode="sweep", device="cpu"), str(d),
+        tag="sweep")
+    out["journals"] = [str(d / "validate.json"), str(d / "tuned.json")]
+    return out
+
+
+def test_report_text_matches_reference(docs):
+    paths = [docs["validate"], docs["tuned"], docs["sweep"]]
+    text = report_cmd.run_report(paths)
+    assert text == jax_report.run_report(paths)
+    assert "checksum_ok=True" in text and "tuned" in text
+    assert "static sweep" in text and "A/B vs baseline" in text
+    assert "tune[B]:" in text
+
+
+@pytest.mark.parametrize("name", ["BENCH_r05.json", "MULTICHIP_SWEEP.json",
+                                  "BENCH_r01.json"])
+def test_report_of_committed_artifacts_matches_reference(name):
+    """``bench.py`` lines (and their BENCH_rN.json wrappers) and the multichip
+    sweep artifact are plain dicts: the port renders them as tpubench
+    does."""
+    path = str(REPO / name)
+    assert report_cmd.run_report([path]) == jax_report.run_report([path])
+
+
+def test_timeline_and_trace_match_reference(docs):
+    """One journal and two merged: equal timeline and trace text; the
+    tuned run's controller decisions are counted."""
+    for paths in ([docs["journals"][1]], docs["journals"]):
+        text = report_cmd.run_timeline(paths)
+        assert text == jax_report.run_timeline(paths)
+        trace = report_cmd.run_trace(paths, show=2)
+        assert trace == jax_report.run_trace(paths, show=2)
+    assert "tune decisions:" in report_cmd.run_timeline(
+        [docs["journals"][1]])
+    loaded = load_journals(docs["journals"])
+    assert (render_trace_report(loaded, head_rate=0.5, max_keep=4)
+            == jax_render_trace(loaded, head_rate=0.5, max_keep=4))
+
+
+def test_top_frame_matches_reference(docs, monkeypatch, capsys):
+    clock = types.SimpleNamespace(time=lambda: 2_000_000_000.0,
+                                  sleep=lambda s: None)
+    monkeypatch.setattr(port_live, "time", clock)
+    monkeypatch.setattr(jax_live, "time", clock)
+    assert cli.main(["top", "--once", "--no-color", *docs["journals"]]) == 0
+    port = capsys.readouterr().out
+    assert jax_cli.main(["top", "--once", "--no-color",
+                         *docs["journals"]]) == 0
+    assert port == capsys.readouterr().out
+    assert port.startswith("tpubench top — 2 journal(s)") and "tune=" in port
+
+
+@pytest.mark.parametrize("gates, rc", [
+    (["errors>0"], 0),
+    (["gbps>0", "errors>0"], 1),
+    (["no_such_metric<1"], 2),
+])
+def test_fail_on_exit_codes_match_reference(docs, gates, rc, capsys):
+    argv = ["report", docs["validate"], docs["tuned"]]
+    for g in gates:
+        argv += ["--fail-on", g]
+    assert cli.main(argv) == rc
+    port = capsys.readouterr().out
+    assert jax_cli.main(argv) == rc
+    assert port == capsys.readouterr().out
+
+
+def test_report_cli_timeline_and_trace(docs, capsys):
+    assert cli.main(["report", "timeline", *docs["journals"]]) == 0
+    assert cli.main(["report", "trace", docs["journals"][0],
+                     "--show-traces", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "phase segments (ms):" in out and "== trace report:" in out
+    with pytest.raises(SystemExit, match="flight-journal path"):
+        cli.main(["report", "trace"])
+
+
+@pytest.mark.parametrize("block, item", [
+    ("chaos", "A.6"), ("pipeline", "A.6"), ("serve", "A.7"),
+    ("membership", "A.7"), ("drill", "A.7"), ("drill_sweep", "A.7"),
+    ("fleet", "A.7"), ("replay", "A.7"), ("lifecycle", "A.7"),
+])
+def test_unported_block_is_refused(docs, block, item, tmp_path):
+    doc = json.loads(Path(docs["validate"]).read_text())
+    doc["extra"][block] = {"op": "save"}
+    path = tmp_path / "doc.json"
+    path.write_text(json.dumps(doc))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        report_cmd.run_report([str(path)])

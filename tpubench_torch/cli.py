@@ -1,5 +1,6 @@
 """tpubench_torch CLI: ``tpubench``'s ``read``, ``pod-ingest``,
-``gather-bench`` and ``probe`` on PyTorch and CUDA, plus ``info`` (what
+``gather-bench``, ``probe`` and ``tune`` on PyTorch and CUDA, ``report``
+and ``top`` over the results and journals they write, plus ``info`` (what
 the port would run on).
 
     python -m tpubench_torch.cli read --protocol fake --workers 2 \\
@@ -21,7 +22,17 @@ the ``--fault-*`` knobs of the fake store to give them something to do).
 ``pod-ingest`` (``--ring``) fetches one object's byte-range shards, one
 per rank, stages them and all-gathers them; ``gather-bench`` sweeps a
 collective (``--collective``, ``--shard-mb``, ``--reps``) over pod sizes;
-``probe`` measures the host→device copy. Several processes run one
+``probe`` measures the host→device copy.
+
+``tune`` finds the read path's operating point: ``--tune-mode sweep``
+(one short run per knob value), ``online`` (the controller moves
+``workers`` and the staging depth live; ``read --tune`` does the same
+inside a plain read) or ``ab`` (both, compared). ``--tune-profile PATH``
+is where ``tune`` writes its recommendation and what every other command
+applies. ``report <result.json>...`` renders results (``report timeline``
+/ ``report trace <journal>...`` the flight journals; ``--fail-on`` gates
+exit codes); ``top <journal>...`` is the live view (``--once`` one frame).
+Several processes run one
 command each with ``--num-processes``/``--process-id``/``--coordinator``
 (or ``TPUBENCH_NUM_PROCESSES``/``_PROCESS_ID``/``_COORDINATOR``): NCCL on
 CUDA, gloo with ``--device cpu``. A single process's pod commands build a
@@ -40,7 +51,11 @@ import json
 import os
 import sys
 
-from tpubench_torch.config import BenchConfig, validate_telemetry_config
+from tpubench_torch.config import (
+    BenchConfig,
+    validate_telemetry_config,
+    validate_tune_config,
+)
 from tpubench_torch.metrics.report import RunResult, write_result
 
 # Commands whose result is pod-global (the collectives run inside the
@@ -80,7 +95,76 @@ def build_parser() -> argparse.ArgumentParser:
                        help="identical measure cycles for burst/floor "
                             "detection")
     probe.add_argument("--cycle-sleep", type=float, default=2.0)
+    tune = add("tune", "adaptive autotuner over read: offline coordinate "
+                       "sweep or online AIMD session; emits a convergence "
+                       "trace + a recommended-config block (reusable via "
+                       "--tune-profile)")
+    tune.add_argument("--tune-mode", choices=("sweep", "online", "ab"),
+                      default="online",
+                      help="sweep = offline coordinate sweep; online = "
+                           "one adaptive session; ab = both plus the "
+                           "static-vs-adaptive comparison")
+    tune.add_argument("--tune-workload", choices=("read", "train-ingest"),
+                      default="read",
+                      help="workload the tuning session drives "
+                           "(train-ingest is not ported yet)")
+    _add_top_parser(sub)
+    _add_report_parser(sub)
     return ap
+
+
+def _add_top_parser(sub) -> None:
+    topp = sub.add_parser(
+        "top",
+        help="live terminal view over streaming flight journals: rolling "
+             "goodput GB/s(/chip), per-phase p50/p99, staging/hedge/"
+             "breaker/tune counters, straggler-host highlighting",
+    )
+    topp.add_argument("journals", nargs="+",
+                      help="flight-journal base path(s); per-host "
+                           ".p<idx> siblings are discovered automatically")
+    topp.add_argument("--interval", type=float, default=2.0,
+                      help="refresh seconds (default 2)")
+    topp.add_argument("--once", action="store_true",
+                      help="print a single plain frame and exit")
+    topp.add_argument("--window", type=float, default=10.0,
+                      help="rolling-goodput window seconds (default 10)")
+    topp.add_argument("--no-color", action="store_true",
+                      help="plain frames (no ANSI highlighting)")
+    topp.add_argument("--frames", type=int,
+                      help="exit after N refreshes (default: run until "
+                           "Ctrl-C)")
+
+
+def _add_report_parser(sub) -> None:
+    rep = sub.add_parser(
+        "report",
+        help="summarize/compare result JSONs (percentile blocks, A/B "
+             "deltas, sweep and tune tables); `report timeline "
+             "<journals...>` merges flight journals into per-phase "
+             "p50/p99 + stragglers; `report trace <journals...>` "
+             "stitches them into span trees with tail sampling, "
+             "critical paths and the p99 blame table",
+    )
+    rep.add_argument("results", nargs="+",
+                     help="result/sweep JSON paths — or `timeline`/"
+                          "`trace` followed by flight-journal paths")
+    rep.add_argument("--head-sample", type=float, default=0.05,
+                     help="report trace: per-trace head-sample rate kept "
+                          "in addition to the slowest decile (default "
+                          "0.05; decided from the trace id)")
+    rep.add_argument("--slow-keep", type=int, default=512,
+                     help="report trace: memory bound on kept trees "
+                          "(slowest win; default 512)")
+    rep.add_argument("--show-traces", type=int, default=3,
+                     help="report trace: how many slowest span trees to "
+                          "print in full (default 3)")
+    rep.add_argument("--fail-on", action="append", default=[],
+                     metavar="EXPR",
+                     help="regression gate <metric><op><threshold>, e.g. "
+                          "'gbps<1.0'; repeatable — exit 1 when any gate "
+                          "trips on any document, 2 when the metric "
+                          "exists in none")
 
 
 def _add_common(p) -> None:
@@ -125,7 +209,9 @@ def _add_common(p) -> None:
                    help="device_put = copy ring; pallas = landing-kernel ring")
     p.add_argument("--validate", action="store_true",
                    help="device checksum of the landed bytes (copy ring)")
-    p.add_argument("--depth", type=int, help="in-flight staging depth")
+    p.add_argument("--depth", "--staging-depth", type=int, dest="depth",
+                   help="in-flight staging depth (the staging_depth tune "
+                        "knob)")
     p.add_argument("--no-double-buffer", action="store_true",
                    help="fully synchronous staging (depth 1)")
     p.add_argument("--slot-bytes", type=int,
@@ -148,6 +234,56 @@ def _add_common(p) -> None:
     _add_obs_args(p)
     _add_fault_args(p)
     _add_tail_args(p)
+    _add_tune_args(p)
+
+
+def _add_tune_args(p) -> None:
+    """The tune plane's flags (``tpubench``'s, the same defaults)."""
+    p.add_argument("--tune", action="store_true",
+                   help="run the online controller during this run: "
+                        "worker fan-out, the staging depth and the hedge "
+                        "delay become live knobs driven by windowed "
+                        "goodput under a p99 guardrail (read)")
+    p.add_argument("--tune-window", type=float,
+                   help="tune decision window seconds (default 0.5)")
+    p.add_argument("--tune-warmup", type=int,
+                   help="baseline windows before the first probe "
+                        "(default 2)")
+    p.add_argument("--tune-p99-guard", type=float,
+                   help="p99 guardrail: probes whose window p99 exceeds "
+                        "baseline x this revert regardless of goodput "
+                        "(default 2.0)")
+    p.add_argument("--tune-epsilon", type=float,
+                   help="minimum relative goodput gain to accept a probe "
+                        "(default 0.05)")
+    p.add_argument("--tune-duration", type=float,
+                   help="online read tuning session length seconds "
+                        "(default 8)")
+    p.add_argument("--tune-knobs",
+                   help="comma list of knobs the controller may actuate "
+                        "(read: workers,staging_depth,hedge_delay_s)")
+    p.add_argument("--tune-profile",
+                   help="tune profile JSON: `tune` WRITES the recommended "
+                        "operating point here; every other command READS "
+                        "it and applies the recommended knob values over "
+                        "the config")
+
+
+def _apply_tune_args(cfg: BenchConfig, args) -> None:
+    tn = cfg.tune
+    if args.tune:
+        tn.enabled = True
+    for attr, dest in (
+        ("tune_window", "window_s"), ("tune_warmup", "warmup_windows"),
+        ("tune_p99_guard", "p99_guard"), ("tune_epsilon", "epsilon"),
+        ("tune_duration", "duration_s"),
+    ):
+        v = getattr(args, attr)
+        if v is not None:
+            setattr(tn, dest, v)
+    if args.tune_knobs:
+        tn.knobs = [k.strip() for k in args.tune_knobs.split(",") if k.strip()]
+    validate_tune_config(tn)
 
 
 def _add_obs_args(p) -> None:
@@ -275,6 +411,13 @@ def build_config(args) -> BenchConfig:
             cfg = BenchConfig.from_json(f.read())
     else:
         cfg = BenchConfig()
+    # --tune-profile on any command but `tune` (where it is the OUTPUT
+    # path) applies a written recommendation, BEFORE the flags below, so
+    # an explicit flag on the same command line wins over the profile.
+    if args.tune_profile and args.cmd != "tune":
+        from tpubench_torch.workloads.tune_cmd import apply_tune_profile
+
+        apply_tune_profile(cfg, args.tune_profile)
     w, s = cfg.workload, cfg.staging
     for attr, dest in (
         ("workers", "workers"), ("read_calls", "read_calls_per_worker"),
@@ -323,6 +466,7 @@ def build_config(args) -> BenchConfig:
         if v is not None:
             setattr(t.fault, field, v)
     _apply_tail_args(cfg.transport.tail, args)
+    _apply_tune_args(cfg, args)
     return cfg
 
 
@@ -488,6 +632,21 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
                 res = run_probe(cfg, cycles=args.cycles,
                                 sleep_s=args.cycle_sleep, device=device)
+            elif cmd == "tune":
+                from tpubench_torch.obs.tracing import tracer_session
+                from tpubench_torch.workloads.tune_cmd import (
+                    format_tune_block,
+                    run_tune,
+                )
+
+                with tracer_session(cfg) as tracer:
+                    res = run_tune(
+                        cfg, mode=args.tune_mode,
+                        workload=args.tune_workload,
+                        profile_path=args.tune_profile or "",
+                        tracer=tracer, backend=backend, device=device,
+                    )
+                print(format_tune_block(res.extra["tune"]))
             else:
                 raise SystemExit(f"unknown command {cmd!r}")
         if cfg.obs.profile_dir:
@@ -521,6 +680,58 @@ def finish(res: RunResult, cfg: BenchConfig, pod_collective: bool) -> None:
     print(f"result: {path}")
 
 
+def report(args) -> int:
+    """The ``report`` command (device-free, no config): results, or
+    ``timeline``/``trace`` over flight journals; ``--fail-on`` gates give
+    exit codes 0 (hold) / 1 (tripped) / 2 (metric in no document)."""
+    from tpubench_torch.workloads.report_cmd import (
+        run_report,
+        run_timeline,
+        run_trace,
+    )
+
+    if args.results[0] in ("timeline", "trace"):
+        mode = args.results[0]
+        if len(args.results) < 2:
+            raise SystemExit(
+                f"report {mode}: at least one flight-journal path required "
+                "(read writes one under --flight-journal)"
+            )
+        if mode == "timeline":
+            print(run_timeline(args.results[1:]))
+        else:
+            print(run_trace(
+                args.results[1:], head_rate=args.head_sample,
+                max_keep=args.slow_keep, show=args.show_traces,
+            ))
+        return 0
+    print(run_report(args.results))
+    if not args.fail_on:
+        return 0
+    # The gates run over a second load of the same documents: run_report
+    # already failed loudly on anything unreadable.
+    from tpubench_torch.replay.gate import run_fail_on
+
+    docs, labels = [], []
+    for p in args.results:
+        with open(p) as f:
+            doc = json.load(f)
+        if isinstance(doc, list):  # a sweep cells file
+            for i, cell in enumerate(doc):
+                docs.append(cell)
+                labels.append(f"{p}[{i}]")
+        elif isinstance(doc.get("parsed"), dict):
+            docs.append(doc["parsed"])  # a BENCH_rN.json wrapper
+            labels.append(p)
+        else:
+            docs.append(doc)
+            labels.append(p)
+    rc, lines = run_fail_on(args.fail_on, docs, paths=labels)
+    for line in lines:
+        print(line)
+    return rc
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "info":
@@ -528,6 +739,18 @@ def main(argv=None) -> int:
 
         print(json.dumps(capability_report()))
         return 0
+    if args.cmd == "top":
+        # Device-free and config-free, like report.
+        from tpubench_torch.obs.live import run_top
+
+        return run_top(
+            args.journals, interval_s=args.interval, once=args.once,
+            window_s=args.window,
+            color=False if args.no_color else None,
+            iterations=args.frames,
+        )
+    if args.cmd == "report":
+        return report(args)
     cfg = build_config(args)
     res = execute(args.cmd, cfg, device=args.device, args=args)
     finish(res, cfg, pod_collective=args.cmd in POD_COLLECTIVE_CMDS)

@@ -4,7 +4,7 @@
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
 unchanged. The sections the port has no code for yet (pipeline,
-tune, coop, serve, lifecycle, drill, fleet, …) are kept as the raw dicts
+coop, serve, lifecycle, drill, fleet, …) are kept as the raw dicts
 they were loaded as, so they round-trip without a dataclass.
 
 :func:`refuse_unported` rejects a config that switches on a feature this
@@ -259,10 +259,96 @@ def validate_telemetry_config(tc: TelemetryConfig,
         )
 
 
+# Knobs the tune controller may actuate (``tpubench/config.py:1077``; the
+# controller's ACTUATED registry maps each to its config field and CLI
+# flag). The port's read path actuates ``workers``, ``hedge_delay_s`` and
+# ``staging_depth``; the others belong to workloads still to port and
+# stay in the set so one profile or config serves both packages.
+TUNE_KNOBS = (
+    "workers",
+    "readahead",
+    "readahead_bytes",
+    "prefetch_workers",
+    "hedge_delay_s",
+    "staging_depth",
+    "peer_budget_bytes",
+    "coop",
+)
+
+
+@dataclass
+class TuneConfig:
+    """Adaptive ingest autotuner (:mod:`tpubench_torch.tune`): an online
+    controller that moves live knobs (worker fan-out, the hedge delay, the
+    staging window's depth) during a run, from windowed goodput and p99
+    latency sampled off the run's own recorders.
+
+    Objective: maximize goodput subject to ``p99 <= p99_guard x`` the
+    warmup baseline. One knob is probed per window (multiplying knobs
+    double/halve); a probe that gains ``epsilon`` inside the guardrail is
+    accepted, anything else reverts. A knob that reverts
+    ``freeze_after_reverts`` times without an accept freezes for
+    ``cooldown_windows``; when every knob is frozen the session has
+    converged and the operating point holds.
+
+    Off by default: ``enabled`` turns the controller on inside ``read``;
+    ``tune`` drives offline sweeps and online sessions."""
+
+    enabled: bool = False
+    window_s: float = 0.5  # decision window (seconds)
+    warmup_windows: int = 2  # baseline windows before the first probe
+    p99_guard: float = 2.0  # probe p99 > baseline x this reverts
+    epsilon: float = 0.05  # minimum relative goodput gain to accept
+    freeze_after_reverts: int = 2
+    cooldown_windows: int = 1_000_000  # effectively "until run end"
+    # Online read sessions are duration-bounded: a parked elastic worker
+    # could otherwise hold the run open forever.
+    duration_s: float = 8.0
+    knobs: list = field(default_factory=lambda: list(TUNE_KNOBS))
+    seed: int = 0  # probe-direction rng
+
+
+def validate_tune_config(tc: TuneConfig, where: str = "tune") -> None:
+    """Parse-time sanity for the tune knobs (one-line SystemExit)."""
+    if tc.window_s <= 0 or tc.window_s != tc.window_s:
+        raise SystemExit(f"{where}.window_s={tc.window_s!r}: must be > 0")
+    if tc.warmup_windows < 1:
+        raise SystemExit(
+            f"{where}.warmup_windows={tc.warmup_windows!r}: must be >= 1"
+        )
+    if not (tc.p99_guard >= 1.0):  # also rejects NaN
+        raise SystemExit(
+            f"{where}.p99_guard={tc.p99_guard!r}: must be >= 1.0 "
+            "(1.0 = no tail inflation tolerated)"
+        )
+    if not (tc.epsilon >= 0.0):
+        raise SystemExit(f"{where}.epsilon={tc.epsilon!r}: must be >= 0")
+    if tc.freeze_after_reverts < 1:
+        raise SystemExit(
+            f"{where}.freeze_after_reverts={tc.freeze_after_reverts!r}: "
+            "must be >= 1"
+        )
+    if tc.cooldown_windows < 1:
+        raise SystemExit(
+            f"{where}.cooldown_windows={tc.cooldown_windows!r}: must be >= 1"
+        )
+    if not (tc.duration_s > 0.0):
+        raise SystemExit(
+            f"{where}.duration_s={tc.duration_s!r}: must be > 0 "
+            "(the online read session's wall-clock bound)"
+        )
+    unknown = sorted(set(tc.knobs) - set(TUNE_KNOBS))
+    if unknown:
+        raise SystemExit(
+            f"{where}.knobs: unknown knob(s) {unknown}; "
+            f"valid: {sorted(TUNE_KNOBS)}"
+        )
+
+
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
-                   "telemetry")
+                   "telemetry", "tune")
 
 
 @dataclass
@@ -273,6 +359,7 @@ class BenchConfig:
     dist: DistConfig = field(default_factory=DistConfig)
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    tune: TuneConfig = field(default_factory=TuneConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -317,6 +404,7 @@ _SUBTYPES = {
     "dist": DistConfig,
     "obs": ObservabilityConfig,
     "telemetry": TelemetryConfig,
+    "tune": TuneConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,
@@ -341,13 +429,12 @@ def refuse_unported(cfg: BenchConfig) -> None:
         refused.append("transport.key_file (ROADMAP A.2: token sources)")
     if o.results_bucket:
         refused.append("obs.results_bucket (ROADMAP A.2: object-store backends)")
-    if raw.get("tune", {}).get("enabled"):
-        refused.append("tune (ROADMAP A.3: tune)")
     if refused:
         raise NotImplementedError(
             "not ported to tpubench_torch yet: " + "; ".join(refused)
         )
     validate_telemetry_config(cfg.telemetry)
+    validate_tune_config(cfg.tune)
     if s.mode not in STAGING_MODES:
         raise ValueError(
             f"unknown staging mode {s.mode!r} ({'|'.join(STAGING_MODES)})"

@@ -198,6 +198,8 @@ class DevicePutStager(GranuleAggregator):
         # Validation keeps the serial inline ring (the checksum reads the
         # landed slot in order); depth 1 is the synchronous comparator.
         self._overlap = depth > 1 and not self._validate
+        # Public: an overlapped submit returns before the bytes land.
+        self.overlapped = self._overlap
         self._window: Optional[InflightWindow] = None
         # Serial-path state (depth 1 / validation): per slot, the landed
         # tensor and the event that gates the slot's reuse.
@@ -226,21 +228,64 @@ class DevicePutStager(GranuleAggregator):
             # not a rotation); the window's reaper returns slots here.
             self._free_cond = threading.Condition()
             self._free: list[int] = list(range(depth))
+            # Live depth (set_depth): slots beyond the target retire as
+            # their copies land and stay allocated until finish.
+            self._retired: list[int] = []
+            self._slot_count = depth
+            self._target_depth = depth
             self._cur: Optional[int] = None
+            self._closed = False
 
     # ------------------------------------------------------------ slots ----
-    def _alloc_slot(self) -> None:
+    def _alloc_slot(self) -> int:
+        """Allocate one slot (page-locked on CUDA); returns its index. A
+        host allocation only: no stream is touched, so a live grow may run
+        on another thread while the ring's worker copies."""
         slot = new_slot(self._shape, self.native_slots)
         flat = slot.numpy().reshape(-1)
         self._slots.append(slot)
         self._slot_flat.append(flat)
         self._slot_views.append(memoryview(flat))
+        return len(self._slots) - 1
 
     def _release_slot(self, k: int) -> None:
         """Reaper callback: the slot's copy has landed (out of order)."""
         with self._free_cond:
-            self._free.append(k)
+            if self._slot_count > self._target_depth:
+                # A live shrink retires slots as their copies land; the
+                # buffers stay allocated until finish.
+                self._retired.append(k)
+                self._slot_count -= 1
+            else:
+                self._free.append(k)
             self._free_cond.notify_all()
+
+    def set_depth(self, depth: int) -> int:
+        """Live depth actuation (the ``staging_depth`` tune knob). A grow
+        adds free slots (retired ones first, then new page-locked ones); a
+        shrink retires free slots now and in-flight ones only when their
+        copies land, so no slot is handed back while a copy reads it. The
+        serial ring (depth 1, validate) has no window: a no-op."""
+        depth = max(1, int(depth))
+        if not self._overlap:
+            return self.depth
+        with self._free_cond:
+            if self._closed:
+                # A grow fanned out after finish must not allocate
+                # page-locked buffers nothing will free.
+                return self.depth
+            self._target_depth = depth
+            while self._slot_count < depth:
+                k = self._retired.pop() if self._retired else self._alloc_slot()
+                self._slot_count += 1
+                self._free.append(k)
+            while self._slot_count > depth and self._free:
+                self._retired.append(self._free.pop())
+                self._slot_count -= 1
+            self._free_cond.notify_all()
+        self._window.set_depth(depth)
+        self.depth = depth
+        return depth
 
     # ------------------------------------------------------------ pipeline --
     def _drain_slot(self, k: int) -> None:
@@ -350,6 +395,8 @@ class DevicePutStager(GranuleAggregator):
         except BaseException as e:
             err = e
         if self._overlap:
+            with self._free_cond:
+                self._closed = True  # registry grows become no-ops
             # The tail of the transfer time is paid inside close()'s
             # drain and counted as transfer wait.
             self._window.close()
@@ -443,6 +490,21 @@ class LockedSink:
     def flush(self) -> None:
         with self._lock:
             self._inner.flush()
+
+    def set_depth(self, depth: int) -> int:
+        """Depth actuation forwards to the wrapped ring. Not under the
+        submit lock: a shrink blocked behind a long submit would stall
+        the controller thread, and the stager's own free-list lock
+        already serializes it."""
+        return self._inner.set_depth(depth)
+
+    @property
+    def depth(self) -> int:
+        return self._inner.depth
+
+    @property
+    def overlapped(self) -> bool:
+        return getattr(self._inner, "overlapped", False)
 
     def finish(self) -> dict:
         with self._lock:

@@ -23,6 +23,10 @@ later work on the same stream).
 
 Everything is injectable for tests: :class:`TransferEngine` is the
 submit/probe/wait/delete surface, and the clock is a parameter.
+
+:class:`StagerRegistry` fans the tune controller's ``staging_depth`` knob
+out to every worker's ring (:meth:`InflightWindow.set_depth` through the
+stager's own ``set_depth``).
 """
 
 from __future__ import annotations
@@ -399,3 +403,72 @@ class InflightWindow:
         # leak slots); the producer aborts via raise_if_failed at its
         # next acquire/enqueue.
         self._consume_callback(tr)
+
+
+class StagerRegistry:
+    """Live-actuation fan-out for the ``staging_depth`` tune knob
+    (``tpubench/staging/executor.py:426``; a grow fans out on one thread
+    per ring here, where ``tpubench``'s goes ring by ring).
+
+    The read workload builds one stager per worker INSIDE the worker
+    threads, after the controller's knob list exists — so the knob
+    actuates this registry, and stagers attach as they are created. A
+    depth commanded before a stager attached is applied at attach (late
+    workers join the tuned operating point, not the config's)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stagers: list = []
+        self._depth: Optional[int] = None
+        self._high = 0  # the deepest any attached ring has been
+
+    def attach(self, stager):
+        if hasattr(stager, "set_depth"):
+            with self._lock:
+                self._stagers.append(stager)
+                depth = self._depth
+                self._high = max(self._high, getattr(stager, "depth", 0),
+                                 depth or 0)
+            if depth is not None:
+                stager.set_depth(depth)
+        return stager
+
+    def set_depth(self, depth: int) -> None:
+        with self._lock:
+            self._depth = int(depth)
+            stagers = list(self._stagers)
+            allocates = depth > self._high
+            self._high = max(self._high, self._depth)
+        if not allocates:
+            # A shrink, or a grow the rings' retired slots cover: nothing
+            # to allocate, and starting threads would cost more than it.
+            for st in stagers:
+                st.set_depth(depth)
+            return
+        # A grow past every ring's deepest allocates page-locked slots in
+        # every ring: one thread per ring, joined before returning (the
+        # slots exist when the knob's setter returns, as in tpubench), so
+        # the rings' allocations overlap instead of queuing on the
+        # controller's thread, which waits for the interpreter lock after
+        # each one (scripts/pinned_grow.py, PERF.md).
+        errors: list = []
+
+        def grow(st) -> None:
+            try:
+                st.set_depth(depth)
+            except BaseException as e:  # re-raised on the caller's thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=grow, args=(st,),
+                                    name="stager-grow", daemon=True)
+                   for st in stagers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._stagers)

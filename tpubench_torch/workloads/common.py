@@ -9,7 +9,8 @@ concurrency primitive here.
 
 ``abort_on_error=False`` is per-worker failure isolation instead of a
 pod-wide abort: failed workers are recorded as holes (error count + which
-workers) and the run completes.
+workers) and the run completes. :class:`ElasticGate` parks and resumes
+workers live (the tune controller's fan-out knob).
 
 The pod workloads' shard fetch lives here too (:func:`fetch_shard`,
 :func:`zero_failed_shards`, :func:`global_hole_totals`). The reference's
@@ -40,6 +41,43 @@ class GroupResult:
     @property
     def error_count(self) -> int:
         return len(self.errors)
+
+
+class ElasticGate:
+    """Live worker-fan-out gate (``tpubench/workloads/common.py:39``): the
+    tune controller's ``workers`` actuator on the thread-pool route.
+
+    All ``total`` threads are spawned up front; only the first ``active``
+    are admitted through :meth:`admit` — the rest PARK on the gate's
+    condvar until the controller grows the pool back or the run ends.
+    Shrinks take effect at each worker's next admit (its in-flight read
+    completes normally — a live resize, never a mid-read cancel)."""
+
+    def __init__(self, active: int, total: int):
+        self.total = max(1, total)
+        self._active = max(1, min(active, self.total))
+        self._cond = threading.Condition()
+
+    @property
+    def active(self) -> int:
+        return self._active
+
+    def set_active(self, n: int) -> None:
+        with self._cond:
+            self._active = max(1, min(int(n), self.total))
+            self._cond.notify_all()
+
+    def admit(self, worker_id: int, cancel: threading.Event) -> bool:
+        """Block while ``worker_id`` is parked; True = proceed with the
+        next unit of work, False = the run was cancelled while parked.
+        The short wait timeout is only a safety net against a missed
+        cancel-set (cancel has no condvar of its own)."""
+        with self._cond:
+            while worker_id >= self._active:
+                if cancel.is_set():
+                    return False
+                self._cond.wait(0.05)
+        return not cancel.is_set()
 
 
 class WorkerGroup:

@@ -14,9 +14,10 @@ Two runners:
 
 * :func:`run_read_native_executor` — staging "none": pure fetch fan-out,
   bodies discarded in host RAM (``io.Discard``, main.go:140). Worker *i*
-  owns object ``<prefix><i>`` with one outstanding read; dispatch,
-  keep-alive, receive and timing run on native threads, Python only
-  drains completions.
+  owns object ``<prefix><i>`` with one outstanding read, under a fan-out
+  cap that ``tune.enabled`` makes the controller's live ``workers`` knob;
+  dispatch, keep-alive, receive and timing run on native threads, Python
+  only drains completions.
 
 * :func:`run_read_native_staged` — staging "device_put": each worker's
   object is read as slot-sized byte ranges; every range is one executor
@@ -306,9 +307,12 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
     errors = 0
     first_error = ""
     wake_batches: list = []
-    # One outstanding read per worker (the serial per-worker loop's
-    # concurrency shape); workers with reads left and none in flight wait
-    # in `runnable`. The tag encodes the worker: wid * reads_per + seq.
+    # One outstanding read per logical worker, admitted through a LIVE
+    # fan-out cap (the tune controller's `workers` knob): workers with
+    # reads left and none in flight wait in `runnable`, and the pump
+    # admits them while outstanding < active. A shrink lowers concurrency
+    # and loses no read. The tag encodes the worker: wid * reads_per + seq.
+    active = [w.workers]  # mutable cell: the tune workers actuator
     per_worker_next = [0] * w.workers
     runnable = deque(range(w.workers))
     outstanding = 0
@@ -324,7 +328,7 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
 
     def pump() -> None:
         nonlocal outstanding
-        while outstanding < w.workers and runnable:
+        while outstanding < active[0] and runnable:
             wid = runnable.popleft()
             submit(wid * reads_per + per_worker_next[wid])
             per_worker_next[wid] += 1
@@ -371,17 +375,39 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
     session = metrics_session_from_config(
         cfg, metrics, bytes_fn=lambda: bytes_total
     )
+    controller = None
+    tune_stats = None
     metrics.ingest.start()
     try:
         if session is not None:
             session.__enter__()
+        if cfg.tune.enabled and "workers" in cfg.tune.knobs and w.workers > 1:
+            from tpubench_torch.tune.controller import (
+                Knob,
+                RecorderSampler,
+                TuneController,
+            )
+
+            controller = TuneController(
+                cfg.tune,
+                [Knob("workers", w.workers,
+                      lambda v: active.__setitem__(0, int(v)),
+                      lo=1, hi=w.workers, mode="mul")],
+                RecorderSampler([r for r, _ in recorders],
+                                lambda: bytes_total),
+            )
+            controller.start()
         pump()
+        # With tuning live, the wait wakes often enough to apply a grow
+        # promptly; the stall guard is wall-clock based, so shorter waits
+        # do not change its meaning.
+        wait_cap_ms = 100 if controller is not None else 30_000
         last_completion = time.monotonic()
         while completed < total_reads:
             for tag in retry.pop_due():
                 submit(tag)
             pump()
-            cs = pool.next_batch(timeout_ms=retry.next_due_in_ms(30_000))
+            cs = pool.next_batch(timeout_ms=retry.next_due_in_ms(wait_cap_ms))
             if not cs:
                 if retry.waiting:
                     continue  # the timeout was a backoff pause elapsing
@@ -393,6 +419,8 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
             for c in cs:
                 handle(c)
     finally:
+        if controller is not None:
+            tune_stats = controller.stop()
         # Stop the clock before teardown (thread joins must not bias the
         # measured window).
         metrics.ingest.stop()
@@ -415,6 +443,8 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
     _stamp_executor(res, w, pool, fellback, wake_batches)
     _stamp_native_delta(res, engine, native_stats0)
     _stamp_retries(res, cfg, retry, first_error)
+    if tune_stats is not None:
+        res.extra["tune"] = tune_stats
     if session is not None:
         res.extra["metrics_export"] = session.summary()
     return res

@@ -11,19 +11,27 @@
   straight into the staging slot (zero-copy) or through a reused granule
   buffer that the stager copies (the copying route).
 
-The result JSON is ``tpubench read``'s, minus the block of the one
-feature not ported yet (tune). Through every client (fake, HTTP/1.1,
+The result JSON is ``tpubench read``'s. Through every client (fake, HTTP/1.1,
 native receive, HTTP/2, gRPC, local), under the tail layers and the retry
 decorator; with native receive the socket writes straight into the
 staging slot. The obs plane rides along as in ``tpubench``: one
 ``ReadObject`` span per read with its flight record begun inside it, the
 staging rings' per-transfer records on the same recorder, live telemetry,
 and the metrics export session.
+
+With ``tune.enabled`` the online controller (:mod:`tpubench_torch.tune`)
+moves live knobs while the run goes: worker fan-out through an
+:class:`~tpubench_torch.workloads.common.ElasticGate`, the hedge delay,
+and (copy ring, depth > 1, no validation) every worker's staging depth
+through a :class:`~tpubench_torch.staging.executor.StagerRegistry`. Such
+a session is bounded by ``tune.duration_s``; its trace lands in
+``extra["tune"]`` and, with a recorder, as ``kind="tune"`` flight records.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Protocol
@@ -48,7 +56,7 @@ from tpubench_torch.storage.base import (
     read_object_into_sink,
     read_object_through,
 )
-from tpubench_torch.workloads.common import WorkerGroup
+from tpubench_torch.workloads.common import ElasticGate, WorkerGroup
 
 
 class Sink(Protocol):
@@ -63,6 +71,48 @@ class Sink(Protocol):
 
 
 SinkFactory = Callable[[int], Sink]
+
+
+def _build_read_controller(cfg, read_recorders, bytes_fn, backend, gate,
+                           flight, stager_registry=None):
+    """Tune controller of the worker-pool route: live knobs are the
+    elastic worker fan-out, the hedge delay (when hedging is on) and the
+    staging window's depth (when the copy ring overlaps), fanned out to
+    every worker's ring through the stager registry; goodput and p99 are
+    sampled off the run's own per-worker recorders."""
+    from tpubench_torch.storage.tail import HedgedBackend, find_tail_layer
+    from tpubench_torch.tune.controller import (
+        Knob,
+        RecorderSampler,
+        TuneController,
+        hedge_delay_knob,
+        staging_depth_ceiling,
+    )
+
+    wanted = set(cfg.tune.knobs)
+    knobs = []
+    if "workers" in wanted and gate.total > 1:
+        knobs.append(Knob(
+            "workers", gate.active, gate.set_active,
+            lo=1, hi=gate.total, mode="mul",
+        ))
+    if "hedge_delay_s" in wanted and cfg.transport.tail.hedge:
+        hb = find_tail_layer(backend, HedgedBackend)
+        if hb is not None:
+            knobs.append(hedge_delay_knob(
+                cfg.transport.tail.hedge_delay_s, hb.set_hedge_delay,
+            ))
+    if stager_registry is not None:
+        depth0 = max(1, cfg.staging.depth)
+        knobs.append(Knob(
+            "staging_depth", depth0, stager_registry.set_depth,
+            lo=1, hi=staging_depth_ceiling(depth0), mode="mul",
+        ))
+    if not knobs:
+        return None
+    sampler = RecorderSampler(read_recorders, bytes_fn)
+    ring = flight.worker("tune") if flight is not None else None
+    return TuneController(cfg.tune, knobs, sampler, flight_ring=ring)
 
 
 @dataclass
@@ -117,11 +167,34 @@ class ReadWorkload:
             tel.attach_recorders(metrics.read_latency)
             tel.start()
 
+        # Tuning: an elastic gate makes worker fan-out a live knob (all
+        # threads spawn, the controller admits a subset; parked workers
+        # resume when it grows the pool back). The overlapped copy ring's
+        # depth is a live knob through a registry that fans set_depth out
+        # to every ring as the workers build them (the same condition as
+        # tpubench: the landing ring and the validating ring have none).
+        tune_on = self.cfg.tune.enabled
+        gate = ElasticGate(n, n) if tune_on else None
+        stager_registry = None
+        sink_factory = self.sink_factory
+        s = self.cfg.staging
+        if (
+            tune_on and sink_factory is not None
+            and "staging_depth" in self.cfg.tune.knobs
+            and s.mode == "device_put" and s.double_buffer and s.depth > 1
+            and not s.validate_checksum
+        ):
+            from tpubench_torch.staging.executor import StagerRegistry
+
+            stager_registry = StagerRegistry()
+            base_factory = sink_factory
+            sink_factory = lambda i: stager_registry.attach(base_factory(i))  # noqa: E731
+
         def worker(i: int, cancel) -> None:
             read_rec, fb_rec = recorders[i]
             wf = flights[i]
             name = f"{w.object_name_prefix}{i}"  # main.go:121
-            sink = self.sink_factory(i) if self.sink_factory else None
+            sink = sink_factory(i) if sink_factory else None
             zero_copy = (
                 sink is not None
                 and self.cfg.staging.zero_copy
@@ -137,6 +210,10 @@ class ReadWorkload:
             try:
                 for _ in range(w.read_calls_per_worker):
                     if cancel.is_set():
+                        break
+                    # Admitted before t0: a parked worker's wait is never
+                    # read or first-byte latency.
+                    if gate is not None and not gate.admit(i, cancel):
                         break
                     with self.tracer.span(
                         "ReadObject", bucket=w.bucket, object=name
@@ -190,6 +267,24 @@ class ReadWorkload:
         metrics.ingest.start()
         group = WorkerGroup(abort_on_error=w.abort_on_error)
         result_errors = 0
+        controller = None
+        duration_timer = None
+        tune_stats = None
+        if gate is not None:
+            controller = _build_read_controller(
+                self.cfg, metrics.read_latency,
+                lambda: sum(worker_bytes), self.backend, gate, flight,
+                stager_registry=stager_registry,
+            )
+            # An online session is duration-bounded: a shrink parks
+            # workers with reads left, so read-count completion can no
+            # longer be the only exit. No controller (nothing actuatable)
+            # = no cap: the run must not silently truncate.
+            if controller is not None:
+                duration_timer = threading.Timer(
+                    self.cfg.tune.duration_s, group.cancel.set
+                )
+                duration_timer.daemon = True
         try:
             if session is not None:
                 session.__enter__()
@@ -198,9 +293,17 @@ class ReadWorkload:
                 # workers) append their per-transfer records to it.
                 with (flight.activate() if flight is not None
                       else contextlib.nullcontext()):
+                    if controller is not None:
+                        controller.start()
+                    if duration_timer is not None:
+                        duration_timer.start()
                     gres = group.run(n, worker, name="read")
                 result_errors = gres.error_count
             finally:
+                if duration_timer is not None:
+                    duration_timer.cancel()
+                if controller is not None:
+                    tune_stats = controller.stop()
                 metrics.ingest.stop()
                 metrics.ingest.bytes = sum(worker_bytes)
                 # Stage-latency recorders created by sinks live in their
@@ -243,6 +346,8 @@ class ReadWorkload:
             res.extra["metrics_export"] = session.summary()
         if tel_summary is not None:
             res.extra["telemetry"] = tel_summary
+        if tune_stats is not None:
+            res.extra["tune"] = tune_stats
         # Native-receive connection accounting (connects/reuses/
         # stale_retries), read from the base client's pool only if one was
         # built, so this never builds a pool as a side effect.
