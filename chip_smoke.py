@@ -76,11 +76,15 @@ before the last line:
 9. pod — ``pod-ingest`` through ``cli.execute`` (the
    one-rank NCCL group it brings up on a loopback port, the run, the group
    torn down) of one 1 GiB object (the largest size of the reference's
-   sweep) from the fake store, modes all_gather and ring: verified, the
-   device checksum equal to the host's byte sum mod 2³², NCCL the group's
-   backend, the gather on the card, one ``tb_checksum`` launch per shard
-   per collective call (warm-up included) and the pod flight record
-   staged and gathered; fetch, stage and gather GB/s and seconds;
+   sweep) from the fake store, modes all_gather and ring (a fetch thread
+   per shard), then http2_mux and grpc_native_mux (the store behind the
+   port's h2c and wire-gRPC servers; the rank's shard fetched as one
+   ``read_ranges`` batch of 8 ranges on one connection, which the pool's
+   accounting must show): verified, the device checksum equal to the
+   host's byte sum mod 2³², NCCL the group's backend, the gather on the
+   card, one ``tb_checksum`` launch per shard per collective call
+   (warm-up included) and the pod flight record staged and gathered;
+   fetch, stage and gather GB/s and seconds;
 10. gather — ``gather-bench`` at world size 1, each of the four
    collectives on a 4 MiB shard: ``single_device``, no errors, every
    output equal to its input, and every ``tb_checksum`` of the two
@@ -107,7 +111,25 @@ before the last line:
    ``checksum_ok`` and ``tb_land`` launches == the cell's transfers ==
    workers × ``expected_transfers``. Then ``report`` over the three
    results, ``report timeline``/``trace`` and ``top --once`` over the
-   journal: exit 0, the controller's decisions counted.
+   journal: exit 0, the controller's decisions counted;
+14. sweep — ``sweep`` as the CLI runs it: sweep/pallas, the fake store
+   through the landing ring over the reference's four sizes and read
+   counts (256kb x 1000, 1mb x 100, 100mb x 10 at 48 workers; 1gb x 1 at
+   8), then sweep/validate, HTTP/1.1, HTTP/2 and gRPC (each with and
+   without native receive where there is one) through the validating
+   copy ring against phase protocols' servers (100mb, 8 workers, one
+   read each). Every cell ``checksum_ok``, zero errors, every byte
+   staged, its workers on distinct streams with page-locked slots, and
+   one kernel launch per transfer (``tb_land`` against the rings' own
+   transfers and ``expected_transfers``; ``tb_checksum`` against the
+   copy ring's);
+15. fs — ``prepare`` and ``list``, ``open``, ``write``, ``ssd`` (seq and
+   random) at ``tpubench``'s config defaults, ``read-fs`` at the reference
+   launcher's four sizes and read counts, on a directory under
+   ``build/`` (removed after): zero errors, ``bytes_total`` = threads x
+   size x passes; GB/s, p50/p99 and whether ``O_DIRECT`` engaged;
+16. preflight — exit 0 for the fake store, 1 against a dead endpoint, 0
+   in a process that sees no GPU (which must not initialise CUDA).
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB)
 and at phase pod's (1 GiB, 8,388,608 × 128) against its plain version,
@@ -180,7 +202,12 @@ TAIL_MODES = ("tail_validate", "tail_pallas")
 # (benchmark-script/read_operations/read_operations.sh:8-14), on a 128-byte
 # lane; one rank holds the whole of it as its shard (8,388,608 x 128).
 POD_OBJECT = 1 << 30
-POD_MODES = {"all_gather": [], "ring": ["--ring"]}
+# Threaded modes: one fetch thread per shard. Mux modes: the rank's shard
+# as MUX_RANGES_PER_RANK ranges on one connection, against the port's h2c
+# and wire-gRPC servers over phase pod's store.
+POD_MODES = {"all_gather": [], "ring": ["--ring"],
+             "http2_mux": ["--protocol", "http", "--http2"],
+             "grpc_native_mux": ["--protocol", "grpc", "--native-receive"]}
 GATHER_MODES = ("all_gather", "ring", "reduce_scatter", "psum")
 GATHER_REPS = 5
 GATHER_SHARD_MB = 4  # phase gather's shard: 32,768 x 128
@@ -190,7 +217,7 @@ KERNELS = {
                  replaces="tpubench/staging/pallas_stage.py:101",
                  paths=("read/pallas", "protocols/http_pallas",
                         "obs/obs_pallas", "tail/tail_pallas",
-                        "tune/sweep_pallas")),
+                        "tune/sweep_pallas", "sweep/pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
@@ -199,8 +226,9 @@ KERNELS = {
                               if v[3] == "validate"),
                             "obs/obs_validate", "tail/tail_validate",
                             "pod/all_gather", "pod/ring",
+                            "pod/http2_mux", "pod/grpc_native_mux",
                             "gather/all_gather", "gather/ring",
-                            "tune/online_validate")),
+                            "tune/online_validate", "sweep/validate")),
 }
 
 
@@ -245,6 +273,9 @@ def main() -> int:
     phase_probe(smi)
     phase_profile(store, pod_store, smi)
     counts.update(phase_tune(store, smi))
+    counts.update(phase_sweep(store, smi))
+    phase_fs(smi)
+    phase_preflight(smi)
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -595,23 +626,27 @@ def _agree_native(read) -> None:
           "checksum_ok": got.extra["checksum_ok"]})
 
 
-def expected_transfers(object_size: int, granule: int, slot: int) -> int:
-    """Slots one worker ships for one zero-copy read, by the aggregator's
-    rule (a slot ships when full, or when less than a granule is left at
-    the next acquire, or at the final flush) — an independent count to
-    hold the launch counters and the stagers' own counts against."""
+def expected_transfers(object_size: int, granule: int, slot: int,
+                       reads: int = 1) -> int:
+    """Slots one worker ships for ``reads`` zero-copy reads, by the
+    aggregator's rule (a slot ships when full, or when less than a granule
+    is left at the next acquire — the one that finds a read's end too —
+    or at the final flush; a slot's fill carries over to the next read) —
+    an independent count to hold the launch counters and the stagers' own
+    counts against."""
     transfers = fill = 0
-    remaining = object_size
-    while True:
-        if slot - fill < granule and fill > 0:
-            transfers, fill = transfers + 1, 0
-        n = min(granule, slot - fill, remaining)
-        if n <= 0:
-            break
-        remaining -= n
-        fill += n
-        if fill >= slot:
-            transfers, fill = transfers + 1, 0
+    for _ in range(reads):
+        remaining = object_size
+        while True:
+            if slot - fill < granule and fill > 0:
+                transfers, fill = transfers + 1, 0
+            n = min(granule, slot - fill, remaining)
+            if n <= 0:
+                break
+            remaining -= n
+            fill += n
+            if fill >= slot:
+                transfers, fill = transfers + 1, 0
     return transfers + (fill > 0)
 
 
@@ -1458,17 +1493,17 @@ class PodObserved:
 def phase_pod(smi) -> tuple[dict, object]:
     """``pod-ingest`` through ``cli.execute`` (the
     one-rank NCCL group it brings up, the run, the group torn down) over a
-    fake store holding one 1 GiB object, in modes all_gather and ring:
-    verified, the device checksum equal to the host's byte sum mod 2³²,
-    NCCL as the group's backend, the gather on the card, one
+    fake store holding one 1 GiB object, in modes all_gather and ring
+    (the store read directly, a fetch thread per shard) and http2_mux and
+    grpc_native_mux (the store behind the port's h2c and wire-gRPC
+    servers, the shard fetched as one multiplexed batch on one
+    connection): verified, the device checksum equal to the host's byte
+    sum mod 2³², NCCL as the group's backend, the gather on the card, one
     ``tb_checksum`` launch per shard per collective call (warm-up
     included), and the pod's flight record staged and gathered. Returns
     the launch counts and the store (phase profile reads it again)."""
     import numpy as np
-    import torch.distributed as dist
 
-    from tpubench_torch import cli
-    from tpubench_torch.kernels import landing
     from tpubench_torch.storage.fake import FakeBackend
 
     t0 = time.perf_counter()
@@ -1478,49 +1513,107 @@ def phase_pod(smi) -> tuple[dict, object]:
           "shard_rows": POD_OBJECT // 128, "lane": 128,
           "populate_s": time.perf_counter() - t0})
     launches = {}
-    for mode, flags in POD_MODES.items():
-        args, cfg = _cli(["pod-ingest", "--protocol", "fake", "--workers", "1",
-                          "--object-size", str(POD_OBJECT), *flags])
+    with _Servers(store) as servers:
+        for mode, flags in POD_MODES.items():
+            launches[f"pod/{mode}"] = _pod_mode(
+                mode, flags, store, servers, host_sum, smi)
+    return launches, store
+
+
+def _pod_mode(mode: str, flags: list, store, servers, host_sum: int,
+              smi) -> dict:
+    """One mode of phase pod, checked; returns its launch counts. A mux
+    mode reads through the client of its flags (retry layer included)
+    from the server of its kind, and must fetch the rank's shard as one
+    ``read_ranges`` batch of MUX_RANGES_PER_RANK ranges on one
+    connection."""
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage import base_backend, open_backend
+    from tpubench_torch.workloads.pod_ingest import MUX_RANGES_PER_RANK
+
+    mux = mode.endswith("_mux")
+    t0 = time.perf_counter()
+    if mux:
+        kind = "h2" if "--http2" in flags else "grpc"
+        args, cfg = _cli(["pod-ingest", *flags, "--endpoint",
+                          servers.by_kind[kind].endpoint, "--bucket",
+                          "testbucket", "--object-name-prefix",
+                          "tpubench/file_"])
+        cfg.transport.directpath = False  # the gRPC fake is no Google endpoint
+        backend = open_backend(cfg)
+        inner = base_backend(backend)
+        batches, real = [], inner.read_ranges
+        inner.read_ranges = lambda name, r, b: batches.append(len(r)) or real(
+            name, r, b)
+    else:
+        args, cfg = _cli(["pod-ingest", "--protocol", "fake", "--workers",
+                          "1", "--object-size", str(POD_OBJECT), *flags])
+        backend = store
+    try:
         with PodObserved() as obs:
             landing.reset_launches()
-            res = cli.execute("pod-ingest", cfg, device="cuda", backend=store,
-                              args=args)
+            res = cli.execute("pod-ingest", cfg, device="cuda",
+                              backend=backend, args=args)
             counts = {"land": landing.land.launches,
                       "checksum": landing.checksum.launches}
-        launches[f"pod/{mode}"] = counts
-        ex = res.extra
-        check(not dist.is_initialized(), f"pod/{mode}: the group outlived the run")
-        check(res.errors == 0 and ex["verified"] is True,
-              f"pod/{mode}: errors {res.errors}, verified {ex['verified']}")
-        check(ex["mode"] == mode and res.bytes_total == POD_OBJECT,
-              f"pod/{mode}: {ex['mode']}, {res.bytes_total} B")
-        check(len(obs.calls) == 2, f"pod/{mode}: {len(obs.calls)} collective calls")
-        check(all(b == "nccl" for b, _, _ in obs.calls),
-              f"pod/{mode}: backends {obs.calls}")
-        check(all(d == "cuda" for _, d, _ in obs.calls),
-              f"pod/{mode}: gathered on {obs.calls}")
-        check(all(c == host_sum for _, _, c in obs.calls),
-              f"pod/{mode}: device checksum {obs.calls} vs host {host_sum}")
-        check(counts == {"land": 0, "checksum": len(obs.calls)},
-              f"pod/{mode}: launches {counts} for {len(obs.calls)} calls")
-        recs = obs.flights[0].records()
-        pod_recs = [r for r in recs if r["kind"] == "object"]
-        check(len(pod_recs) == 1 and {"hbm_staged", "gather_complete"}
-              <= set(pod_recs[0]["phases"]),
-              f"pod/{mode}: pod record {pod_recs}")
-        check(sum(1 for r in recs if r["kind"] == "read") == 1,
-              f"pod/{mode}: shard records")
-        emit({"phase": "pod", "mode": mode, "object_size": POD_OBJECT,
-              "shard_bytes": ex["shard_bytes"], "n_chips": res.n_chips,
-              "backend": obs.calls[0][0], "verified": ex["verified"],
-              "checksum": obs.calls[-1][2], "host_sum": host_sum,
-              "launches": counts,
-              **{k: ex[k] for k in (
-                  "fetch_seconds", "stage_seconds", "gather_seconds",
-                  "compile_seconds", "fetch_gbps", "stage_gbps",
-                  "gather_gbps", "ici_bytes_moved")},
-              "wall_s": res.wall_seconds, "gbps": res.gbps, "card": smi})
-    return launches, store
+        conn = None
+        if mux:
+            pool = (inner._h2_pool() if kind == "h2"
+                    else inner._native_pool())
+            conn = dict(pool.stats)
+    finally:
+        if mux:
+            backend.close()
+    ex = res.extra
+    want_mode = "ring" if "--ring" in flags else "all_gather"
+    check(not dist.is_initialized(), f"pod/{mode}: the group outlived the run")
+    check(res.errors == 0 and ex["verified"] is True,
+          f"pod/{mode}: errors {res.errors}, verified {ex['verified']}")
+    check(ex["mode"] == want_mode and res.bytes_total == POD_OBJECT,
+          f"pod/{mode}: {ex['mode']}, {res.bytes_total} B")
+    if mux:
+        # h2: the stat and the one batch share one pooled connection;
+        # gRPC stats over its wire channel, so its pool sees the batch.
+        acquires = 2 if kind == "h2" else 1
+        check(batches == [MUX_RANGES_PER_RANK] and conn["connects"] == 1
+              and conn["connects"] + conn["reuses"] == acquires,
+              f"pod/{mode}: batches {batches}, connections {conn}")
+    check(len(obs.calls) == 2, f"pod/{mode}: {len(obs.calls)} collective calls")
+    check(all(b == "nccl" for b, _, _ in obs.calls),
+          f"pod/{mode}: backends {obs.calls}")
+    check(all(d == "cuda" for _, d, _ in obs.calls),
+          f"pod/{mode}: gathered on {obs.calls}")
+    check(all(c == host_sum for _, _, c in obs.calls),
+          f"pod/{mode}: device checksum {obs.calls} vs host {host_sum}")
+    check(counts == {"land": 0, "checksum": len(obs.calls)},
+          f"pod/{mode}: launches {counts} for {len(obs.calls)} calls")
+    recs = obs.flights[0].records()
+    pod_recs = [r for r in recs if r["kind"] == "object"]
+    check(len(pod_recs) == 1 and {"hbm_staged", "gather_complete"}
+          <= set(pod_recs[0]["phases"]),
+          f"pod/{mode}: pod record {pod_recs}")
+    # One record per fetch thread; the mux route, as in tpubench, none.
+    check(sum(1 for r in recs if r["kind"] == "read") == (0 if mux else 1),
+          f"pod/{mode}: shard records")
+    emit({"phase": "pod", "mode": mode, "object_size": POD_OBJECT,
+          "shard_bytes": ex["shard_bytes"], "n_chips": res.n_chips,
+          "backend": obs.calls[0][0], "verified": ex["verified"],
+          "checksum": obs.calls[-1][2], "host_sum": host_sum,
+          "launches": counts, "native_conn_stats": conn,
+          "ranges": MUX_RANGES_PER_RANK if mux else 1,
+          **{k: ex[k] for k in (
+              "fetch_seconds", "stage_seconds", "gather_seconds",
+              "compile_seconds", "fetch_gbps", "stage_gbps",
+              "gather_gbps", "ici_bytes_moved")},
+          "wall_s": res.wall_seconds, "gbps": res.gbps,
+          "seconds": time.perf_counter() - t0,
+          "reduced": ["one rank (the machine has one H100): the shard is "
+                      "the whole object and no byte crosses a link"],
+          "card": smi})
+    return counts
 
 
 # ------------------------------------------------------------- phase 10 --
@@ -2001,6 +2094,334 @@ def phase_tune(store, smi) -> dict:
           "seconds": {k: v[1] for k, v in texts.items()},
           "lines": {k: len(v[0].splitlines()) for k, v in texts.items()}})
     return launches
+
+
+
+# ------------------------------------------------------------- phase 14 --
+# Phase sweep: the fake store at the reference's 48 workers over the four
+# sizes; the 1gb cell with SWEEP_1GB_WORKERS (48 x 1 GiB objects would be
+# generated in host memory). Then the clients against phase protocols'
+# servers (phase read's 100 MiB objects) with fewer workers.
+SWEEP_1GB_WORKERS = 8
+SWEEP_SERVER_WORKERS = 8
+
+
+class SweepObserved:
+    """Keeps each cell a sweep runs — its config, result and kernel
+    launches (deltas of the counters the phase zeroes before the sweep)
+    and each ``tb_land`` ring's transfers — by wrapping ``cli.read`` and
+    ``LandStager.finish``; what they do is unchanged."""
+
+    def __init__(self):
+        self.cells = []
+        self._land_transfers = 0
+
+    def __enter__(self):
+        import threading
+
+        from tpubench_torch import cli
+        from tpubench_torch.kernels import landing
+        from tpubench_torch.staging.land_stage import LandStager
+
+        self._saved = [(cli, "read", cli.read),
+                       (LandStager, "finish", LandStager.finish)]
+        read, finish = cli.read, LandStager.finish
+        lock = threading.Lock()
+        obs = self
+
+        def counted_finish(stager):
+            stats = finish(stager)
+            with lock:
+                obs._land_transfers += stats["transfers"]
+            return stats
+
+        def counted_read(cfg, device="cuda", backend=None):
+            n0 = (landing.land.launches, landing.checksum.launches,
+                  obs._land_transfers)
+            res = read(cfg, device=device, backend=backend)
+            obs.cells.append((cfg, res, {
+                "land": landing.land.launches - n0[0],
+                "checksum": landing.checksum.launches - n0[1]},
+                obs._land_transfers - n0[2]))
+            return res
+
+        cli.read = counted_read
+        LandStager.finish = counted_finish
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _sweep_cells(tag: str, argv: list, smi) -> tuple[dict, list]:
+    """One ``sweep`` call as the CLI makes it, every cell checked: zero
+    errors, ``checksum_ok``, every byte staged, 48 (or N) workers' slots
+    page-locked on distinct streams, and one kernel launch per transfer.
+    Returns the launches and the rows."""
+    from tpubench_torch import cli
+    from tpubench_torch.dist import bringup
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging import device as staging_device
+
+    args, cfg = _cli(["sweep", *argv])
+    stagers = []
+    real_factory = staging_device.make_sink_factory
+    counts = {"land": 0, "checksum": 0}
+    rows = []
+    with SweepObserved() as obs:
+        staging_device.make_sink_factory = (
+            lambda c, device="cuda": _noting(real_factory(c, device=device),
+                                             stagers))
+        try:
+            landing.reset_launches()
+            t0 = time.perf_counter()
+            with bringup.session(cfg.dist, "cuda"):
+                out = cli.sweep(cfg, args.sweep_protocols, args.sweep_sizes,
+                                native=args.sweep_native, device="cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            staging_device.make_sink_factory = real_factory
+    check(len(out) == len(obs.cells), f"{tag}: {len(out)} rows, "
+          f"{len(obs.cells)} cells")
+    made = 0
+    for row, (c, res, n, land_transfers) in zip(out, obs.cells):
+        w = c.workload
+        cell = f"{tag}/{row['protocol']}/{row['size']}" + (
+            "/native" if row.get("native_receive") else "")
+        ex = res.extra
+        workers_stagers = stagers[made:made + w.workers]
+        made += w.workers
+        streams = {st.stream.cuda_stream for st, _ in workers_stagers}
+        reads = w.workers * w.read_calls_per_worker
+        size = res.bytes_total // reads if reads else 0
+        check(res.errors == 0 and ex.get("checksum_ok") is True,
+              f"{cell}: errors {res.errors}, checksum {ex.get('checksum_ok')}")
+        check(ex["staged_bytes"] == res.bytes_total == reads * size
+              and size > 0, f"{cell}: staged {ex['staged_bytes']}")
+        check(len(workers_stagers) == w.workers
+              and len(streams) == w.workers
+              and all(p for _, p in workers_stagers),
+              f"{cell}: {len(streams)} streams for {w.workers} workers")
+        if c.staging.mode == "pallas":
+            want = w.workers * expected_transfers(
+                size, w.granule_bytes, _slot(c), w.read_calls_per_worker)
+            check(n == {"land": want, "checksum": 0} and land_transfers == want,
+                  f"{cell}: launches {n}, ring transfers {land_transfers}, "
+                  f"want {want}")
+        else:
+            transfers = ex["staging"]["transfers"]
+            check(n == {"land": 0, "checksum": transfers} and transfers > 0,
+                  f"{cell}: launches {n}, transfers {transfers}")
+        for k in counts:
+            counts[k] += n[k]
+        fb = res.summaries.get("first_byte")
+        rows.append({"cell": cell, "workers": w.workers,
+                     "reads_per_worker": w.read_calls_per_worker,
+                     "object_size": size, "launches": n,
+                     "gbps": row["gbps"],
+                     "staged_gbps_per_chip": ex["staged_gbps_per_chip"],
+                     "read_p50_ms": row["p50_ms"], "read_p99_ms": row["p99_ms"],
+                     "first_byte_p99_ms": fb.p99_ms if fb else None,
+                     "streams": len(streams),
+                     "native_conn_stats": ex.get("native_conn_stats"),
+                     "result": row["result"]})
+    emit({"phase": "sweep", "mode": tag, "argv": argv, "cells": rows,
+          "launches": counts, "seconds": wall, "card": smi})
+    return counts, rows
+
+
+def phase_sweep(store, smi) -> dict:
+    """``sweep`` as the CLI runs it: first the fake store through the
+    landing-kernel ring (``--staging pallas``) over the reference's four
+    sizes and read counts, then HTTP/1.1, HTTP/2 and gRPC, each with the
+    Python and the native receive where there is one (``--sweep-native``),
+    through the validating copy ring against phase protocols' servers."""
+    argv = ["--protocol", "fake", "--sweep-protocols", "fake",
+            "--staging", "pallas", "--granule-bytes", str(GRANULE)]
+    pallas, _ = _sweep_cells("sweep/pallas", [
+        *argv, "--sweep-sizes", "256kb,1mb,100mb", "--workers", str(WORKERS)],
+        smi)
+    big, _ = _sweep_cells("sweep/pallas", [
+        *argv, "--sweep-sizes", "1gb", "--workers", str(SWEEP_1GB_WORKERS)],
+        smi)
+    validate = {"land": 0, "checksum": 0}
+    with _Servers(store) as servers:
+        # Each protocol against its own server (the h2c one answers
+        # HTTP/1.1 too, but slower than the HTTP/1.1 one).
+        for proto, kind, native in (("http", "h1", ["--sweep-native"]),
+                                    ("http2", "h2", []),
+                                    ("grpc", "grpc", ["--sweep-native"])):
+            n, _ = _sweep_cells("sweep/validate", [
+                "--protocol", "grpc" if proto == "grpc" else "http",
+                "--endpoint", servers.by_kind[kind].endpoint, "--bucket",
+                "testbucket", "--object-name-prefix", "tpubench/file_",
+                "--sweep-protocols", proto, *native, "--sweep-sizes", "100mb",
+                "--workers", str(SWEEP_SERVER_WORKERS),
+                "--read-call-per-worker", "1", "--granule-bytes",
+                str(GRANULE), "--validate"], smi)
+            validate = {k: validate[k] + n[k] for k in validate}
+    emit({"phase": "sweep_reduced", "reduced": [
+        f"fake 1gb cell: {SWEEP_1GB_WORKERS} workers (48 x 1 GiB objects "
+        "would be generated in host memory)",
+        f"server cells: 100mb only, {SWEEP_SERVER_WORKERS} workers, 1 read "
+        "each (the servers hold phase read's 100 MiB objects: sweep sets "
+        "object_size, which only the fake store reads; h2 and gRPC run "
+        "at 0.2-0.5 GB/s behind the Python servers)"]})
+    return {"sweep/pallas": {k: pallas[k] + big[k] for k in pallas},
+            "sweep/validate": validate}
+
+
+# ------------------------------------------------------------- phase 15 --
+
+
+def _fs_line(cmd: str, res, seconds: float, smi, **extra) -> dict:
+    """A filesystem command's line: GB/s, each latency block's p50/p99."""
+    return {"phase": "fs", "mode": cmd, "workload": res.workload,
+            "bytes_total": res.bytes_total, "errors": res.errors,
+            "gbps": res.gbps, "wall_s": res.wall_seconds,
+            **{f"{k}_p50_ms": v.p50_ms for k, v in res.summaries.items()},
+            **{f"{k}_p99_ms": v.p99_ms for k, v in res.summaries.items()},
+            **{k: v for k, v in res.extra.items()}, **extra,
+            "seconds": seconds, "card": smi}
+
+
+def phase_fs(smi) -> None:
+    """``prepare`` and the five filesystem commands through the CLI's
+    functions, on a directory under ``build/`` (removed after): list, open,
+    write and ssd at ``tpubench``'s config defaults (4 threads, 1024 KiB
+    blocks, 64 MiB files, 64 open files, 5 list rounds), read-fs at the
+    reference launcher's four sizes and read counts. Zero errors and
+    ``bytes_total`` = threads x size x passes; whether ``O_DIRECT``
+    engaged is printed (an overlay or tmpfs disk refuses it)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tpubench_torch import cli
+    from tpubench_torch.config import WorkloadConfig
+    from tpubench_torch.workloads.fsbench import prepare_files
+
+    d = WorkloadConfig()
+    threads, fsize = d.threads, d.file_size_mb * MIB
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="fs-", dir=build)
+    t_phase = time.perf_counter()
+
+    def run(cmd: str, *argv: str):
+        args, cfg = _cli([cmd, "--dir", *argv])
+        t0 = time.perf_counter()
+        res = cli.execute(cmd, cfg, device="cuda", args=args)
+        check(res.errors == 0, f"fs/{cmd}: {res.errors} errors")
+        return res, time.perf_counter() - t0
+
+    try:
+        flat = f"{root}/flat"
+        t0 = time.perf_counter()
+        cli.prepare(_cli(["prepare", "--dir", flat])[1], "flat")
+        files = max(threads, d.open_files)
+        emit({"phase": "fs_setup", "layout": "flat", "files": files,
+              "file_size": fsize, "seconds": time.perf_counter() - t0})
+        res, sec = run("list", flat)
+        check(res.extra["entries"] == files
+              and res.extra["rounds"] == d.list_rounds
+              and res.summaries["list_hot"].count == d.list_rounds - 1,
+              f"fs/list: {res.extra}")
+        emit(_fs_line("list", res, sec, smi))
+        res, sec = run("open", flat)
+        check(res.extra["open_files"] == d.open_files
+              and res.summaries["open"].count == 2 * d.open_files,
+              f"fs/open: {res.extra}")
+        emit(_fs_line("open", res, sec, smi))
+        res, sec = run("write", f"{root}/write")
+        blocks = fsize // (d.block_size_kb * 1024)
+        check(res.bytes_total == threads * fsize * d.write_count
+              and res.summaries["block_write"].count
+              == threads * blocks * d.write_count
+              and res.extra["fsync_every_block"] is True,
+              f"fs/write: {res.bytes_total} B, {res.extra}")
+        emit(_fs_line("write", res, sec, smi))
+        shutil.rmtree(flat)
+        shutil.rmtree(f"{root}/write")
+        ssd = f"{root}/ssd"
+        cli.prepare(_cli(["prepare", "--layout", "ssd", "--dir", ssd])[1],
+                    "ssd")
+        for read_type in ("seq", "random"):
+            res, sec = run("ssd", ssd, "--read-type", read_type)
+            check(res.bytes_total == threads * fsize * d.read_count
+                  and res.extra["blocks_per_pass"] == blocks,
+                  f"fs/ssd {read_type}: {res.bytes_total} B")
+            emit(_fs_line("ssd", res, sec, smi))
+        shutil.rmtree(ssd)
+        # The reference launcher's four file sizes and read counts
+        # (read_operations.sh:8-14), the table sweep reads too.
+        for label, (size, count) in cli.SWEEP_SIZES.items():
+            sub = f"{root}/read_{label}"
+            t0 = time.perf_counter()
+            prepare_files(sub, threads, size)
+            prep = time.perf_counter() - t0
+            res, sec = run("read-fs", sub, "--read-count", str(count))
+            check(res.bytes_total == threads * size * count
+                  and res.summaries["pass"].count == threads * count,
+                  f"fs/read-fs {label}: {res.bytes_total} B")
+            emit(_fs_line("read-fs", res, sec, smi, size=label,
+                          file_size=size, passes=count, prepare_s=prep))
+            shutil.rmtree(sub)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "fs_done", "seconds": time.perf_counter() - t_phase,
+          "reduced": []})
+
+
+# ------------------------------------------------------------- phase 16 --
+def phase_preflight(smi) -> None:
+    """``preflight`` as the CLI runs it: exit 0 for the fake store, exit 1
+    against a dead endpoint (retry deadline 2 s, so the list gives up
+    before the probe's 15 s bound), and exit 0 in a process that sees no
+    GPU, which never initialises CUDA."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    from tpubench_torch import cli
+
+    out = {}
+    conf = f"{BUILD}/preflight_retry.json"
+    os.makedirs(BUILD, exist_ok=True)
+    with open(conf, "w") as f:
+        json.dump({"transport": {"retry": {"deadline_s": 2.0}}}, f)
+    for name, argv in (
+        ("fake", ["preflight", "--protocol", "fake"]),
+        ("dead_endpoint", ["preflight", "--protocol", "http", "--config",
+                           conf, "--endpoint", "http://127.0.0.1:9"]),
+    ):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        text = buf.getvalue()
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                     "verdict": text.strip().splitlines()[-2]}
+    check(out["fake"]["rc"] == 0 and out["fake"]["verdict"] == "preflight: OK",
+          f"preflight/fake: {out['fake']}")
+    check(out["dead_endpoint"]["rc"] == 1, f"preflight/dead: {out}")
+    code = ("import sys, torch; from tpubench_torch.cli import main; "
+            "rc = main(['preflight', '--protocol', 'fake']); "
+            "print('cuda_initialized', torch.cuda.is_initialized()); "
+            "sys.exit(rc)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    out["no_gpu"] = {"rc": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "cuda_initialized": "cuda_initialized True" in proc.stdout}
+    check(proc.returncode == 0 and "preflight: OK" in proc.stdout
+          and "cuda_initialized False" in proc.stdout,
+          f"preflight/no_gpu: rc {proc.returncode} {proc.stderr[-500:]}")
+    emit({"phase": "preflight", **out, "card": smi})
 
 
 if __name__ == "__main__":

@@ -263,3 +263,82 @@ def test_probe_copies_from_page_locked_arrays(cuda):
     assert probe.host_array(2 * 1024 * 1024, cuda).is_pinned()
     res = probe.run_probe(BenchConfig(), cycles=1, sleep_s=0, device="cuda")
     assert res.extra["device"].startswith("cuda:") and res.gbps > 0
+
+
+@pytest.mark.parametrize("staging", [["--staging", "pallas"], ["--validate"]],
+                         ids=["pallas", "validate"])
+def test_sweep_cell_on_cuda_matches_cpu(cuda, tmp_path, capsys, staging):
+    """One ``sweep`` cell (fake store, 1 MiB objects) on the card and on
+    the CPU: the same bytes and checksum verdict, and one kernel launch
+    per transfer on the card (``tb_land`` or ``tb_checksum``)."""
+    import json
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    docs = {}
+    for dev in ("cpu", "cuda"):
+        landing.reset_launches()
+        rc = cli.main(["sweep", "--protocol", "fake", "--sweep-protocols",
+                       "fake", "--sweep-sizes", "1mb", "--workers", "2",
+                       "--read-call-per-worker", "3", "--granule-bytes",
+                       "65536", "--slot-bytes", "262144", *staging,
+                       "--device", dev, "--results-dir", str(tmp_path / dev)])
+        assert rc == 0
+        (row,) = json.loads(capsys.readouterr().out)
+        with open(row["result"]) as f:
+            docs[dev] = json.load(f)
+        launches = (landing.land.launches, landing.checksum.launches)
+    for doc in docs.values():
+        assert doc["errors"] == 0 and doc["extra"]["checksum_ok"] is True
+        assert doc["extra"]["staged_bytes"] == 2 * 3 * 1024 * 1024
+    assert docs["cpu"]["extra"]["sweep"] == docs["cuda"]["extra"]["sweep"]
+    # 1 MiB per read in 256 KiB slots: 4 transfers a read, 6 reads.
+    kernel = 0 if "pallas" in staging else 1
+    assert launches[kernel] == 24 and launches[1 - kernel] == 0
+
+
+@pytest.mark.parametrize("kind", ["http2", "grpc_native"])
+def test_mux_pod_ingest_on_cuda_matches_cpu(cuda, kind):
+    """``pod-ingest`` over one multiplexed connection on one NCCL rank and
+    on one gloo rank: verified both, the same shard layout, the pod sum
+    by ``tb_checksum`` on the card (warm-up + timed gather)."""
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage import base_backend, open_backend
+    from tpubench_torch.storage.fake import FakeBackend
+    from tpubench_torch.storage.fake_grpc_wire_server import (
+        FakeGrpcWireServer,
+    )
+    from tpubench_torch.storage.fake_h2_server import FakeH2Server
+
+    store = FakeBackend.prepopulated("tpubench/file_", 1, 3_000_001)
+    server = FakeH2Server if kind == "http2" else FakeGrpcWireServer
+    out = {}
+    with server(store) as srv:
+        cfg = BenchConfig()
+        t = cfg.transport
+        t.endpoint, t.directpath = srv.endpoint, False
+        if kind == "http2":
+            t.protocol, t.http2 = "http", True
+        else:
+            t.protocol, t.native_receive = "grpc", True
+        for dev in ("cpu", "cuda"):
+            backend = open_backend(cfg)
+            landing.reset_launches()
+            out[dev] = cli.execute("pod-ingest", cfg, device=dev,
+                                   backend=backend)
+            inner = base_backend(backend)
+            pool = inner._h2_pool() if kind == "http2" else inner._native_pool()
+            assert pool.stats["connects"] == 1
+            backend.close()
+            assert not dist.is_initialized()
+    assert landing.checksum.launches == 2
+    for res in out.values():
+        assert res.errors == 0 and res.extra["verified"] is True
+        assert res.bytes_total == 3_000_001
+    for key in ("shard_bytes", "holes_global", "mode"):
+        assert out["cpu"].extra[key] == out["cuda"].extra[key], key

@@ -60,7 +60,8 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.tune.controller", "tpubench_torch.workloads.tune_cmd",
         "tpubench_torch.workloads.report_cmd",
         "tpubench_torch.workloads.chaos", "tpubench_torch.obs.live",
-        "tpubench_torch.replay.gate",
+        "tpubench_torch.replay.gate", "tpubench_torch.workloads.fsbench",
+        "tpubench_torch.workloads.preflight",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -181,10 +182,13 @@ def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
     assert res["extra"]["staged_bytes"] == 2 * 300_001
 
 
-@pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe"])
+@pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe",
+                                 "sweep", "list"])
 def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
     argv = [cmd, "--protocol", "fake", "--workers", "1", "--object-size",
-            "70001", "--results-dir", str(tmp_path)]
+            "70001", "--dir", str(tmp_path), "--results-dir", str(tmp_path)]
+    if cmd == "sweep":
+        argv += ["--sweep-protocols", "fake", "--sweep-sizes", "256kb"]
     no_gpu = _run("from tpubench_torch.cli import main; import sys; "
                   f"sys.exit(main({argv!r}))", CUDA_VISIBLE_DEVICES="")
     assert no_gpu.returncode != 0

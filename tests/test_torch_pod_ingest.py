@@ -255,16 +255,40 @@ def test_only_rank_0_writes_the_report(ranks):
 @pytest.mark.parametrize("protocol, switch", [
     ("grpc", "native_receive"), ("http", "http2"),
 ])
-def test_multiplexed_fetch_configs_are_refused(protocol, switch):
-    """Where ``tpubench`` fetches the shards over one multiplexed
-    connection, the port refuses (naming ROADMAP A.2) instead of running
-    the thread fan-out in its place — before any group or request."""
-    cfg = BenchConfig()
-    cfg.transport.protocol = protocol
-    cfg.transport.endpoint = "http://127.0.0.1:9"
-    setattr(cfg.transport, switch, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        pod_ingest.run_pod_ingest(cfg, device="cpu")
+def test_multiplexed_fetch_configs_run_multiplexed(protocol, switch):
+    """The configurations on which ``tpubench`` fetches the shards over one
+    multiplexed connection (refused until ``read_ranges`` was ported) run
+    so on the CPU: one rank through ``cli.execute``, its shard fetched as
+    ``MUX_RANGES_PER_RANK`` ranges in one batch on one connection — not a
+    thread per shard — verified, the group torn down after."""
+    from tpubench_torch.storage import base_backend, open_backend
+    from tpubench_torch.storage.fake_grpc_wire_server import (
+        FakeGrpcWireServer,
+    )
+    from tpubench_torch.storage.fake_h2_server import FakeH2Server
+
+    batches = []
+    server = FakeGrpcWireServer if protocol == "grpc" else FakeH2Server
+    with server(FakeBackend.prepopulated(PREFIX, 1, SIZE)) as srv:
+        cfg = BenchConfig()
+        cfg.transport.protocol = protocol
+        cfg.transport.endpoint = srv.endpoint
+        cfg.transport.directpath = False
+        setattr(cfg.transport, switch, True)
+        backend = open_backend(cfg)
+        inner = base_backend(backend)
+        real = inner.read_ranges
+        inner.read_ranges = lambda name, r, b: batches.append(r) or real(
+            name, r, b)
+        res = cli.execute("pod-ingest", cfg, device="cpu", backend=backend)
+        pool = inner._native_pool() if protocol == "grpc" else inner._h2_pool()
+        stats = dict(pool.stats)
+        backend.close()
+    assert res.errors == 0 and res.extra["verified"] is True
+    assert res.bytes_total == SIZE
+    fine = ShardTable.build(SIZE, pod_ingest.MUX_RANGES_PER_RANK, align=128)
+    assert batches == [[(sh.start, sh.length) for sh in fine.shards()]]
+    assert stats["connects"] == 1
     assert not torch.distributed.is_initialized()
 
 

@@ -314,12 +314,6 @@ def _refusal(what: str):
         return lambda: GcsGrpcBackend(
             "b", _transport(endpoint="insecure://127.0.0.1:9"), channel=object()
         )
-    if what == "read_ranges_http":
-        be = GcsHttpBackend("b", _transport(endpoint="http://127.0.0.1:9"))
-        return lambda: be.read_ranges(NAME, [(0, 1)], [bytearray(1)])
-    if what == "read_ranges_grpc":
-        be = GcsGrpcBackend("b", _transport(endpoint="insecure://127.0.0.1:9"))
-        return lambda: be.read_ranges(NAME, [(0, 1)], [bytearray(1)])
     raise AssertionError(what)
 
 
@@ -327,11 +321,30 @@ def _refusal(what: str):
     ("google_endpoint_http", "A.2"), ("google_endpoint_grpc", "A.2"),
     ("key_file_http", "A.2"), ("key_file_config", "A.2"),
     ("grpc_channel", "A.2"),
-    ("read_ranges_http", "A.5"), ("read_ranges_grpc", "A.5"),
 ])
 def test_refusals_that_stay_name_their_roadmap_item(what, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _refusal(what)()
+
+
+@pytest.mark.parametrize("kind", ["http2", "grpc_native"])
+def test_read_ranges_lands_every_range_on_one_connection(servers, kind):
+    """``read_ranges`` (refused until the multiplexed shard fetch was
+    ported) on the two clients that multiplex: ranges of one object as
+    concurrent streams of one connection, each landing exactly (an empty
+    range lands nothing and sends nothing)."""
+    be = servers.client(kind)
+    want = deterministic_bytes(NAME, SIZE)
+    ranges = [(0, 1), (MIB - 7, 3 * MIB // 2), (SIZE - 10, 10), (7, 0)]
+    bufs = [np.zeros(max(ln, 1), dtype=np.uint8) for _, ln in ranges]
+    errs = be.read_ranges(NAME, ranges, bufs)
+    assert errs == [None] * 4
+    assert bufs[3].tobytes() == b"\0"
+    for (start, ln), b in zip(ranges[:3], bufs):
+        assert b[:ln].tobytes() == want[start:start + ln].tobytes()
+    pool = be._h2_pool() if kind == "http2" else be._native_pool()
+    assert pool.stats["connects"] == 1
+    be.close()
 
 
 def test_native_receive_lands_in_the_slot_tensor(servers, monkeypatch):

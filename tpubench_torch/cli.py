@@ -1,7 +1,9 @@
-"""tpubench_torch CLI: ``tpubench``'s ``read``, ``pod-ingest``,
-``gather-bench``, ``probe`` and ``tune`` on PyTorch and CUDA, ``report``
-and ``top`` over the results and journals they write, plus ``info`` (what
-the port would run on).
+"""tpubench_torch CLI: ``tpubench``'s ``read``, ``sweep``, ``pod-ingest``,
+``gather-bench``, ``probe`` and ``tune`` on PyTorch and CUDA, its
+filesystem workloads (``prepare``, ``read-fs``, ``write``, ``list``,
+``open``, ``ssd``), ``report`` and ``top`` over the results and journals
+they write, ``preflight`` (what a run needs, checked without a device),
+and ``info`` (what the port would run on).
 
     python -m tpubench_torch.cli read --protocol fake --workers 2 \\
         --read-call-per-worker 2 --object-size 5242903 \\
@@ -23,6 +25,14 @@ the ``--fault-*`` knobs of the fake store to give them something to do).
 per rank, stages them and all-gathers them; ``gather-bench`` sweeps a
 collective (``--collective``, ``--shard-mb``, ``--reps``) over pod sizes;
 ``probe`` measures the host→device copy.
+
+``sweep`` runs ``read`` over protocols × the reference's four object
+sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
+prints the rows; ``--protocol http --http2`` and ``--protocol grpc
+--native-receive`` make ``pod-ingest`` fetch every range of the rank on
+one connection. The filesystem workloads read and write files under
+``--dir`` (``prepare`` writes them first; ``--no-direct`` skips
+``O_DIRECT``; ``--mount-cmd``/``--unmount-cmd`` bracket the run).
 
 ``tune`` finds the read path's operating point: ``--tune-mode sweep``
 (one short run per knob value), ``online`` (the controller moves
@@ -52,6 +62,7 @@ import os
 import sys
 
 from tpubench_torch.config import (
+    MB,
     BenchConfig,
     validate_telemetry_config,
     validate_tune_config,
@@ -62,6 +73,20 @@ from tpubench_torch.metrics.report import RunResult, write_result
 # workload): rank 0 writes the one report. ``read`` measures its own host,
 # so every process reports.
 POD_COLLECTIVE_CMDS = {"pod-ingest", "gather-bench"}
+FS_CMDS = {
+    "read-fs": "sequential FS read (read_operation)",
+    "write": "durable write (write_operations)",
+    "list": "listing bench (list_operation)",
+    "open": "open/FD-hold bench (open_file)",
+    "ssd": "block-latency percentiles (ssd_test)",
+}
+# sweep: size label -> (object bytes, reads a worker), read_operations.sh:8-14.
+SWEEP_SIZES = {
+    "256kb": (256 * 1024, 1000),
+    "1mb": (1 * MB, 100),
+    "100mb": (100 * MB, 10),
+    "1gb": (1024 * MB, 1),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,6 +133,23 @@ def build_parser() -> argparse.ArgumentParser:
                       default="read",
                       help="workload the tuning session drives "
                            "(train-ingest is not ported yet)")
+    for name, help_ in FS_CMDS.items():
+        add(name, help_)
+    prep = add("prepare", "generate worker-indexed data files")
+    prep.add_argument("--layout", choices=("flat", "ssd"), default="flat")
+    sweep = add("sweep", "protocol A/B × size sweep (execute_pb.sh)")
+    sweep.add_argument("--sweep-protocols", default="http,grpc",
+                       help="comma list of http,http2,grpc,fake — http2 is "
+                            "the reference's ForceAttemptHTTP2 branch "
+                            "(main.go:76-80) on the native h2 client")
+    sweep.add_argument("--sweep-sizes", default="",
+                       help=f"comma list of {','.join(SWEEP_SIZES)} "
+                            "(default all)")
+    sweep.add_argument("--sweep-native", action="store_true",
+                       help="add a receive-path axis: every http and grpc "
+                            "cell runs with the Python client AND the C++ "
+                            "native receive")
+    add("preflight", "validate auth/bucket/DirectPath/engine before a run")
     _add_top_parser(sub)
     _add_report_parser(sub)
     return ap
@@ -203,6 +245,21 @@ def _add_common(p) -> None:
                         "slots); native-reactor/native-threads pin a shape")
     p.add_argument("--workers", type=int)
     p.add_argument("--read-call-per-worker", type=int, dest="read_calls")
+    p.add_argument("--threads", type=int, help="filesystem workloads' threads")
+    p.add_argument("--read-count", type=int)
+    p.add_argument("--write-count", type=int)
+    p.add_argument("--block-size", type=int, help="KB", dest="block_size_kb")
+    p.add_argument("--file-size-mb", type=int)
+    p.add_argument("--read-type", choices=("seq", "random"))
+    p.add_argument("--open-files", type=int)
+    p.add_argument("--no-direct", action="store_true", help="skip O_DIRECT")
+    p.add_argument("--mount-cmd",
+                   help="shell template run before FS workloads; {dir} "
+                        "expands (read_operations.sh:18 convention)")
+    p.add_argument("--unmount-cmd",
+                   help="shell template run after FS workloads; {dir} expands")
+    p.add_argument("--rounds", type=int,
+                   help="listing rounds (round 0 = cold, rest hot)")
     p.add_argument("--object-size", type=int, help="bytes (fake backend)")
     p.add_argument("--granule-bytes", type=int, help="fetch granule bytes")
     p.add_argument("--staging", choices=("none", "device_put", "pallas"),
@@ -423,7 +480,12 @@ def build_config(args) -> BenchConfig:
         ("workers", "workers"), ("read_calls", "read_calls_per_worker"),
         ("object_size", "object_size"), ("granule_bytes", "granule_bytes"),
         ("bucket", "bucket"), ("object_name_prefix", "object_name_prefix"),
-        ("fetch_executor", "fetch_executor"),
+        ("fetch_executor", "fetch_executor"), ("threads", "threads"),
+        ("read_count", "read_count"), ("write_count", "write_count"),
+        ("block_size_kb", "block_size_kb"), ("file_size_mb", "file_size_mb"),
+        ("read_type", "read_type"), ("open_files", "open_files"),
+        ("mount_cmd", "mount_cmd"), ("unmount_cmd", "unmount_cmd"),
+        ("rounds", "list_rounds"),
     ):
         v = getattr(args, attr)
         if v is not None:
@@ -647,6 +709,8 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
                         tracer=tracer, backend=backend, device=device,
                     )
                 print(format_tune_block(res.extra["tune"]))
+            elif cmd in FS_CMDS:
+                res = run_fs(cmd, cfg, direct=not args.no_direct)
             else:
                 raise SystemExit(f"unknown command {cmd!r}")
         if cfg.obs.profile_dir:
@@ -654,6 +718,91 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
         if topo["process_count"] > 1:
             res.extra["topology"] = topo
     return res
+
+
+def run_fs(cmd: str, cfg: BenchConfig, direct: bool = True) -> RunResult:
+    """One filesystem workload, bracketed by the configured mount hooks
+    (read_operations.sh:18-21; nothing without hooks)."""
+    from tpubench_torch.workloads import fsbench
+
+    runner = {
+        "read-fs": lambda: fsbench.run_read_fs(cfg, direct=direct),
+        "write": lambda: fsbench.run_write(cfg, direct=direct),
+        "list": lambda: fsbench.run_listing(cfg),
+        "open": lambda: fsbench.run_open_file(cfg, direct=direct),
+        "ssd": lambda: fsbench.run_ssd_compare(cfg, direct=direct),
+    }[cmd]
+    with fsbench.maybe_mounted(cfg):
+        return runner()
+
+
+def prepare(cfg: BenchConfig, layout: str = "flat") -> None:
+    """The ``prepare`` command: the data files the filesystem workloads
+    read, written through the mount when hooks are configured (into the
+    unmounted directory they would be hidden from every mounted run)."""
+    from tpubench_torch.workloads import fsbench
+
+    w = cfg.workload
+    with fsbench.maybe_mounted(cfg):
+        if layout == "flat":
+            fsbench.prepare_files(w.dir, max(w.threads, w.open_files),
+                                  w.file_size_mb * MB)
+        else:  # the ssd_test layout
+            fsbench.prepare_ssd_files(w.dir, w.threads, w.file_size_mb * MB)
+    print(f"prepared files under {w.dir}")
+
+
+def sweep(cfg: BenchConfig, protocols: str, sizes: str = "",
+          native: bool = False, device="cuda", tag: str = "") -> list[dict]:
+    """The protocol A/B × size sweep (``execute_pb.sh`` +
+    ``read_operations.sh:8-14``): one ``read`` per cell on ``device`` in
+    the caller's staging mode, each result written (tagged
+    ``extra.sweep``); returns the rows ``tpubench sweep`` prints.
+    ``native`` adds the receive-path axis (the Python client and the
+    engine's native receive) to the http and grpc cells; it needs the
+    engine, so a failed build fails here, before any cell runs."""
+    if native:
+        from tpubench_torch.native.engine import get_engine
+
+        get_engine()
+    chosen = sizes.split(",") if sizes else list(SWEEP_SIZES)
+    native_axis = [False, True] if native else [None]
+    rows = []
+    for proto in protocols.split(","):
+        for sz in chosen:
+            for nat in native_axis:
+                if nat and proto not in ("http", "grpc"):
+                    # No receive-path axis for fake/local, nor http2 (the
+                    # h2 client IS the engine).
+                    continue
+                size, count = SWEEP_SIZES[sz]
+                c = BenchConfig.from_dict(cfg.to_dict())
+                c.transport.protocol = "http" if proto == "http2" else proto
+                if proto == "http2":
+                    c.transport.http2 = True
+                c.workload.object_size = size
+                c.workload.read_calls_per_worker = min(
+                    count, c.workload.read_calls_per_worker
+                )
+                if nat is not None:
+                    c.transport.native_receive = nat
+                res = read(c, device=device)
+                res.extra["sweep"] = {"protocol": proto, "size": sz}
+                if nat is not None:
+                    res.extra["sweep"]["native_receive"] = nat
+                path = write_result(res, cfg.obs.results_dir, tag=tag)
+                row = {
+                    "protocol": proto,
+                    "size": sz,
+                    "gbps": res.gbps,
+                    "p50_ms": res.summaries["read"].p50_ms,
+                    "p99_ms": res.summaries["read"].p99_ms,
+                    "result": path,
+                }
+                if nat is not None:
+                    row["native_receive"] = nat
+                rows.append(row)
+    return rows
 
 
 def finish(res: RunResult, cfg: BenchConfig, pod_collective: bool) -> None:
@@ -752,6 +901,39 @@ def main(argv=None) -> int:
     if args.cmd == "report":
         return report(args)
     cfg = build_config(args)
+    if args.cmd == "preflight":
+        # Device-free: a misconfigured machine fails this in seconds,
+        # before any bring-up.
+        from tpubench_torch.workloads.preflight import (
+            format_preflight,
+            run_preflight,
+        )
+
+        result = run_preflight(cfg)
+        print(format_preflight(result))
+        print(json.dumps(result))
+        return 0 if result["ok"] else 1
+    if args.cmd == "prepare":
+        prepare(cfg, args.layout)
+        return 0
+    if args.cmd == "sweep":
+        from tpubench_torch.dist import bringup
+        from tpubench_torch.obs.profiling import maybe_profile
+
+        # A per-host measurement: with several processes each writes its
+        # own rows, tagged with its index.
+        with bringup.session(cfg.dist, args.device) as topo:
+            with maybe_profile(cfg.obs.profile_dir, args.device):
+                rows = sweep(
+                    cfg, args.sweep_protocols, args.sweep_sizes,
+                    native=args.sweep_native, device=args.device,
+                    tag=(f"p{topo['process_index']}"
+                         if topo["process_count"] > 1 else ""),
+                )
+        if cfg.obs.profile_dir:
+            print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
+        print(json.dumps(rows, indent=2))
+        return 0
     res = execute(args.cmd, cfg, device=args.device, args=args)
     finish(res, cfg, pod_collective=args.cmd in POD_COLLECTIVE_CMDS)
     return 0

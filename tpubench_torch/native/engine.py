@@ -5,11 +5,14 @@ counters and the TLS probe, and the storage clients' surface: connection
 handles (``connect``/``conn_*``, plain or TLS), the streaming HTTP/1.1
 GET that lands body bytes in caller memory (``conn_get_begin`` /
 ``conn_body_read`` / ``conn_get_end``), the HTTP/2 GET stream
-(``h2_submit_get`` / ``h2_poll``), the gRPC ReadObject (``grpc_read``) and
-aligned receive buffers (:class:`AlignedBuffer`). A copy of the same
-surface of ``tpubench/native/engine.py``; its batch calls
-(``tb_grpc_submit``, ``tb_conn_request``) come with ``read_ranges``
-(``ROADMAP.md`` A.5), their only caller.
+(``h2_submit_get`` / ``h2_poll``), the gRPC ReadObject (``grpc_read``), the
+batch calls of the multiplexed ``read_ranges`` (``grpc_submit``,
+``grpc_submit_to``, ``h2_submit_get_to``: many streams on one connection,
+completions from ``h2_poll``), one GET on a handle (``conn_request``),
+the timed block I/O of the filesystem workloads (``open``, ``close``,
+``file_size``, ``pread_blocks``, ``read_file_seq``, ``pwrite_blocks``,
+``fill_random``) and aligned buffers (:class:`AlignedBuffer`). A copy of
+the same surface of ``tpubench/native/engine.py``.
 
 The library is built from this package's own sources
 (:mod:`tpubench_torch.native.build`), so every symbol is declared
@@ -135,6 +138,26 @@ class NativeEngine:
         lib.tb_alloc_aligned.argtypes = [c.c_size_t, c.c_size_t]
         lib.tb_free_aligned.restype = None
         lib.tb_free_aligned.argtypes = [c.c_void_p]
+        lib.tb_open.restype = c.c_int
+        lib.tb_open.argtypes = [c.c_char_p, c.c_int, ip]
+        lib.tb_close.restype = c.c_int
+        lib.tb_close.argtypes = [c.c_int]
+        lib.tb_file_size.restype = c.c_int64
+        lib.tb_file_size.argtypes = [c.c_char_p]
+        lib.tb_pread_blocks.restype = c.c_int64
+        lib.tb_pread_blocks.argtypes = [
+            c.c_int, c.c_void_p, c.c_int64, i64p, c.c_int64, i64p,
+        ]
+        lib.tb_read_file_seq.restype = c.c_int64
+        lib.tb_read_file_seq.argtypes = [
+            c.c_int, c.c_void_p, c.c_int64, c.c_int64, i64p,
+        ]
+        lib.tb_pwrite_blocks.restype = c.c_int64
+        lib.tb_pwrite_blocks.argtypes = [
+            c.c_int, c.c_void_p, c.c_int64, i64p, c.c_int64, c.c_int, i64p,
+        ]
+        lib.tb_fill_random.restype = None
+        lib.tb_fill_random.argtypes = [c.c_void_p, c.c_int64, c.c_uint64]
         lib.tb_http_connect.restype = c.c_int
         lib.tb_http_connect.argtypes = [c.c_char_p, c.c_int]
         lib.tb_http_close.restype = c.c_int
@@ -147,6 +170,11 @@ class NativeEngine:
         ]
         lib.tb_conn_close.restype = c.c_int
         lib.tb_conn_close.argtypes = [c.c_int64]
+        lib.tb_conn_request.restype = c.c_int64
+        lib.tb_conn_request.argtypes = [
+            c.c_int64, c.c_char_p, c.c_int, c.c_char_p, c.c_char_p,
+            c.c_void_p, c.c_int64, ip, i64p, i64p, ip,
+        ]
         lib.tb_conn_get_begin.restype = c.c_int64
         lib.tb_conn_get_begin.argtypes = [
             c.c_int64, c.c_char_p, c.c_int, c.c_char_p, c.c_char_p,
@@ -156,6 +184,11 @@ class NativeEngine:
         lib.tb_conn_body_read.argtypes = [c.c_int64, c.c_void_p, c.c_int64]
         lib.tb_conn_get_end.restype = c.c_int
         lib.tb_conn_get_end.argtypes = [c.c_int64, ip]
+        lib.tb_grpc_submit.restype = c.c_int64
+        lib.tb_grpc_submit.argtypes = [
+            c.c_int64, c.c_char_p, c.c_char_p, c.c_char_p, c.c_char_p,
+            c.c_int64, c.c_int64, c.c_void_p, c.c_int64, c.c_uint64,
+        ]
         lib.tb_h2_submit_get.restype = c.c_int64
         lib.tb_h2_submit_get.argtypes = [
             c.c_int64, c.c_char_p, c.c_char_p, c.c_char_p,
@@ -223,6 +256,83 @@ class NativeEngine:
     def alloc(self, size: int, align: int = 4096) -> AlignedBuffer:
         return AlignedBuffer(self, size, align)
 
+    # ---------------------------------------------------------- block I/O --
+    # The filesystem workloads' timed loops: per-thread latency arrays, the
+    # interpreter lock released for the whole call.
+
+    def open(self, path: str, write: bool = False, create: bool = False,
+             direct: bool = False) -> tuple[int, bool]:
+        """``(fd, direct_applied)``. A filesystem that rejects ``O_DIRECT``
+        (tmpfs, overlay) gets a buffered open instead, and
+        ``direct_applied`` says so."""
+        flags = (1 if write else 0) | (2 if create else 0) | (4 if direct else 0)
+        applied = ctypes.c_int(0)
+        fd = self.lib.tb_open(path.encode(), flags, ctypes.byref(applied))
+        _check(fd, f"open {path}")
+        return fd, bool(applied.value)
+
+    def close(self, fd: int) -> None:
+        _check(self.lib.tb_close(fd), "close")
+
+    def file_size(self, path: str) -> int:
+        return _check(self.lib.tb_file_size(path.encode()), f"stat {path}")
+
+    def pread_blocks(self, fd: int, buf: AlignedBuffer, block_size: int,
+                     offsets: np.ndarray) -> tuple[int, np.ndarray]:
+        """One timed ``pread`` of ``block_size`` bytes into ``buf`` per
+        offset; ``(total bytes, per-block ns latencies)``. A short final
+        block (EOF) is legal."""
+        if block_size > buf.size:
+            raise ValueError(f"block {block_size} > buffer {buf.size}")
+        offs = np.ascontiguousarray(offsets, dtype=np.int64)
+        lat = np.zeros(len(offs), dtype=np.int64)
+        total = self.lib.tb_pread_blocks(
+            fd, buf.address, block_size,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(offs),
+            lat.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        _check(total, "pread_blocks")
+        return total, lat
+
+    def read_file_seq(self, fd: int, buf: AlignedBuffer,
+                      passes: int = 1) -> tuple[int, np.ndarray]:
+        """Stream the whole file through ``buf`` ``passes`` times, each pass
+        from offset 0; ``(total bytes, per-pass ns latencies)``."""
+        lat = np.zeros(passes, dtype=np.int64)
+        total = self.lib.tb_read_file_seq(
+            fd, buf.address, buf.size, passes,
+            lat.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        _check(total, "read_file_seq")
+        return total, lat
+
+    def pwrite_blocks(self, fd: int, buf: AlignedBuffer, block_size: int,
+                      offsets: np.ndarray,
+                      fsync_each: bool = True) -> tuple[int, np.ndarray]:
+        """One timed ``pwrite`` of ``buf``'s first ``block_size`` bytes per
+        offset, each followed by ``fsync`` when ``fsync_each`` (the
+        latency then includes it); ``(total bytes, per-block ns)``."""
+        if block_size > buf.size:
+            raise ValueError(f"block {block_size} > buffer {buf.size}")
+        offs = np.ascontiguousarray(offsets, dtype=np.int64)
+        lat = np.zeros(len(offs), dtype=np.int64)
+        total = self.lib.tb_pwrite_blocks(
+            fd, buf.address, block_size,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(offs),
+            1 if fsync_each else 0,
+            lat.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        _check(total, "pwrite_blocks")
+        return total, lat
+
+    def fill_random(self, buf: AlignedBuffer, n: Optional[int] = None,
+                    seed: int = 1) -> None:
+        """xorshift64* bytes over ``buf`` (its first ``n``), from ``seed``."""
+        n = buf.size if n is None else n
+        if not 0 <= n <= buf.size:
+            raise ValueError(f"fill of {n} B outside a {buf.size} B buffer")
+        self.lib.tb_fill_random(buf.address, n, seed)
+
     # ------------------------------------------------------ conn handles --
     # The same receive loop over plaintext TCP or TLS (dlopen'd OpenSSL).
 
@@ -257,6 +367,32 @@ class NativeEngine:
 
     def conn_close(self, handle: int) -> None:
         self.lib.tb_conn_close(handle)
+
+    def conn_request(
+        self, handle: int, host: str, port: int, path: str,
+        buf: AlignedBuffer, headers: str = "",
+    ) -> dict:
+        """One whole GET on a connection handle, the body landing in
+        ``buf``; ``reusable`` says whether the connection may carry
+        another request. On NativeError the caller must
+        :meth:`conn_close` the handle (stream state unknown)."""
+        status = ctypes.c_int(0)
+        fb = ctypes.c_int64(0)
+        total_ns = ctypes.c_int64(0)
+        reusable = ctypes.c_int(0)
+        n = self.lib.tb_conn_request(
+            handle, host.encode(), port, path.encode(), headers.encode(),
+            buf.address, buf.size, ctypes.byref(status), ctypes.byref(fb),
+            ctypes.byref(total_ns), ctypes.byref(reusable),
+        )
+        _check(n, f"conn_request {host}:{port}{path}")
+        return {
+            "status": status.value,
+            "length": n,
+            "first_byte_ns": fb.value,
+            "total_ns": total_ns.value,
+            "reusable": bool(reusable.value),
+        }
 
     def conn_get_begin(
         self, handle: int, host: str, port: int, path: str, headers: str = "",
@@ -313,12 +449,54 @@ class NativeEngine:
         """Open one HTTP/2 GET stream (the reference's HTTP/2 client
         branch, main.go:76-80): DATA payload bytes land in ``buf``; the
         completion from :meth:`h2_poll` carries ``:status``."""
+        self.h2_submit_get_to(handle, authority, path, buf.address,
+                              buf.size, headers=headers, tag=tag)
+
+    def h2_submit_get_to(
+        self, handle: int, authority: str, path: str, address: int,
+        nbytes: int, headers: str = "", tag: int = 0,
+    ) -> None:
+        """:meth:`h2_submit_get` into raw memory ``(address, nbytes)`` (a
+        shard buffer), which must stay valid until the stream's completion
+        comes back. Several streams may be open on one connection (up to
+        32); ``-EAGAIN`` when the table is full."""
         rc = self.lib.tb_h2_submit_get(
             handle, authority.encode(), path.encode(), headers.encode(),
-            buf.address, buf.size, tag,
+            address, nbytes, tag,
         )
         if rc != 0:
             _check(int(rc), f"h2_submit_get {path}")
+
+    def grpc_submit(
+        self, handle: int, authority: str, bucket_path: str,
+        object_name: str, buf: AlignedBuffer, read_offset: int = 0,
+        read_limit: int = 0, headers: str = "", tag: int = 0,
+    ) -> None:
+        """Open one ReadObject as a concurrent h2 stream on the connection
+        (grpc-go multiplexes by default; this is the native equivalent),
+        content landing in ``buf``. Up to 32 streams a connection;
+        ``NativeError(-EAGAIN)`` when the table is full (poll a completion
+        first). Completions come back from :meth:`h2_poll` by ``tag``."""
+        self.grpc_submit_to(
+            handle, authority, bucket_path, object_name, buf.address,
+            buf.size, read_offset=read_offset, read_limit=read_limit,
+            headers=headers, tag=tag,
+        )
+
+    def grpc_submit_to(
+        self, handle: int, authority: str, bucket_path: str,
+        object_name: str, address: int, nbytes: int, read_offset: int = 0,
+        read_limit: int = 0, headers: str = "", tag: int = 0,
+    ) -> None:
+        """:meth:`grpc_submit` into raw memory ``(address, nbytes)``, which
+        must stay valid until the stream's completion comes back."""
+        rc = self.lib.tb_grpc_submit(
+            handle, authority.encode(), bucket_path.encode(),
+            object_name.encode(), headers.encode(), read_offset, read_limit,
+            address, nbytes, tag,
+        )
+        if rc != 0:
+            _check(int(rc), f"grpc_submit {object_name}")
 
     def h2_poll(self, handle: int) -> Optional[dict]:
         """Wait for the next stream completion on the connection; None

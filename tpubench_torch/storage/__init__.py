@@ -18,9 +18,8 @@
   (gRPC).
 
 Still to come (``ROADMAP.md``): token sources (A.2), gRPC library mode
-(A.2), ``read_ranges``
-(A.5), the write side of every backend (A.6), the reactor-fetch wrapper of
-the serve plane (A.7).
+(A.2), the write side of every backend (A.6), the reactor-fetch wrapper
+of the serve plane (A.7).
 """
 
 from tpubench_torch.storage.base import (  # noqa: F401

@@ -17,11 +17,13 @@ client on every machine.
   ``readinto`` without buffering whole objects.
 * **Native receive** (``transport.native_receive``): the engine's h2 gRPC
   client runs ReadObject and lands the content in an aligned buffer, with
-  a native first-byte stamp; pooled engine connections.
+  a native first-byte stamp; pooled engine connections. ``read_ranges``
+  runs many ReadObject streams at once on one of them (the pod
+  workloads' multiplexed shard fetch).
 
 Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item: an
 explicit ``channel=`` and Google endpoints (gRPC library mode and token
-sources, A.2), ``read_ranges`` (A.5), and the write side (A.6).
+sources, A.2), and the write side (A.6).
 """
 
 from __future__ import annotations
@@ -309,10 +311,90 @@ class GcsGrpcBackend:
             raise
 
     def read_ranges(self, name: str, ranges, buffers) -> list:
-        raise NotImplementedError(
-            "read_ranges (concurrent ReadObject streams on one connection) "
-            "is not ported to tpubench_torch yet (ROADMAP A.5: pod workloads)"
+        """Concurrent ReadObject streams on ONE native connection
+        (grpc-go's default multiplexing, go.mod:20), for shard fetches:
+        range *i* (``(start, length)``) lands in ``buffers[i]`` (any
+        writable contiguous byte buffer). Returns per range ``None``
+        (exactly ``length`` bytes landed) or a classified
+        :class:`StorageError`: a stream failure (NOT_FOUND, short stream)
+        touches only its range, a connection failure every unfinished
+        range. The batch is sent once more on a fresh connection when the
+        first use of a pooled connection fails before any completion.
+        Requires ``transport.native_receive``."""
+        from tpubench_torch.storage.native_pool import (
+            fail_unfinished,
+            range_addresses,
+            run_multiplexed_batch,
         )
+
+        n = len(ranges)
+        done: list[bool] = [False] * n
+        errs: list = [None] * n
+        addrs = range_addresses(ranges, buffers, done)
+        if all(done):
+            return errs
+
+        def classify(i: int, c: dict):
+            start, length = ranges[i]
+            if c["result"] < 0:
+                st = c["grpc_status"]
+                if st > 0:
+                    return StorageError(
+                        f"ReadObject {name} range {i}: grpc-status {st}",
+                        transient=st in _TRANSIENT_STATUS_INTS,
+                        code=_STATUS_HTTPISH.get(st, 0),
+                    )
+                return StorageError(
+                    f"ReadObject {name} range {i}: stream error {c['result']}",
+                    transient=c["result"] not in PERMANENT_CODES,
+                )
+            if c["result"] != length:
+                # The bounded range must arrive whole. A short stream that
+                # ends at the object's size (the server clamped a range
+                # past EOF) reproduces on every retry: permanent, a hole
+                # now. Anything else (mid-object truncation) is transient.
+                # A bare caller has primed no stat: one stat decides.
+                with self._stat_cache_lock:
+                    size = self._stat_cache.get(name)
+                if size is None:
+                    try:
+                        size = self.stat(name).size
+                    except StorageError:
+                        size = None  # can't classify: stay transient
+                at_eof = size is not None and start + c["result"] >= size
+                return StorageError(
+                    f"ReadObject {name} range {i}: short stream "
+                    f"({c['result']} of {length} bytes)"
+                    + (" at EOF" if at_eof else ""),
+                    transient=not at_eof,
+                )
+            return None
+
+        try:
+            pool = self._native_pool()
+            engine = pool.engine
+            host, port, _ = self._native_endpoint()
+            authority = f"{host}:{port}"
+        except StorageError as e:
+            return fail_unfinished(done, errs, e)
+
+        def submit(conn: int, i: int) -> None:
+            start, length = ranges[i]
+            engine.grpc_submit_to(
+                conn, authority, self._bucket_path, name, addrs[i], length,
+                read_offset=start, read_limit=length, tag=i,
+            )
+
+        with self._tracer.span(
+            "gcs_grpc.read_ranges", object=name, bucket=self.bucket,
+            ranges=n,
+        ):
+            return run_multiplexed_batch(
+                pool, n, done, errs, submit, classify, name,
+                # An explicit grpc-status proves the server answered:
+                # never retried as pool staleness.
+                answered=lambda e: getattr(e, "grpc_status", -1) >= 0,
+            )
 
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         wreq = wp.ListObjectsRequest(

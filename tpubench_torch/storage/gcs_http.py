@@ -20,11 +20,15 @@ Reference parity (``CreateHttpClient``, main.go:62-104):
   RetryingBackend` wraps this backend. This module raises classified
   ``StorageError``s (transient for 408/429/5xx and socket errors).
 
+* **Multiplexed ranges** (``read_ranges``, under ``transport.http2``):
+  many ranged GETs as concurrent streams of one h2 connection, the pod
+  workloads' shard fetch.
+
 Still refused, with ``NotImplementedError`` naming the ``ROADMAP.md``
 item: token sources (a Google endpoint or ``transport.key_file`` needs
-credentials, A.2), ``read_ranges`` (multiplexed shard reads, A.5), and
-the write side (``write``/``open_write``/``delete``, A.6). An endpoint
-that is not a Google one is anonymous, as in ``tpubench``.
+credentials, A.2) and the write side (``write``/``open_write``/
+``delete``, A.6). An endpoint that is not a Google one is anonymous, as
+in ``tpubench``.
 """
 
 from __future__ import annotations
@@ -722,10 +726,96 @@ class GcsHttpBackend:
         )
 
     def read_ranges(self, name: str, ranges, buffers) -> list:
-        raise NotImplementedError(
-            "read_ranges (multiplexed shard reads on one connection) is not "
-            "ported to tpubench_torch yet (ROADMAP A.5: pod workloads)"
+        """Concurrent ranged GETs multiplexed on ONE native h2 connection
+        (up to 32 streams; the h2 twin of ``GcsGrpcBackend.read_ranges``):
+        range *i* (``(start, length)``) lands in ``buffers[i]``; returns
+        per-range ``None`` or a classified :class:`StorageError`. A stream
+        failure touches only its range; a connection failure classifies
+        onto every unfinished range; the batch is sent once more on a
+        fresh connection when the first use of a pooled connection fails
+        before any completion. Requires ``transport.http2`` (the
+        reference's whole-client h2 branch, main.go:76-80)."""
+        from tpubench_torch.storage.native_pool import (
+            fail_unfinished,
+            range_addresses,
+            run_multiplexed_batch,
         )
+
+        if not self.transport.http2:
+            raise ValueError("read_ranges requires transport.http2")
+        n = len(ranges)
+        done: list[bool] = [False] * n
+        errs: list = [None] * n
+        addrs = range_addresses(ranges, buffers, done)
+        if all(done):
+            return errs
+
+        def classify(i: int, c: dict):
+            start, length = ranges[i]
+            status = c["http_status"]
+            if c["result"] < 0:
+                return StorageError(
+                    f"h2 GET {name} range {i}: stream error {c['result']} "
+                    f"(status {status})",
+                    transient=c["result"] not in PERMANENT_CODES,
+                )
+            if status not in (200, 206):
+                return StorageError(
+                    f"h2 GET {name} range {i}: HTTP {status}",
+                    transient=status in _TRANSIENT,
+                    code=status,
+                )
+            if status == 200 and start > 0:
+                # Server ignored the Range: bytes would be misaligned.
+                return StorageError(
+                    f"h2 GET {name} range {i}: server ignored Range",
+                    transient=False,
+                )
+            if c["result"] != length:
+                # A short delivery ending at the object's size reproduces
+                # on every retry: permanent. Stat on a cache miss.
+                with self._h2_pool_lock:
+                    size = self._h2_stat_cache.get(name)
+                if size is None:
+                    try:
+                        size = self.stat(name).size
+                        with self._h2_pool_lock:
+                            self._h2_stat_cache[name] = size
+                    except StorageError:
+                        size = None
+                at_eof = size is not None and start + c["result"] >= size
+                return StorageError(
+                    f"h2 GET {name} range {i}: short stream "
+                    f"({c['result']} of {length} bytes)"
+                    + (" at EOF" if at_eof else ""),
+                    transient=not at_eof,
+                )
+            return None
+
+        try:
+            pool = self._h2_pool()
+            engine = pool.engine
+            _, _, req_path, base_headers = self.native_request_parts(name)
+            authority = f"{self._host}:{self._port}"
+        except StorageError as e:
+            return fail_unfinished(done, errs, e)
+
+        def submit(conn: int, i: int) -> None:
+            start, length = ranges[i]
+            hdrs = (base_headers
+                    + f"Range: bytes={start}-{start + length - 1}\r\n")
+            engine.h2_submit_get_to(
+                conn, authority, req_path, addrs[i], length,
+                headers=hdrs, tag=i,
+            )
+
+        with self._tracer.span(
+            "gcs_http.read_ranges_h2", object=name, bucket=self.bucket,
+            ranges=n,
+        ):
+            return run_multiplexed_batch(
+                pool, n, done, errs, submit, classify, name
+            )
 
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         """Full listing under ``prefix``, following ``nextPageToken``;

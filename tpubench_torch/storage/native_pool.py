@@ -1,5 +1,5 @@
 """Shared pool of native connection handles (engine ``tb_conn``) — a copy
-of ``tpubench/storage/native_pool.py`` without its multiplexed batch loop.
+of ``tpubench/storage/native_pool.py``.
 
 Both native receive paths — HTTP (:mod:`.gcs_http`) and gRPC/h2
 (:mod:`.gcs_grpc`) — pool engine connection handles with one discipline:
@@ -13,9 +13,8 @@ Both native receive paths — HTTP (:mod:`.gcs_http`) and gRPC/h2
 
 The backends supply the protocol-specific parts: how to run one request
 and which errors prove the server answered (those are never retried as
-staleness).
-``run_multiplexed_batch`` (many streams on one connection, the
-``read_ranges`` of pod ingest) comes with ``ROADMAP.md`` A.5.
+staleness). :func:`run_multiplexed_batch` is the batch loop both
+``read_ranges`` readers share (many h2 streams on one connection).
 """
 
 from __future__ import annotations
@@ -209,3 +208,129 @@ class NativeConnPool:
         for h in conns:
             self.engine.conn_close(h)
         self.buffers.close()
+
+
+def range_addresses(ranges, buffers, done: list) -> list[int]:
+    """The address each range's bytes land at (its buffer's first byte),
+    marking zero-length ranges done. The engine writes ``length`` bytes
+    through the raw pointer, so a read-only or strided buffer, or one
+    shorter than its range, raises ``ValueError`` here."""
+    import numpy as np
+
+    addrs = []
+    for i, ((_, length), b) in enumerate(zip(ranges, buffers)):
+        arr = b if isinstance(b, np.ndarray) else np.frombuffer(b, np.uint8)
+        if not (arr.flags.writeable and arr.flags.c_contiguous):
+            raise ValueError(
+                f"range {i}: buffer must be writable and C-contiguous"
+            )
+        if arr.nbytes < length:
+            raise ValueError(f"range {i}: buffer {arr.nbytes} < length {length}")
+        addrs.append(arr.ctypes.data)
+        if length == 0:
+            done[i] = True
+    return addrs
+
+
+def fail_unfinished(done: list, errs: list, err: StorageError) -> list:
+    """Classify ``err`` onto every unfinished range (the batch readers'
+    per-range contract: report, don't throw)."""
+    for i in range(len(done)):
+        if not done[i]:
+            errs[i] = err
+            done[i] = True
+    return errs
+
+
+def run_multiplexed_batch(
+    pool: NativeConnPool,
+    n: int,
+    done: list,
+    errs: list,
+    submit: Callable[[int, int], None],
+    classify: Callable[[int, dict], object],
+    name: str,
+    window: int = 16,
+    answered: Callable[[NativeError], bool] = lambda e: False,
+) -> list:
+    """The multiplexed-stream batch loop of both h2 batch readers (gRPC
+    ReadObject streams and whole-client HTTP/2 ranged GETs).
+
+    ``submit(conn, i)`` opens range *i*'s stream on ``conn``;
+    ``classify(i, completion)`` maps a completion to ``None`` or a
+    classified StorageError; ``answered(e)`` is True when a
+    connection-fatal error proves the server answered (an explicit
+    grpc-status): such an error is never retried as pool staleness.
+    Streams are submitted in ``window``-sized waves below the 32-stream
+    connection cap; the whole batch is sent once more on a fresh
+    connection when the first use of a pooled handle fails before any
+    completion. Fills ``errs`` in place and returns it; a connect failure
+    classifies onto every unfinished range."""
+
+    def fail_all(err: StorageError) -> list:
+        return fail_unfinished(done, errs, err)
+
+    try:
+        conn, reused = pool.acquire()
+    except StorageError as e:
+        return fail_all(e)
+    except Exception as e:  # noqa: BLE001 — per-range contract
+        return fail_all(
+            StorageError(f"read_ranges setup: {e}", transient=True)
+        )
+    engine = pool.engine
+    while True:
+        submitted = 0
+        completed = 0
+        got_any = False
+        pending = [i for i in range(n) if not done[i]]
+        try:
+            while completed < len(pending):
+                while (
+                    submitted < len(pending)
+                    and submitted - completed < window
+                ):
+                    submit(conn, pending[submitted])
+                    submitted += 1
+                c = engine.h2_poll(conn)
+                if c is None:
+                    raise StorageError(
+                        f"read_ranges {name}: stream vanished",
+                        transient=True,
+                    )
+                got_any = True
+                i = c["tag"]
+                errs[i] = classify(i, c)
+                done[i] = True
+                completed += 1
+            pool.release(conn, True)
+            return errs
+        except NativeError as e:
+            pool.discard(conn)
+            stale = (
+                reused
+                and not got_any
+                and e.code not in PERMANENT_CODES
+                and not answered(e)
+            )
+            if stale:
+                # Whole-batch retransmit on a fresh connection.
+                reused = False
+                pool.note_stale_retry()
+                try:
+                    conn = pool.fresh()
+                except StorageError as e2:
+                    return fail_all(e2)
+                continue
+            return fail_all(
+                StorageError(
+                    f"read_ranges {name}: {e}",
+                    transient=e.code not in PERMANENT_CODES,
+                )
+            )
+        except StorageError as e:
+            pool.discard(conn)
+            return fail_all(e)
+        except BaseException:
+            pool.discard(conn)
+            raise

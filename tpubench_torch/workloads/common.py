@@ -12,12 +12,10 @@ pod-wide abort: failed workers are recorded as holes (error count + which
 workers) and the run completes. :class:`ElasticGate` parks and resumes
 workers live (the tune controller's fan-out knob).
 
-The pod workloads' shard fetch lives here too (:func:`fetch_shard`,
-:func:`zero_failed_shards`, :func:`global_hole_totals`). The reference's
-multiplexed shard fetch (``fetch_shards_mux``, all local shards over one
-h2 connection) needs ``read_ranges``, which the port's clients do not have
-yet: :func:`refuse_multiplexed_fetch` refuses the configurations on which
-the reference would take it.
+The pod workloads' shard fetch lives here too: a thread per shard
+(:func:`fetch_shard`) or every range of this rank over one h2 connection
+(:func:`fetch_shards_mux`, where :func:`mux_supported` says the backend
+can), then :func:`zero_failed_shards` and :func:`global_hole_totals`.
 """
 
 from __future__ import annotations
@@ -186,17 +184,84 @@ def global_hole_totals(holes: dict, pod) -> dict:
     }
 
 
-def refuse_multiplexed_fetch(cfg) -> None:
-    """Raise ``NotImplementedError`` where the reference would fetch the
-    shards multiplexed over one connection (gRPC with native receive, or
-    the whole-client HTTP/2 mode): the port has no ``read_ranges`` yet, and
-    running the thread fan-out instead would measure another client."""
-    t = cfg.transport
-    if ((t.protocol == "grpc" and t.native_receive)
-            or (t.protocol == "http" and t.http2)):
-        raise NotImplementedError(
-            "not ported to tpubench_torch yet: the multiplexed shard fetch "
-            f"of protocol {t.protocol!r} with "
-            f"{'native_receive' if t.protocol == 'grpc' else 'http2'} "
-            "(ROADMAP A.2: read_ranges and run_multiplexed_batch)"
+def mux_supported(backend) -> bool:
+    """Whether ``backend`` (or the one decorator layer's ``inner``, as in
+    ``tpubench``) multiplexes ranges on one connection: native-receive
+    gRPC, or the whole-client HTTP/2 mode."""
+    from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
+    from tpubench_torch.storage.gcs_http import GcsHttpBackend
+
+    inner = getattr(backend, "inner", backend)
+    return (
+        (isinstance(inner, GcsGrpcBackend) and inner.transport.native_receive)
+        or (isinstance(inner, GcsHttpBackend) and inner.transport.http2)
+    )
+
+
+def fetch_shards_mux(backend, cfg, name, table, local_idx, buffers):
+    """Multiplexed shard fetch (``tpubench/workloads/common.py:189``):
+    every range ``table.shard(i)`` for ``i`` in ``local_idx`` rides ONE
+    connection as a concurrent h2 stream into ``buffers`` — no fan-out
+    threads, one socket, per-stream failure isolation. Failed ranges are
+    fetched again under ``transport.retry`` (the policy the threaded path
+    gets from ``RetryingBackend``), each range on its own attempt chain
+    and backoff, within the deadline: a round sleeps the longest pause of
+    the ranges it retries, and a range whose pause would cross the
+    deadline is given up, so no range is sent past it.
+
+    Returns a :class:`GroupResult` (its first error raised under
+    ``abort_on_error``), or ``None`` when the backend does not multiplex
+    (:func:`mux_supported`) or there is nothing to fetch: the caller then
+    fans out threads, as in ``tpubench``."""
+    import time as _time
+
+    from tpubench_torch.storage.retry import Backoff, _is_retryable
+
+    if not (mux_supported(backend) and len(local_idx) > 0):
+        return None
+    inner = getattr(backend, "inner", backend)
+    rngs = []
+    for k, gi in enumerate(local_idx):
+        sh = table.shard(gi)
+        buffers[k][sh.length:] = 0  # zero pad, as fetch_shard does
+        rngs.append((sh.start, sh.length))
+
+    rcfg = cfg.transport.retry
+    start_t = _time.monotonic()
+    final: list = [None] * len(rngs)
+    remaining = list(range(len(rngs)))
+    attempts = [0] * len(rngs)
+    backoffs = [Backoff(rcfg) for _ in rngs]
+    while remaining:
+        sub_errs = inner.read_ranges(
+            name,
+            [rngs[i] for i in remaining],
+            [buffers[i] for i in remaining],
         )
+        for j, e in enumerate(sub_errs):
+            final[remaining[j]] = e
+        retryable = []
+        for j, e in enumerate(sub_errs):
+            i = remaining[j]
+            if e is None or not _is_retryable(e, rcfg.policy):
+                continue
+            attempts[i] += 1
+            if rcfg.max_attempts and attempts[i] >= rcfg.max_attempts:
+                continue
+            retryable.append(i)
+        if not retryable:
+            break
+        pauses = {i: backoffs[i].pause() for i in retryable}
+        if rcfg.deadline_s:
+            budget = rcfg.deadline_s - (_time.monotonic() - start_t)
+            retryable = [i for i in retryable if pauses[i] <= budget]
+            if not retryable:
+                break
+        _time.sleep(max(pauses[i] for i in retryable))
+        remaining = retryable
+    gres = GroupResult(
+        errors=[WorkerError(k, e) for k, e in enumerate(final) if e is not None]
+    )
+    if gres.errors and cfg.workload.abort_on_error:
+        raise gres.errors[0]  # errgroup semantics (WorkerGroup parity)
+    return gres

@@ -10,9 +10,14 @@ device each; on the card's machine (one GPU) the pod is one rank.
 
 Stages, as in the reference:
 
-* fetch — one :class:`WorkerGroup` thread per local shard into page-locked
-  host buffers (plain tensors on the CPU); failures become holes under
-  ``abort_on_error=False``;
+* fetch — into page-locked host buffers (plain tensors on the CPU): one
+  :class:`WorkerGroup` thread per local shard, or, where the client
+  multiplexes (native-receive gRPC, whole-client HTTP/2), every range of
+  the rank as concurrent streams of one connection
+  (:func:`fetch_shards_mux`). A reference process drives several chips,
+  so its mux fetch carries several shards; a rank here holds one, which
+  the mux route fetches as :data:`MUX_RANGES_PER_RANK` ranges. Failures
+  become holes under ``abort_on_error=False``;
 * stage — host → device copies on a stream of their own, timed to the
   event recorded after them;
 * warm-up — the first call of the collective. The reference reports its
@@ -62,10 +67,16 @@ from tpubench_torch.storage.base import StorageBackend
 from tpubench_torch.workloads.common import (
     WorkerGroup,
     fetch_shard,
+    fetch_shards_mux,
     global_hole_totals,
-    refuse_multiplexed_fetch,
+    mux_supported,
     zero_failed_shards,
 )
+
+# Ranges a rank's shard is fetched as on the mux route: the chips of a
+# reference host on its simulated 8-device mesh, so one rank here sends
+# the same 8 ranges of an object as one ``tpubench`` process does.
+MUX_RANGES_PER_RANK = 8
 
 
 @dataclass
@@ -90,7 +101,15 @@ class PodIngestWorkload:
         name = object_name or f"{w.object_name_prefix}0"
         n = pod.size
         size = self.backend.stat(name).size
-        table = ShardTable.build(size, n, align=lane)
+        mux = mux_supported(self.backend)
+        if mux:
+            # The rank's shard is MUX_RANGES_PER_RANK whole ranges of the
+            # finer table; the gather's layout follows the coarse one.
+            fine = ShardTable.build(size, n * MUX_RANGES_PER_RANK, align=lane)
+            table = ShardTable(size, n, lane,
+                               MUX_RANGES_PER_RANK * fine.shard_bytes)
+        else:
+            table = ShardTable.build(size, n, align=lane)
 
         # ---- fetch: this rank fetches only its own byte range ---------
         rank = pod.rank
@@ -151,12 +170,22 @@ class PodIngestWorkload:
                     op.mark("body_complete")
                     op.finish(table.shard(local_idx[k]).length)
 
+        if mux:
+            k = MUX_RANGES_PER_RANK
+            fetch_idx = [rank * k + j for j in range(k)]
+            fetch_bufs = [buffers[0][j * fine.shard_bytes:
+                                     (j + 1) * fine.shard_bytes]
+                          for j in range(k)]
         t0 = time.perf_counter()
         try:
             with annotate("pod_ingest/fetch"):
-                gres = WorkerGroup(abort_on_error=w.abort_on_error).run(
-                    len(local_idx), fetch, name="fetch"
-                )
+                if mux:
+                    gres = fetch_shards_mux(self.backend, self.cfg, name,
+                                            fine, fetch_idx, fetch_bufs)
+                else:
+                    gres = WorkerGroup(abort_on_error=w.abort_on_error).run(
+                        len(local_idx), fetch, name="fetch"
+                    )
         except BaseException as e:
             if pod_op is not None:
                 pod_op.finish(error=e)
@@ -165,9 +194,13 @@ class PodIngestWorkload:
         if pod_op is not None:
             pod_op.mark("body_complete")
 
-        # Failure domains: with abort_on_error=False a failed shard is a
-        # zeroed hole in the gather, reported below.
-        holes = zero_failed_shards(gres, table, buffers, local_idx)
+        # Failure domains: with abort_on_error=False a failed shard (a
+        # failed range on the mux route) is a zeroed hole in the gather,
+        # reported below.
+        if mux:
+            holes = zero_failed_shards(gres, fine, fetch_bufs, fetch_idx)
+        else:
+            holes = zero_failed_shards(gres, table, buffers, local_idx)
 
         # ---- stage: host shard buffers → the rank's device -------------
         t0 = time.perf_counter()
@@ -283,12 +316,9 @@ def run_pod_ingest(
 ) -> RunResult:
     """Run pod-ingest on ``pod``: by default every rank of the process
     group this process joined, on ``device``. The group is the caller's
-    (``cli.execute`` brings it up, one rank for a single process). The
-    configurations on which the reference multiplexes the shard fetch
-    raise ``NotImplementedError`` first."""
+    (``cli.execute`` brings it up, one rank for a single process)."""
     resolve_device(device)
     refuse_unported(cfg)
-    refuse_multiplexed_fetch(cfg)
     pod = pod or make_mesh(axis=cfg.dist.mesh_axis, device=device)
     owns = backend is None
     backend = backend or open_backend(cfg)
