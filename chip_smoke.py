@@ -42,7 +42,12 @@ before the last line:
    ``tb_checksum`` launch per transfer), native_depth3 (no kernel) and
    native_fetch_only (staging none: host fetch alone). The slot ring is
    subclassed only to note each worker's slots and stream: every slot
-   must be page-locked, 48 distinct streams, the reactor engaged;
+   must be page-locked, 48 distinct streams, the reactor engaged. Mode
+   native_h2_validate: the executor's h2 pool (``--http2``) against the
+   port's h2c server over phase read's store, 8 workers of one read:
+   the reactor engaged, at least one h2 stream per transfer in the
+   engine's counters, ``checksum_ok`` and one ``tb_checksum`` launch per
+   transfer;
 6. protocols — the same deployment through every storage client of the
    worker-pool route, the reference's client switch (``main.go:169-177``),
    over one store (phase read's) served by the port's hermetic servers:
@@ -129,7 +134,21 @@ before the last line:
    ``build/`` (removed after): zero errors, ``bytes_total`` = threads x
    size x passes; GB/s, p50/p99 and whether ``O_DIRECT`` engaged;
 16. preflight — exit 0 for the fake store, 1 against a dead endpoint, 0
-   in a process that sees no GPU (which must not initialise CUDA).
+   with ``--key-file`` against a loopback server (anonymous, as in
+   ``tpubench``), 0 in a process that sees no GPU (which must not
+   initialise CUDA);
+17. stream — ``stream`` through ``cli.execute`` at ``tpubench``'s
+   defaults (8 objects of 100 MiB, lane 128, validated) over phase read's
+   store, then resumed from its snapshot to 10 objects (8 skipped, 2
+   ingested), then 4 objects over the h2c server's mux route: verified,
+   every object's device checksum the true byte sum of its object,
+   ``tb_checksum`` launched once per object plus once for the warm-up,
+   the peak device memory that of one object; overlap efficiency and the
+   stage seconds printed;
+18. multichip — ``multichip-sweep --sizes 1,2 --shard-mb 8 --reps 1``
+   (artifact under ``build/``): the ring algebra holds, every pod-ingest
+   row verified, the size-1 child on the card over NCCL (its launches
+   counted in the child), the size-2 child two gloo ranks.
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB)
 and at phase pod's (1 GiB, 8,388,608 × 128) against its plain version,
@@ -212,6 +231,17 @@ GATHER_MODES = ("all_gather", "ring", "reduce_scatter", "psum")
 GATHER_REPS = 5
 GATHER_SHARD_MB = 4  # phase gather's shard: 32,768 x 128
 BUILD = "build/chip_smoke"
+# Phase native's h2 mode: the executor's h2 pool against the port's h2c
+# server, which moves 0.2-0.5 GB/s, so 8 workers of one read each.
+NATIVE_H2_WORKERS = 8
+# Phase stream: `stream` at tpubench's defaults (8 objects of
+# workload.object_size, lane 128, validated) over phase read's store; a
+# resume to 10 objects; the h2 mux route on fewer objects (the Python
+# server's rate). Each mode launches tb_checksum once per object and once
+# for the warm-up (every object has one shape).
+STREAM_MODES = {"stream": 8, "stream_resume": 10, "stream_h2_mux": 4}
+MULTICHIP = ["multichip-sweep", "--sizes", "1,2", "--shard-mb", "8",
+             "--reps", "1"]
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
@@ -228,7 +258,10 @@ KERNELS = {
                             "pod/all_gather", "pod/ring",
                             "pod/http2_mux", "pod/grpc_native_mux",
                             "gather/all_gather", "gather/ring",
-                            "tune/online_validate", "sweep/validate")),
+                            "tune/online_validate", "sweep/validate",
+                            "native/native_h2_validate",
+                            *(f"stream/{m}" for m in STREAM_MODES),
+                            "multichip/size1")),
 }
 
 
@@ -264,6 +297,7 @@ def main() -> int:
     store = populate()
     counts = {  # "<phase>/<mode>" -> counts
         **phase_read(store, smi), **phase_native(),
+        **native_h2_mode(store, smi),
         **phase_protocols(store, smi, args.seed),
         **phase_obs(store, smi), **phase_tail(smi, args.seed),
     }
@@ -276,6 +310,8 @@ def main() -> int:
     counts.update(phase_sweep(store, smi))
     phase_fs(smi)
     phase_preflight(smi)
+    counts.update(phase_stream(store, smi))
+    counts.update(phase_multichip(smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -1016,6 +1052,65 @@ def _check_native(mode: str, res, counts: dict, pipes: list, slot: int,
         "native_transport": ex.get("native_transport"),
     })
 
+
+
+def native_h2_mode(store, smi) -> dict:
+    """Phase native, mode native_h2_validate: ``read --protocol http
+    --http2 --fetch-executor native --validate`` against the port's h2c
+    server over phase read's store (NATIVE_H2_WORKERS workers, one read
+    each): the reactor engaged, every GET an h2 stream, ``checksum_ok``,
+    one ``tb_checksum`` launch per transfer."""
+    from tpubench_torch.cli import read
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.native.engine import get_engine
+    from tpubench_torch.storage.fake_h2_server import FakeH2Server
+
+    mode = "native_h2_validate"
+    engine = get_engine()
+    with FakeH2Server(store) as srv:
+        cfg = _native_config(srv.endpoint, NATIVE_H2_WORKERS,
+                             "native_validate")
+        cfg.transport.http2 = True
+        stats0 = engine.stats()
+        landing.reset_launches()
+        res = read(cfg, device="cuda")
+        counts = {"land": landing.land.launches,
+                  "checksum": landing.checksum.launches}
+    ex = res.extra
+    delta = ex.get("native_transport", {})
+    transfers = res.summaries["stage"].count
+    want_bytes = NATIVE_H2_WORKERS * OBJECT_SIZE
+    check(res.errors == 0, f"{mode}: {res.errors} errors ({ex.get('first_error')})")
+    check(res.bytes_total == ex.get("staged_bytes") == want_bytes,
+          f"{mode}: {res.bytes_total} B, staged {ex.get('staged_bytes')}")
+    check(ex.get("executor_mode") == "reactor",
+          f"{mode}: executor {ex.get('executor_mode')}")
+    check(ex.get("checksum_ok") is True, f"{mode}: checksum mismatch")
+    check(counts == {"land": 0, "checksum": transfers},
+          f"{mode}: launches {counts} for {transfers} transfers")
+    check(delta.get("reactor_h2_streams", 0) >= transfers
+          and delta.get("h2_streams_opened", 0) >= transfers,
+          f"{mode}: h2 streams {delta} for {transfers} transfers")
+    fb = res.summaries.get("first_byte")
+    emit({
+        "phase": "native", "mode": mode, "workers": NATIVE_H2_WORKERS,
+        "object_size": OBJECT_SIZE, "bytes_total": res.bytes_total,
+        "staged_bytes": ex.get("staged_bytes"), "transfers": transfers,
+        "slot_bytes": ex.get("slot_bytes"), "launches": counts,
+        "checksum_ok": ex.get("checksum_ok"), "wall_s": res.wall_seconds,
+        "gbps_per_chip": res.gbps_per_chip,
+        "staged_gbps_per_chip": ex.get("staged_gbps_per_chip"),
+        "first_byte_p50_ms": fb.p50_ms if fb else None,
+        "first_byte_p99_ms": fb.p99_ms if fb else None,
+        "executor_mode": ex["executor_mode"],
+        "reactor_h2_streams": delta.get("reactor_h2_streams"),
+        "h2_streams_opened": delta.get("h2_streams_opened"),
+        "native_transport": delta,
+        "reduced": [f"{NATIVE_H2_WORKERS} workers of one read (the port's "
+                    "Python h2c server moves 0.2-0.5 GB/s)"],
+        "card": smi,
+    })
+    return {f"native/{mode}": counts}
 
 
 # -------------------------------------------------------------- phase 6 --
@@ -2387,26 +2482,41 @@ def phase_preflight(smi) -> None:
 
     from tpubench_torch import cli
 
+    from tpubench_torch.storage.fake import FakeBackend
+    from tpubench_torch.storage.fake_server import FakeGcsServer
+
     out = {}
     conf = f"{BUILD}/preflight_retry.json"
     os.makedirs(BUILD, exist_ok=True)
     with open(conf, "w") as f:
         json.dump({"transport": {"retry": {"deadline_s": 2.0}}}, f)
-    for name, argv in (
-        ("fake", ["preflight", "--protocol", "fake"]),
-        ("dead_endpoint", ["preflight", "--protocol", "http", "--config",
-                           conf, "--endpoint", "http://127.0.0.1:9"]),
-    ):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        text = buf.getvalue()
-        out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
-                     "verdict": text.strip().splitlines()[-2]}
+    with FakeGcsServer(FakeBackend.prepopulated("tpubench/file_", 2, 1000)) as srv:
+        for name, argv in (
+            ("fake", ["preflight", "--protocol", "fake"]),
+            ("dead_endpoint", ["preflight", "--protocol", "http", "--config",
+                               conf, "--endpoint", "http://127.0.0.1:9"]),
+            # A key file against a test server's endpoint: anonymous, as in
+            # tpubench (the file is never read).
+            ("key_file_loopback", [
+                "preflight", "--protocol", "http", "--endpoint", srv.endpoint,
+                "--key-file", f"{BUILD}/no_such_key.json", "--bucket",
+                "testbucket", "--object-name-prefix", "tpubench/file_"]),
+        ):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            lines = buf.getvalue().strip().splitlines()
+            auth = next(c for c in json.loads(lines[-1])["checks"]
+                        if c["name"] == "auth")
+            out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                         "verdict": lines[-2], "auth": auth["detail"]}
     check(out["fake"]["rc"] == 0 and out["fake"]["verdict"] == "preflight: OK",
           f"preflight/fake: {out['fake']}")
     check(out["dead_endpoint"]["rc"] == 1, f"preflight/dead: {out}")
+    kf = out["key_file_loopback"]
+    check(kf["rc"] == 0 and kf["verdict"] == "preflight: OK"
+          and "anonymous" in kf["auth"], f"preflight/key_file: {kf}")
     code = ("import sys, torch; from tpubench_torch.cli import main; "
             "rc = main(['preflight', '--protocol', 'fake']); "
             "print('cuda_initialized', torch.cuda.is_initialized()); "
@@ -2422,6 +2532,185 @@ def phase_preflight(smi) -> None:
           and "cuda_initialized False" in proc.stdout,
           f"preflight/no_gpu: rc {proc.returncode} {proc.stderr[-500:]}")
     emit({"phase": "preflight", **out, "card": smi})
+
+
+
+# ------------------------------------------------------------- phase 17 --
+def phase_stream(store, smi) -> dict:
+    """``stream`` through ``cli.execute`` (a one-rank NCCL group) at
+    tpubench's defaults over phase read's store: mode stream (8 objects,
+    validated, a snapshot under ``build/``), stream_resume (from that
+    snapshot with ``--objects 10``: 8 skipped, 2 ingested) and
+    stream_h2_mux (the store behind the port's h2c server, each object's
+    shard one batch of MUX_RANGES_PER_RANK ranges on one connection).
+    Every mode: verified, each object's device checksum the true byte sum
+    of its object mod 2³², zero errors, every byte delivered, one
+    ``tb_checksum`` launch per object and one for the warm-up; the peak
+    device memory stays that of one object, not the stream's."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage import base_backend, open_backend
+    from tpubench_torch.storage.fake_h2_server import FakeH2Server
+    from tpubench_torch.workloads.pod_ingest import MUX_RANGES_PER_RANK
+
+    os.makedirs(BUILD, exist_ok=True)
+    snap = f"{BUILD}/stream_snapshot.json"
+    if os.path.exists(snap):
+        os.remove(snap)
+    prefix = "tpubench/file_"
+    true_sums = [int(store._objects[f"{prefix}{k}"].sum(dtype=np.uint64)) % MOD
+                 for k in range(max(STREAM_MODES.values()))]
+    base = ["stream", "--validate", "--workers", str(WORKERS),
+            "--object-size", str(OBJECT_SIZE)]
+    argv = {
+        "stream": [*base, "--protocol", "fake", "--snapshot", snap],
+        "stream_resume": [*base, "--protocol", "fake", "--objects",
+                          str(STREAM_MODES["stream_resume"]),
+                          "--resume-from", snap],
+        "stream_h2_mux": [*base, "--protocol", "http", "--http2",
+                          "--bucket", "testbucket", "--object-name-prefix",
+                          prefix, "--objects",
+                          str(STREAM_MODES["stream_h2_mux"])],
+    }
+    launches = {}
+    with FakeH2Server(store) as h2:
+        for mode, av in argv.items():
+            mux = mode.endswith("_mux")
+            args, cfg = _cli(av + (["--endpoint", h2.endpoint] if mux else []))
+            backend, batches, conn = store, [], None
+            if mux:
+                backend = open_backend(cfg)
+                inner = base_backend(backend)
+                real = inner.read_ranges
+                inner.read_ranges = lambda name, r, b: batches.append(
+                    len(r)) or real(name, r, b)
+            t0 = time.perf_counter()
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                landing.reset_launches()
+                res = cli.execute("stream", cfg, device="cuda",
+                                  backend=backend, args=args)
+                counts = {"land": landing.land.launches,
+                          "checksum": landing.checksum.launches}
+                peak = torch.cuda.max_memory_allocated() - held
+                if mux:
+                    conn = dict(inner._h2_pool().stats)
+            finally:
+                if mux:
+                    backend.close()
+            launches[f"stream/{mode}"] = counts
+            _check_stream(mode, res, counts, peak, true_sums, batches, conn,
+                          MUX_RANGES_PER_RANK)
+            ex = res.extra
+            emit({"phase": "stream", "mode": mode,
+                  "objects": ex["objects"],
+                  "objects_this_run": ex["objects_this_run"],
+                  "object_size": OBJECT_SIZE, "bytes_total": res.bytes_total,
+                  "verified": ex["verified"], "launches": counts,
+                  "overlap_efficiency": ex["overlap_efficiency"],
+                  **{k: ex[k] for k in ("fetch_seconds", "stage_seconds",
+                                        "gather_seconds")},
+                  "wall_s": res.wall_seconds, "gbps": res.gbps,
+                  "peak_hbm_allocated_bytes": peak,
+                  "hbm_held_before_bytes": held,
+                  "resume": ex.get("resume"), "mux_batches": batches,
+                  "native_conn_stats": conn,
+                  "seconds": time.perf_counter() - t0,
+                  "reduced": ["one rank (the machine has one H100)"]
+                  + ([f"{STREAM_MODES[mode]} objects (the port's Python h2c "
+                      "server moves 0.2-0.5 GB/s)"] if mux else []),
+                  "card": smi})
+    os.remove(snap)
+    return launches
+
+
+def _check_stream(mode: str, res, counts: dict, peak: int, true_sums: list,
+                  batches: list, conn, ranges: int) -> None:
+    import torch.distributed as dist
+
+    ex = res.extra
+    n = STREAM_MODES[mode]
+    skipped = STREAM_MODES["stream"] if mode == "stream_resume" else 0
+    ran = n - skipped
+    check(not dist.is_initialized(), f"stream/{mode}: the group outlived the run")
+    check(res.errors == 0 and ex["verified"] is True and not ex["holes_by_object"],
+          f"stream/{mode}: errors {res.errors}, verified {ex['verified']}")
+    check(ex["objects"] == n and ex["objects_this_run"] == ran,
+          f"stream/{mode}: {ex['objects']} objects, {ex['objects_this_run']} run")
+    check(res.bytes_total == ran * OBJECT_SIZE, f"stream/{mode}: {res.bytes_total} B")
+    check(ex["object_checksums"] == true_sums[skipped:n],
+          f"stream/{mode}: checksums {ex['object_checksums']} vs true "
+          f"{true_sums[skipped:n]}")
+    check(counts == {"land": 0, "checksum": ran + 1},
+          f"stream/{mode}: launches {counts}, want {ran} objects + 1 warm-up")
+    # The staged shard and its gather of one object (and the warm-up's),
+    # never the stream's history.
+    check(peak <= 4 * OBJECT_SIZE, f"stream/{mode}: peak HBM {peak} B")
+    if mode == "stream_resume":
+        r = ex["resume"]
+        check(r["prior_found"] and r["objects_skipped"] == skipped
+              and r["prior_bytes"] == skipped * OBJECT_SIZE,
+              f"stream/{mode}: resume {r}")
+    if mode.endswith("_mux"):
+        check(batches == [ranges] * n and conn["connects"] == 1,
+              f"stream/{mode}: batches {batches}, connections {conn}")
+
+
+# ------------------------------------------------------------- phase 18 --
+def phase_multichip(smi) -> dict:
+    """``multichip-sweep --sizes 1,2 --shard-mb 8 --reps 1`` as the CLI
+    runs it, its artifact under ``build/``: the ring algebra holds, every
+    pod-ingest row verified, the size-1 child on the card over NCCL (its
+    ``tb_checksum`` launches: the two collective calls of each of its two
+    timed pod-ingest runs), the size-2 child two gloo ranks on the CPU."""
+    import contextlib
+    import io
+    import os
+
+    from tpubench_torch import cli
+    from tpubench_torch.dist.sweep import ARTIFACT
+
+    out_dir = f"{BUILD}/multichip"
+    os.makedirs(out_dir, exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*MULTICHIP, "--results-dir", out_dir])
+    seconds = time.perf_counter() - t0
+    with open(f"{out_dir}/{ARTIFACT}") as f:
+        art = json.load(f)
+    check(rc == 0 and art["ring_algebra_ok"],
+          f"multichip: rc {rc}, violations {art['ring_algebra_violations']}")
+    rows = {r["devices"]: r for r in art["pod_ingest"]}
+    check(sorted(rows) == [1, 2], f"multichip: sizes {sorted(rows)}")
+    for n, r in rows.items():
+        for key in ("pod_ingest_all_gather", "pod_ingest_ring"):
+            check(r[key]["verified"] is True and r[key]["errors"] == 0,
+                  f"multichip: n={n} {key} {r[key]}")
+    one, two = rows[1], rows[2]
+    check((one["backend"], one["device"]) == ("nccl", "cuda"),
+          f"multichip: size 1 ran {one['backend']} on {one['device']}")
+    check((two["backend"], two["device"]) == ("gloo", "cpu"),
+          f"multichip: size 2 ran {two['backend']} on {two['device']}")
+    check(one["launches"] == {"land": 0, "checksum": 4},
+          f"multichip: size-1 launches {one['launches']}")
+    emit({"phase": "multichip", "argv": MULTICHIP, "seconds": seconds,
+          "platform": art["platform"], "ring_algebra_ok": True,
+          "rows": [{k: r[k] for k in ("devices", "backend", "device",
+                                      "launches", "pod_ingest_all_gather",
+                                      "pod_ingest_ring")}
+                   for r in art["pod_ingest"]],
+          "collectives": art["collectives"],
+          "reduced": ["size 2 as two gloo ranks on the CPU (the machine has "
+                      "one H100; NCCL takes one rank per GPU)"],
+          "card": smi})
+    return {"multichip/size1": one["launches"]}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The port's stagers on the card against the same stagers on the CPU
-(the kernels themselves: ``tests/test_torch_kernels.py``).
+(the kernels themselves: ``tests/test_torch_kernels.py``), and the pod
+commands on a one-rank NCCL group against a gloo one.
 
 Every test here needs a CUDA device and skips without one (decided in a
 fixture). The file imports neither jax nor the JAX package, so it runs on
@@ -342,3 +343,37 @@ def test_mux_pod_ingest_on_cuda_matches_cpu(cuda, kind):
         assert res.bytes_total == 3_000_001
     for key in ("shard_bytes", "holes_global", "mode"):
         assert out["cpu"].extra[key] == out["cuda"].extra[key], key
+
+
+def test_one_rank_nccl_stream_matches_cpu(cuda, tmp_path):
+    """``stream`` through ``cli.execute`` on a one-rank NCCL group, objects
+    of three sizes (the buffer sets reused across sizes), against the same
+    run on the CPU: the same per-object checksums, each the true byte sum
+    of its object; one ``tb_checksum`` launch per object and one per
+    shard shape on the card."""
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage.fake import FakeBackend
+
+    sizes = (3_000_001, 1_000_003, 70_001)
+    store = FakeBackend.from_population(
+        [(f"tpubench/file_{i}", s, 1) for i, s in enumerate(sizes)])
+    args = cli.build_parser().parse_args([
+        "stream", "--protocol", "fake", "--workers", "3", "--objects", "6",
+        "--validate", "--results-dir", str(tmp_path)])
+    cfg = cli.build_config(args)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        landing.reset_launches()
+        out[dev] = cli.execute("stream", cfg, device=dev, backend=store,
+                               args=args)
+        assert not dist.is_initialized()
+    assert landing.checksum.launches == 6 + len(sizes)
+    want = [int(deterministic_bytes(f"tpubench/file_{k % 3}", sizes[k % 3])
+                .sum(dtype=np.uint64)) % (1 << 32) for k in range(6)]
+    for res in out.values():
+        assert res.errors == 0 and res.extra["verified"] is True
+        assert res.extra["object_checksums"] == want
+        assert res.bytes_total == 2 * sum(sizes)

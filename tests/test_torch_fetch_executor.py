@@ -216,17 +216,126 @@ def test_refusals_match_tpubench(switch, match, jax_cpu_devices):
         run_read(_switch(_cfg(endpoint), switch), device="cpu")
 
 
+def _no_adc(monkeypatch):
+    """Default credentials are absent, as on a machine without ADC: the
+    stub raises where ``google.auth.default`` would look for them, so no
+    test reaches a metadata server."""
+    import google.auth
+    import google.auth.exceptions
+
+    def absent(*_a, **_k):
+        raise google.auth.exceptions.DefaultCredentialsError("no ADC (stub)")
+
+    monkeypatch.setattr(google.auth, "default", absent)
+
+
+@pytest.fixture(scope="module")
+def h2_server():
+    from tpubench.storage.fake_h2_server import FakeH2Server
+
+    with FakeH2Server(FakeBackend.prepopulated(PREFIX, count=4, size=SIZE)) as srv:
+        yield srv
+
+
 @pytest.mark.parametrize("switch", ["http2", "key_file", "google_endpoint"])
-def test_unported_http_features_name_roadmap_a2(switch):
-    cfg = _cfg("http://127.0.0.1:9")
+def test_lifted_http_features_run_as_in_reference(switch, server, h2_server,
+                                                  jax_cpu_devices, monkeypatch):
+    """The switches refused until the executor's h2 pool and the token
+    sources were ported run through both packages' executors alike:
+    ``http2`` over h2c (the reactor's h2 pool, every GET a stream), a key
+    file against a test server (anonymous, as in ``tpubench``), and
+    Google's endpoint without credentials (both raise building the
+    client, before any request)."""
+    jcfg = _cfg((h2_server if switch == "http2" else server).endpoint,
+                cls=JaxBenchConfig)
     if switch == "http2":
-        cfg.transport.http2 = True
+        jcfg.transport.http2 = True
     elif switch == "key_file":
-        cfg.transport.key_file = "/nonexistent/key.json"
+        jcfg.transport.key_file = "/nonexistent/key.json"
     else:
-        cfg.transport.endpoint = ""  # storage.googleapis.com: credentials
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        run_read(cfg, device="cpu")
+        _no_adc(monkeypatch)
+        jcfg.transport.endpoint = ""  # storage.googleapis.com: credentials
+        import google.auth.exceptions
+
+        for run in (lambda: jax_run_read(jcfg),
+                    lambda: run_read(BenchConfig.from_dict(jcfg.to_dict()),
+                                     device="cpu")):
+            with pytest.raises(google.auth.exceptions.DefaultCredentialsError):
+                run()
+        return
+    eng = get_engine()
+    stats0 = eng.stats()
+    tres = run_read(BenchConfig.from_dict(jcfg.to_dict()), device="cpu").to_dict()
+    delta = {k: v - stats0.get(k, 0) for k, v in eng.stats().items()}
+    jres = jax_run_read(jcfg).to_dict()
+    assert jres["bytes_total"] == tres["bytes_total"] == 2 * 2 * SIZE
+    assert jres["errors"] == tres["errors"] == 0
+    for key in ("staged_bytes", "checksum_ok", "slot_bytes", "retries",
+                "executor_mode"):
+        assert jres["extra"][key] == tres["extra"][key], key
+    assert tres["extra"]["checksum_ok"] is True
+    assert tres["extra"]["executor_mode"] == "reactor"
+    transfers = tres["summaries"]["stage"]["count"]
+    assert transfers == jres["summaries"]["stage"]["count"] == 2 * 2 * 4
+    streams = transfers if switch == "http2" else 0
+    assert delta["reactor_h2_streams"] >= streams
+    assert (delta["reactor_h2_streams"] > 0) is (switch == "http2")
+
+
+def test_reactor_h2_many_streams_exactly_once(h2_server):
+    """h2c prior knowledge (``tests/test_reactor.py``'s case): 40 GETs
+    multiplex as streams over at most 2 connections, each tag completes
+    exactly once with its object's bytes, and the h2 stream counters
+    attribute the multiplexing."""
+    eng = get_engine()
+    host, port = h2_server.endpoint.replace("http://", "").split(":")
+    stats0 = eng.stats()
+    n, bufs, seen = 40, {}, {}
+    with eng.pool_create(2, 64, mode="reactor", h2=True) as pool:
+        assert pool.mode == "reactor"
+        for i in range(n):
+            bufs[i] = torch.zeros(SIZE, dtype=torch.uint8)
+            pool.submit_to(
+                host, int(port),
+                f"/storage/v1/b/testbucket/o/bench%2Ffile_{i % 4}?alt=media",
+                bufs[i].data_ptr(), SIZE, tag=i,
+            )
+        while len(seen) < n:
+            got = pool.next_batch(timeout_ms=10_000)
+            assert got, "h2 drain stalled"
+            for c in got:
+                assert c["tag"] not in seen, "duplicate completion"
+                seen[c["tag"]] = c
+                assert c["result"] == SIZE and c["status"] == 200, c
+    for i in seen:
+        assert np.array_equal(bufs[i].numpy(),
+                              deterministic_bytes(f"{PREFIX}{i % 4}", SIZE))
+    delta = {k: v - stats0.get(k, 0) for k, v in eng.stats().items()}
+    assert delta["reactor_h2_streams"] >= n
+    assert delta["h2_streams_opened"] >= n
+
+
+def test_h2_never_degrades_to_http1(server, jax_cpu_devices):
+    """An h2 pool whose reactor cannot be made raises (code -22) instead
+    of serving HTTP/1.1 from the thread pool, and ``native-threads`` with
+    ``http2`` is refused before any request, in both packages."""
+    from tpubench_torch.native.engine import NativeEngine, NativeError
+
+    class NoReactor:
+        class lib:
+            tb_pool_create2 = staticmethod(lambda *a: 0)
+            tb_pool_create = staticmethod(lambda *a: 1)  # would serve h1
+
+    with pytest.raises(NativeError) as err:
+        NativeEngine.pool_create(NoReactor(), 2, mode="reactor", h2=True)
+    assert err.value.code == -22
+    jcfg = _cfg(server.endpoint, cls=JaxBenchConfig)
+    jcfg.transport.http2 = True
+    jcfg.workload.fetch_executor = "native-threads"
+    with pytest.raises(ValueError, match="native-threads"):
+        jax_run_read(jcfg)
+    with pytest.raises(ValueError, match="native-threads"):
+        run_read(BenchConfig.from_dict(jcfg.to_dict()), device="cpu")
 
 
 # (g) -------------------------------------------------------------------

@@ -62,6 +62,9 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.workloads.chaos", "tpubench_torch.obs.live",
         "tpubench_torch.replay.gate", "tpubench_torch.workloads.fsbench",
         "tpubench_torch.workloads.preflight",
+        "tpubench_torch.storage.auth",
+        "tpubench_torch.workloads.pod_ingest_stream",
+        "tpubench_torch.dist.sweep",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -77,10 +80,12 @@ def test_every_module_imports_without_jax_or_tpubench():
     ]
     assert banned == [], banned
     assert "torch" in loaded
-    # The optional export packages load only when a run asks for them.
+    # The optional export packages load only when a run asks for them,
+    # and google.auth only when a client needs Google's credentials.
     lazy = [
         m for m in loaded
-        if m.startswith(("opentelemetry", "google.cloud.monitoring"))
+        if m.startswith(("opentelemetry", "google.cloud.monitoring",
+                         "google.auth"))
     ]
     assert lazy == [], lazy
 
@@ -110,14 +115,19 @@ def test_run_read_without_cuda_raises(monkeypatch):
         run_read(cfg)
 
 
-@pytest.mark.parametrize("entry", ["pod_ingest", "gather_bench", "probe"])
+@pytest.mark.parametrize("entry", ["pod_ingest", "gather_bench", "probe",
+                                   "stream"])
 def test_pod_entry_points_without_cuda_raise(entry, monkeypatch):
-    """``pod-ingest``, ``gather-bench`` and ``probe`` raise without a GPU
-    unless asked for the CPU — before any process group is brought up."""
+    """``pod-ingest``, ``gather-bench``, ``probe`` and ``stream`` raise
+    without a GPU unless asked for the CPU — before any process group is
+    brought up."""
     import torch.distributed as dist
 
     from tpubench_torch.workloads.gather_bench import run_gather_bench
     from tpubench_torch.workloads.pod_ingest import run_pod_ingest
+    from tpubench_torch.workloads.pod_ingest_stream import (
+        run_pod_ingest_stream,
+    )
     from tpubench_torch.workloads.probe import run_probe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -126,7 +136,8 @@ def test_pod_entry_points_without_cuda_raise(entry, monkeypatch):
     cfg.workload.workers = 1
     cfg.workload.object_size = 1024
     run = {"pod_ingest": run_pod_ingest, "gather_bench": run_gather_bench,
-           "probe": run_probe}[entry]
+           "probe": run_probe,
+           "stream": lambda c: run_pod_ingest_stream(c, n_objects=2)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run(cfg)
     assert not dist.is_initialized()
@@ -183,7 +194,7 @@ def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe",
-                                 "sweep", "list"])
+                                 "sweep", "list", "stream"])
 def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
     argv = [cmd, "--protocol", "fake", "--workers", "1", "--object-size",
             "70001", "--dir", str(tmp_path), "--results-dir", str(tmp_path)]
@@ -197,8 +208,30 @@ def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
 
 
 def test_unported_protocol_raises_not_implemented():
+    """gRPC to Google's endpoint needs library mode (A.2), refused before
+    the client connects."""
     from tpubench_torch.workloads.read import run_read
 
-    cfg = BenchConfig()  # protocol http
+    cfg = BenchConfig()
+    cfg.transport.protocol = "grpc"  # Google's endpoint
     with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
         run_read(cfg, device="cpu")
+
+
+def test_multichip_child_never_imports_jax(tmp_path):
+    """A ``multichip-sweep`` child (one rank on the CPU, a small shard)
+    runs its pod-ingest rows without loading ``jax`` or ``tpubench``."""
+    proc = _run(
+        "import json, sys\n"
+        "from tpubench_torch.dist import sweep\n"
+        "sweep.main(['--child', '1', '--rank', '0', '--port', '0', "
+        "'--shard-mb', '0.0625', '--reps', '1', '--device', 'cpu'])\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    row = json.loads(proc.stdout.strip().splitlines()[-2])
+    assert row["devices"] == 1 and row["backend"] == "gloo"
+    assert row["pod_ingest_all_gather"]["verified"] is True
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if m in ("jax", "tpubench")
+            or m.startswith(("jax.", "jaxlib", "tpubench."))] == []

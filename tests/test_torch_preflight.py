@@ -1,13 +1,13 @@
 """``preflight`` of the port against ``tpubench``'s: the counterparts of
 the preflight tests of ``tests/test_preflight_report.py``, each running one
 config through both packages' ``run_preflight`` and comparing the checks,
-plus what differs by design (the port has no token sources: a config that
-needs one fails the auth check, naming ROADMAP A.2) and the check's being
-device-free.
+plus the auth check on Google's endpoint (default credentials stubbed,
+present or absent) and the check's being device-free.
 
 No check here reaches past this machine: the GCE metadata probe is
-replaced by ``False`` in both packages, and the reference's auth and
-bucket checks are run only where they stay local."""
+replaced by ``False`` in both packages, ``google.auth.default`` by a stub
+(no test looks for real credentials), and the bucket checks are run only
+where the client fails before it connects."""
 
 import json
 import os
@@ -30,10 +30,23 @@ from tpubench_torch.workloads import preflight
 REPO = Path(__file__).resolve().parents[1]
 
 
+class _Creds:
+    """Stand-in for credentials ``google.auth.default`` found."""
+
+    valid, token = True, "stub-token"
+
+
 @pytest.fixture(autouse=True)
 def _off_gcp(monkeypatch):
+    import google.auth
+    import google.auth.exceptions
+
+    def absent(*_a, **_k):
+        raise google.auth.exceptions.DefaultCredentialsError("no ADC (stub)")
+
     for mod in (jax_pf, preflight):
         monkeypatch.setattr(mod, "_metadata_server_reachable", lambda: False)
+    monkeypatch.setattr(google.auth, "default", absent)
 
 
 def _both(**transport):
@@ -91,35 +104,64 @@ def test_preflight_unreachable_bucket_fails():
 
 
 def test_preflight_bad_key_file_fails_auth_naming_a2():
-    """A key file needs a token source: ``tpubench`` fails building it
-    (the file is missing), the port fails because it has none yet — both
-    fail the check and the run."""
+    """A missing key file on Google's endpoint: both packages fail
+    building the token source, with the same check, and fail the run
+    (the port's bucket check fails building its client, before any
+    request)."""
     ref_cfg, cfg = _both(protocol="http", key_file="/nonexistent/sa-key.json")
     ref_auth = jax_pf._auth_check(ref_cfg)  # local: reads the key file only
     assert ref_auth["ok"] is False
     res = preflight.run_preflight(cfg, probe_timeout_s=5.0)
     c = _checks(res)
+    assert c["auth"] == ref_auth
     assert c["auth"]["ok"] is False and c["auth"]["skipped"] is False
-    assert "ROADMAP A.2" in c["auth"]["detail"]
     assert "/nonexistent/sa-key.json" in c["auth"]["detail"]
+    assert "backend construction" in c["bucket"]["detail"]
     assert res["ok"] is False
 
 
 @pytest.mark.parametrize("protocol", ["http", "grpc"])
 def test_preflight_default_endpoint_credentials_fail_naming_a2(protocol):
-    """Default credentials on Google's endpoint: failed, never skipped or
-    ok, and no request leaves the machine (the port refuses the backend
-    before it connects)."""
-    cfg = BenchConfig()
-    cfg.transport.protocol = protocol
-    cfg.transport.directpath = False
+    """Default credentials on Google's endpoint, on a machine without
+    them: the auth check fails as ``tpubench``'s does, never skipped or
+    ok, and no request leaves the machine: the HTTP client fails building
+    its token source, the gRPC client is refused (library mode, still
+    ROADMAP A.2) before it connects."""
+    ref_cfg, cfg = _both(protocol=protocol, directpath=False)
     res = preflight.run_preflight(cfg, probe_timeout_s=5.0)
     c = _checks(res)
+    assert c["auth"] == jax_pf._auth_check(ref_cfg)
     assert c["auth"]["ok"] is False and not c["auth"]["skipped"]
-    assert "ADC" in c["auth"]["detail"] and "ROADMAP A.2" in c["auth"]["detail"]
+    assert "token source construction" in c["auth"]["detail"]
     assert c["bucket"]["ok"] is False
-    assert "ROADMAP A.2" in c["bucket"]["detail"]
+    want = "ROADMAP A.2" if protocol == "grpc" else "no ADC (stub)"
+    assert want in c["bucket"]["detail"]
     assert res["ok"] is False
+
+
+@pytest.mark.parametrize("key_file", ["", "/k.json"], ids=["adc", "key_file"])
+def test_preflight_token_source_mints_as_in_reference(key_file, monkeypatch):
+    """Credentials present (stubbed): the auth check resolves the source,
+    mints a token and reports which kind, as ``tpubench``'s does; a key
+    file against a test server's endpoint stays anonymous."""
+    import google.auth
+    from google.oauth2 import service_account
+
+    monkeypatch.setattr(google.auth, "default", lambda **_k: (_Creds(), "p"))
+    monkeypatch.setattr(service_account.Credentials,
+                        "from_service_account_file",
+                        classmethod(lambda cls, *_a, **_k: _Creds()))
+    ref_cfg, cfg = _both(protocol="http", key_file=key_file)
+    c = preflight._auth_check(cfg)
+    assert c == jax_pf._auth_check(ref_cfg)
+    kind = "service-account key" if key_file else "ADC"
+    assert c["ok"] is True and c["detail"].startswith(kind)
+    assert "stub-token" not in c["detail"]
+    ref_cfg, cfg = _both(protocol="http", key_file=key_file,
+                         endpoint="http://127.0.0.1:9")
+    c = preflight._auth_check(cfg)
+    assert c == jax_pf._auth_check(ref_cfg)
+    assert c["ok"] is True and "anonymous" in c["detail"]
 
 
 def test_preflight_directpath_off_gcp_or_custom_endpoint():

@@ -233,7 +233,6 @@ def _switched(section: str, name: str, value):
 
 
 @pytest.mark.parametrize("switch, item", [
-    (("transport", "key_file", "/nonexistent/key.json"), "A.2"),
     (("obs", "results_bucket", "b"), "A.2"),
 ])
 def test_unported_switch_is_refused(switch, item):
@@ -264,6 +263,8 @@ def test_tune_over_train_ingest_is_refused():
     ("dist", "num_processes", 2),
     ("obs", "profile_dir", "prof"),
     ("tune", "enabled", True),
+    ("transport", "key_file", "/nonexistent/key.json"),
+    ("transport", "http2", True),
 ], ids=lambda sw: f"{sw[0]}.{sw[1]}")
 def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
     """The switches ported so far run through the ``read`` command on the
@@ -274,7 +275,10 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
     journal takes the ``.p1`` suffix. ``obs.profile_dir`` runs through
     ``cli.execute``, which holds the profiler, and leaves a trace.
     ``tune.enabled`` runs the online controller (the staging depth is its
-    one knob at one worker) and stamps its trace."""
+    one knob at one worker) and stamps its trace. ``transport.key_file``
+    on a store that needs no credentials changes nothing (as in
+    ``tpubench``); ``transport.http2`` with ``fetch_executor='native'``
+    reads from the port's h2c server through the executor's h2 pool."""
     monkeypatch.chdir(tmp_path)
     ref = _switched(*switch)
     ref.workload.workers = 1
@@ -289,6 +293,19 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
     refuse_unported(cfg)
     if switch[1] == "profile_dir":
         res = cli.execute("read", cfg, device="cpu")
+    elif switch[1] == "http2":
+        from tpubench_torch.storage.fake import FakeBackend
+        from tpubench_torch.storage.fake_h2_server import FakeH2Server
+
+        t, w = cfg.transport, cfg.workload
+        t.protocol, w.fetch_executor = "http", "native"
+        w.bucket, w.object_name_prefix = "testbucket", "tpubench/file_"
+        with FakeH2Server(FakeBackend.prepopulated(
+                w.object_name_prefix, 1, w.object_size)) as srv:
+            t.endpoint = srv.endpoint
+            res = cli.read(cfg, device="cpu")
+        assert res.extra["executor_mode"] == "reactor"
+        assert res.extra["native_transport"]["reactor_h2_streams"] > 0
     else:
         res = cli.read(cfg, device="cpu")
     assert res.errors == 0 and res.extra["staged_bytes"] == 300_001
@@ -297,7 +314,8 @@ def test_lifted_switch_runs_on_cpu(switch, tmp_path, monkeypatch):
         "export": "metrics_export", "port": "telemetry",
         "hedge": "tail", "watchdog": "tail", "breaker": "tail",
         "num_processes": "flight_journal", "profile_dir": "flight",
-        "enabled": "tune",
+        "enabled": "tune", "key_file": "flight",
+        "http2": "fetch_executor",
     }[switch[1]]
     assert want in res.extra
     if switch[1] == "flight_journal":

@@ -1,5 +1,6 @@
 """tpubench_torch CLI: ``tpubench``'s ``read``, ``sweep``, ``pod-ingest``,
-``gather-bench``, ``probe`` and ``tune`` on PyTorch and CUDA, its
+``stream``, ``gather-bench``, ``multichip-sweep``, ``probe`` and ``tune``
+on PyTorch and CUDA, its
 filesystem workloads (``prepare``, ``read-fs``, ``write``, ``list``,
 ``open``, ``ssd``), ``report`` and ``top`` over the results and journals
 they write, ``preflight`` (what a run needs, checked without a device),
@@ -22,8 +23,12 @@ the ``--fault-*`` knobs of the fake store to give them something to do).
 ``--profile-dir`` traces the command with ``torch.profiler``.
 
 ``pod-ingest`` (``--ring``) fetches one object's byte-range shards, one
-per rank, stages them and all-gathers them; ``gather-bench`` sweeps a
-collective (``--collective``, ``--shard-mb``, ``--reps``) over pod sizes;
+per rank, stages them and all-gathers them; ``stream`` does so for a
+sequence of objects (``--objects``), fetching the next while the last is
+staged and gathered (``--snapshot``/``--resume-from`` checkpoint and
+continue it); ``gather-bench`` sweeps a collective (``--collective``,
+``--shard-mb``, ``--reps``) over pod sizes; ``multichip-sweep`` runs
+pod-ingest and the collectives in one child per pod size (``--sizes``);
 ``probe`` measures the host→device copy.
 
 ``sweep`` runs ``read`` over protocols × the reference's four object
@@ -72,7 +77,7 @@ from tpubench_torch.metrics.report import RunResult, write_result
 # Commands whose result is pod-global (the collectives run inside the
 # workload): rank 0 writes the one report. ``read`` measures its own host,
 # so every process reports.
-POD_COLLECTIVE_CMDS = {"pod-ingest", "gather-bench"}
+POD_COLLECTIVE_CMDS = {"pod-ingest", "stream", "gather-bench"}
 FS_CMDS = {
     "read-fs": "sequential FS read (read_operation)",
     "write": "durable write (write_operations)",
@@ -104,6 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
                             "all-gathered over the process group")
     pod.add_argument("--ring", action="store_true",
                      help="explicit send/recv ring instead of all_gather")
+    stream = add("stream", "pipelined multi-object pod ingest (fetch ∥ "
+                           "stage+gather)")
+    stream.add_argument("--objects", type=int, default=8)
+    stream.add_argument("--snapshot", help="periodic progress snapshot JSON path")
+    stream.add_argument("--resume-from",
+                        help="resume a stream from a prior run's snapshot "
+                             "JSON (tpubench's or the port's): objects "
+                             "already delivered are skipped")
     gb = add("gather-bench", "collective bandwidth against pod size")
     gb.add_argument("--shard-mb", type=float, default=4.0)
     gb.add_argument("--reps", type=int, default=5)
@@ -150,6 +163,17 @@ def build_parser() -> argparse.ArgumentParser:
                             "cell runs with the Python client AND the C++ "
                             "native receive")
     add("preflight", "validate auth/bucket/DirectPath/engine before a run")
+    mcs = sub.add_parser(
+        "multichip-sweep",
+        help="pod-ingest + collective sweep over pod sizes (one child per "
+             "size: gloo ranks on the CPU, or one rank on the card over "
+             "NCCL; writes <results-dir>/multichip_sweep_torch.json)",
+    )
+    # The flags and their defaults live in tpubench_torch.dist.sweep.main;
+    # this forwards what was typed.
+    for flag in ("--sizes", "--shard-mb", "--reps", "--out", "--results-dir"):
+        mcs.add_argument(flag)
+    mcs.add_argument("--device", choices=("cuda", "cpu"))
     _add_top_parser(sub)
     _add_report_parser(sub)
     return ap
@@ -234,6 +258,10 @@ def _add_common(p) -> None:
     p.add_argument("--tls-insecure-skip-verify", action="store_true",
                    help="skip TLS certificate verification (self-signed "
                         "test endpoints only)")
+    p.add_argument("--key-file",
+                   help="service-account key JSON for Google's endpoint "
+                        "(default: application default credentials); a "
+                        "test server's endpoint stays anonymous")
     p.add_argument("--bucket", help="GCS bucket name")
     p.add_argument("--object-name-prefix", dest="object_name_prefix",
                    help="object i is <prefix><i>")
@@ -501,6 +529,8 @@ def build_config(args) -> BenchConfig:
         t.native_receive = True
     if args.http2:
         t.http2 = True
+    if args.key_file:
+        t.key_file = args.key_file
     if args.tls_ca_file:
         t.tls_ca_file = args.tls_ca_file
     if args.tls_insecure_skip_verify:
@@ -680,6 +710,16 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
                 res = run_pod_ingest(cfg, backend=backend, ring=args.ring,
                                      device=device)
+            elif cmd == "stream":
+                from tpubench_torch.workloads.pod_ingest_stream import (
+                    run_pod_ingest_stream,
+                )
+
+                res = run_pod_ingest_stream(
+                    cfg, n_objects=args.objects, backend=backend,
+                    verify=args.validate, snapshot_path=args.snapshot,
+                    resume_from=args.resume_from, device=device,
+                )
             elif cmd == "gather-bench":
                 from tpubench_torch.workloads.gather_bench import (
                     run_gather_bench,
@@ -900,6 +940,17 @@ def main(argv=None) -> int:
         )
     if args.cmd == "report":
         return report(args)
+    if args.cmd == "multichip-sweep":
+        # No config and no bring-up here: each child brings up its own.
+        from tpubench_torch.dist.sweep import main as sweep_main
+
+        fwd = []
+        for flag in ("sizes", "shard_mb", "reps", "out", "results_dir",
+                     "device"):
+            v = getattr(args, flag)
+            if v is not None:
+                fwd += [f"--{flag.replace('_', '-')}", str(v)]
+        return sweep_main(fwd)
     cfg = build_config(args)
     if args.cmd == "preflight":
         # Device-free: a misconfigured machine fails this in seconds,

@@ -417,21 +417,11 @@ def refuse_unported(cfg: BenchConfig) -> None:
     """Raise ``NotImplementedError`` (naming the ``ROADMAP.md`` item) for
     every read-path feature the config switches on that this port does
     not have yet, and ``ValueError`` for an unknown staging mode."""
-    w, t, s, o = cfg.workload, cfg.transport, cfg.staging, cfg.obs
-    raw = cfg.raw
-    refused = []
-    if t.http2 and t.protocol == "http" and w.fetch_executor.startswith("native"):
-        refused.append(
-            "transport.http2 with fetch_executor='native' (ROADMAP A.2: the "
-            "executor's h2 pool); fetch_executor='python' runs http2"
-        )
-    if t.key_file:
-        refused.append("transport.key_file (ROADMAP A.2: token sources)")
-    if o.results_bucket:
-        refused.append("obs.results_bucket (ROADMAP A.2: object-store backends)")
-    if refused:
+    s, raw = cfg.staging, cfg.raw
+    if cfg.obs.results_bucket:
         raise NotImplementedError(
-            "not ported to tpubench_torch yet: " + "; ".join(refused)
+            "not ported to tpubench_torch yet: obs.results_bucket (ROADMAP "
+            "A.2: object-store backends)"
         )
     validate_telemetry_config(cfg.telemetry)
     validate_tune_config(cfg.tune)

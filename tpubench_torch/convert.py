@@ -5,6 +5,10 @@ For this system the state is not parameters but a config and a dataset:
 fake-store population of ``(name, size, generation)`` triples, and returns
 the port's config and a :class:`FakeBackend` holding identical bytes (the
 bytes are a function of name and size, :func:`deterministic_bytes`).
+
+A stream's state is its snapshot (:func:`stream_state`): the format is
+``tpubench``'s, so a snapshot ``tpubench stream`` wrote resumes the port's
+stream, and the other way round.
 """
 
 from __future__ import annotations
@@ -22,3 +26,17 @@ def from_reference(cfg_dict: dict, population: Iterable):
     cfg = BenchConfig.from_dict(cfg_dict)
     backend = FakeBackend.from_population(population, fault=fault_plan(cfg))
     return cfg, backend
+
+
+def stream_state(snapshot: dict) -> dict:
+    """What a stream resumes from, out of a snapshot either package's
+    stream wrote: ``objects_done`` (objects delivered, holed or not),
+    ``resume_point`` (consecutive complete objects; a snapshot older than
+    the key resumes at ``objects_done``) and ``bytes`` (of complete
+    objects)."""
+    resume = int(snapshot.get("resume_point", snapshot.get("objects_done", 0)))
+    return {
+        "objects_done": int(snapshot.get("objects_done", resume)),
+        "resume_point": resume,
+        "bytes": int(snapshot.get("bytes", 0)),
+    }

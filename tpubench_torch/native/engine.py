@@ -570,22 +570,35 @@ class NativeEngine:
         insecure: bool = False,
         mode: str = "threads",
         loops: int = 0,
+        h2: bool = False,
     ) -> "NativeFetchPool":
         """Native fetch executor. ``mode="threads"``: ``threads`` worker
         pthreads, one keep-alive connection each. ``mode="reactor"``: epoll
         event loop(s) owning all connections (``threads`` is then the
         connection budget), completions over lock-free SPSC rings;
-        ``loops`` sets the event-loop thread count (0 = one). A reactor
-        that cannot be created falls back to the thread pool —
-        :attr:`NativeFetchPool.mode` says what engaged."""
+        ``loops`` sets the event-loop thread count (0 = one). ``h2=True``
+        (reactor only) multiplexes the GETs as concurrent HTTP/2 streams:
+        ALPN on TLS, prior-knowledge h2c on plaintext. A reactor that
+        cannot be created falls back to the thread pool —
+        :attr:`NativeFetchPool.mode` says what engaged — except under
+        ``h2``, which raises: the thread pool speaks HTTP/1.1 only."""
         if mode == "reactor":
             mbits = 1 | (max(0, min(loops, 16)) << 8)
+            if h2:
+                mbits |= 0x10000 if tls else 0x20000
             h = self.lib.tb_pool_create2(
                 threads, cap, 1 if tls else 0, cafile.encode(),
                 1 if insecure else 0, mbits,
             )
             if h != 0:
                 return NativeFetchPool(self, h, mode="reactor")
+        if h2:
+            # Serving HTTP/1.1 under an h2 request would mislabel the run.
+            raise NativeError(
+                "h2 fetch pool requires reactor mode (reactor creation "
+                "failed)",
+                code=-22,
+            )
         h = self.lib.tb_pool_create(
             threads, cap, 1 if tls else 0, cafile.encode(),
             1 if insecure else 0,

@@ -9,6 +9,7 @@
 * :mod:`.gcs_grpc` — the storage-v2 gRPC client, wire mode only
   (:mod:`.grpc_wire`), with native receive;
 * :mod:`.local_fs` — files under a directory root;
+* :mod:`.auth` — the token sources of the HTTP and gRPC clients;
 * :mod:`.retrying` — the client-level retry decorator with mid-stream
   resume, over every backend;
 * :mod:`.tail` — tail tolerance (hedged reads, stall watchdog, circuit
@@ -17,8 +18,7 @@
   (HTTP/1.1), :mod:`.fake_h2_server` (HTTP/2), :mod:`.fake_grpc_wire_server`
   (gRPC).
 
-Still to come (``ROADMAP.md``): token sources (A.2), gRPC library mode
-(A.2), the write side of every backend (A.6), the reactor-fetch wrapper
+Still to come (``ROADMAP.md``): gRPC library mode (A.2), the write side of every backend (A.6), the reactor-fetch wrapper
 of the serve plane (A.7).
 """
 

@@ -21,9 +21,13 @@ client on every machine.
   runs many ReadObject streams at once on one of them (the pod
   workloads' multiplexed shard fetch).
 
+The native client sends ``authorization`` metadata from the token source
+(:mod:`tpubench_torch.storage.auth`; none for a test server's endpoint).
+
 Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item: an
-explicit ``channel=`` and Google endpoints (gRPC library mode and token
-sources, A.2), and the write side (A.6).
+explicit ``channel=`` and Google endpoints (gRPC library mode, A.2: the
+wire stack is hermetic-only, as in ``tpubench``), and the write side
+(A.6).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import warnings
 from typing import Optional
 
 from tpubench_torch.config import TransportConfig
+from tpubench_torch.storage.auth import make_token_source
 from tpubench_torch.native.engine import (
     PERMANENT_CODES,
     TB_EGRPC,
@@ -134,12 +139,11 @@ class GcsGrpcBackend:
                 "which is not ported to tpubench_torch (ROADMAP A.2: gRPC "
                 "library mode)"
             )
-        if "googleapis.com" in endpoint or t.key_file:
+        if "googleapis.com" in endpoint:
             raise NotImplementedError(
-                "gRPC to a Google endpoint needs token sources and library "
-                "mode, which are not ported to tpubench_torch yet (ROADMAP "
-                "A.2: token sources, gRPC library mode); give a test server's "
-                "transport.endpoint"
+                "gRPC to a Google endpoint needs gRPC library mode, which is "
+                "not ported to tpubench_torch yet (ROADMAP A.2: gRPC library "
+                "mode); give a test server's transport.endpoint"
             )
         if t.directpath:
             # DirectPath serves storage.googleapis.com only: say so rather
@@ -163,8 +167,15 @@ class GcsGrpcBackend:
         # carrying h2 connections, built on first use.
         self._native_pool_obj = None
         self._native_pool_lock = threading.Lock()
+        self._native_tokens = make_token_source(t.key_file, t.endpoint)
         self._stat_cache: dict[str, int] = {}
         self._stat_cache_lock = threading.Lock()
+
+    def _native_auth_headers(self) -> str:
+        """Authorization metadata for the native h2 client, from the same
+        token sources as the HTTP client (none for a test server)."""
+        tok = self._native_tokens.token()
+        return f"authorization: Bearer {tok}\r\n" if tok else ""
 
     @property
     def _bucket_path(self) -> str:
@@ -230,6 +241,7 @@ class GcsGrpcBackend:
                 flight_note("stream_open")
                 r = engine.grpc_read(
                     conn, f"{host}:{port}", self._bucket_path, name, buf,
+                    headers=self._native_auth_headers(),
                     read_offset=start, read_limit=length or 0,
                 )
                 sp.event("first_byte", native_ns=r["first_byte_ns"])
@@ -378,11 +390,13 @@ class GcsGrpcBackend:
         except StorageError as e:
             return fail_unfinished(done, errs, e)
 
+        metadata = self._native_auth_headers()
+
         def submit(conn: int, i: int) -> None:
             start, length = ranges[i]
             engine.grpc_submit_to(
                 conn, authority, self._bucket_path, name, addrs[i], length,
-                read_offset=start, read_limit=length, tag=i,
+                headers=metadata, read_offset=start, read_limit=length, tag=i,
             )
 
         with self._tracer.span(

@@ -24,11 +24,13 @@ Reference parity (``CreateHttpClient``, main.go:62-104):
   many ranged GETs as concurrent streams of one h2 connection, the pod
   workloads' shard fetch.
 
+* **Auth** — a bearer token on every request from the token source
+  (:mod:`tpubench_torch.storage.auth`): ADC or ``transport.key_file`` on
+  Google's endpoint; an endpoint that is not Google's is anonymous, as in
+  ``tpubench``.
+
 Still refused, with ``NotImplementedError`` naming the ``ROADMAP.md``
-item: token sources (a Google endpoint or ``transport.key_file`` needs
-credentials, A.2) and the write side (``write``/``open_write``/
-``delete``, A.6). An endpoint that is not a Google one is anonymous, as
-in ``tpubench``.
+item: the write side (``write``/``open_write``/``delete``, A.6).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from tpubench_torch.native.engine import (
 )
 from tpubench_torch.obs.flight import note_phase as flight_note
 from tpubench_torch.obs.tracing import NoopTracer, SpanCarrier
+from tpubench_torch.storage.auth import TokenSource, make_token_source
 from tpubench_torch.storage.base import ObjectMeta, StorageError
 
 DEFAULT_ENDPOINT = "https://storage.googleapis.com"
@@ -308,7 +311,7 @@ class GcsHttpBackend:
     (the reference shares one ``*storage.Client``, main.go:200-203)."""
 
     def __init__(self, bucket: str, transport: Optional[TransportConfig] = None,
-                 tracer=None):
+                 token_source: Optional[TokenSource] = None, tracer=None):
         self.bucket = bucket
         self.transport = transport or TransportConfig()
         # Client-internal request spans, nested under the workload's
@@ -316,12 +319,7 @@ class GcsHttpBackend:
         self._tracer = tracer or NoopTracer()
         t = self.transport
         endpoint = t.endpoint or DEFAULT_ENDPOINT
-        if "googleapis.com" in endpoint or t.key_file:
-            raise NotImplementedError(
-                "GCS token sources (default credentials, transport.key_file) "
-                "are not ported to tpubench_torch yet (ROADMAP A.2: token "
-                "sources); give a non-Google transport.endpoint"
-            )
+        self._tokens = token_source or make_token_source(t.key_file, t.endpoint)
         u = urllib.parse.urlsplit(endpoint)
         self._scheme = u.scheme
         self._host = u.hostname or "storage.googleapis.com"
@@ -383,10 +381,14 @@ class GcsHttpBackend:
 
     # ------------------------------------------------------------ request --
     def _headers(self) -> dict[str, str]:
-        return {
+        h = {
             "User-Agent": self.transport.user_agent,
             "Host": f"{self._host}:{self._port}",
         }
+        tok = self._tokens.token()
+        if tok:
+            h["Authorization"] = f"Bearer {tok}"
+        return h
 
     def _request(self, method: str, path: str, headers: Optional[dict] = None):
         """One attempt: acquire a connection, send, return (conn, resp).

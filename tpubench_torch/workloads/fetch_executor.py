@@ -8,7 +8,10 @@ Executor dispatch shape (``fetch_executor``): ``native`` runs the epoll
 reactor (one event loop owning all connections, completions over
 lock-free SPSC rings) and may fall back to the thread pool with one
 warning line; ``native-reactor`` pins the reactor and raises if it cannot
-engage; ``native-threads`` pins the thread-per-connection pool.
+engage; ``native-threads`` pins the thread-per-connection pool. Under
+``transport.http2`` the reactor multiplexes the GETs as h2 streams (h2c
+on plaintext, ALPN on TLS); it never falls back (the thread pool speaks
+HTTP/1.1 only), and ``native-threads`` with ``http2`` is refused.
 
 Two runners:
 
@@ -148,12 +151,12 @@ class RetryScheduler:
         return max(1, min(cap_ms, ms))
 
 
-def _require_native_http(backend):
-    """Shared preconditions: the executor speaks HTTP/1.1 over plaintext
-    or TLS. Returns ``(engine, client)``: the client is the
-    :class:`GcsHttpBackend` under the retry decorator (the runners need
-    its request parts; the executor retries on its own). A failed engine
-    build raises."""
+def _require_native_http(backend, fetch_executor: str):
+    """Shared preconditions: the executor speaks HTTP/1.1 or, on the
+    reactor, HTTP/2 over plaintext or TLS. Returns ``(engine, client)``:
+    the client is the :class:`GcsHttpBackend` under the retry decorator
+    (the runners need its request parts; the executor retries on its
+    own). A failed engine build raises."""
     backend = base_backend(backend)
     if not isinstance(backend, GcsHttpBackend) or backend.scheme not in (
         "http", "https",
@@ -167,6 +170,14 @@ def _require_native_http(backend):
         raise RuntimeError(
             "fetch_executor='native' on an https endpoint, but the engine "
             "could not load OpenSSL (libssl.so.3)"
+        )
+    if backend.transport.http2 and executor_mode(fetch_executor) != "reactor":
+        # Only the reactor multiplexes h2 streams; the thread pool would
+        # serve HTTP/1.1 under an http2 label.
+        raise ValueError(
+            "fetch_executor='native-threads' fetches over HTTP/1.1; "
+            "http2=True needs the reactor ('native'/'native-reactor') or "
+            "the Python orchestration paths"
         )
     return engine, backend
 
@@ -216,7 +227,8 @@ def _reactor_loops() -> int:
 def _make_pool(engine, backend: GcsHttpBackend, threads: int, cap: int,
                mode: str = "reactor"):
     """Executor pool matching the backend's endpoint: TLS from the
-    endpoint scheme, verified against ``transport.tls_ca_file``."""
+    endpoint scheme, verified against ``transport.tls_ca_file``; h2
+    streams when the transport asks for http2 (reactor only)."""
     t = backend.transport
     return engine.pool_create(
         threads=threads,
@@ -226,6 +238,7 @@ def _make_pool(engine, backend: GcsHttpBackend, threads: int, cap: int,
         insecure=t.tls_insecure_skip_verify,
         mode=mode,
         loops=_reactor_loops(),
+        h2=bool(t.http2) and mode == "reactor",
     )
 
 
@@ -277,7 +290,7 @@ def run_read_native_executor(cfg: BenchConfig, backend) -> RunResult:
     (``io.Discard``, main.go:140). The client retry policy applies to
     completions; the executor's one stale-connection retransmit stays
     underneath as pool hygiene."""
-    engine, backend = _require_native_http(backend)
+    engine, backend = _require_native_http(backend, cfg.workload.fetch_executor)
     w = cfg.workload
     if cfg.staging.mode != "none":
         raise ValueError(
@@ -540,7 +553,7 @@ def run_read_native_staged(cfg: BenchConfig, backend,
     ``staging.depth`` slots per worker. Reads of one worker stay
     sequential (main.go:127-153); ranges within a read fetch concurrently.
     """
-    engine, backend = _require_native_http(backend)
+    engine, backend = _require_native_http(backend, cfg.workload.fetch_executor)
     w = cfg.workload
     s = cfg.staging
     if s.mode != "device_put":

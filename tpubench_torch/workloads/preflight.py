@@ -6,10 +6,9 @@ infrastructure (a GCP VM, a bucket, credentials). Each precondition is
 checked apart here, and the settings the run would use are echoed, so a
 misconfiguration costs seconds:
 
-* **auth** — which credentials the config needs. The port has no token
-  sources yet (``ROADMAP.md`` A.2): a config that needs one (a key file,
-  or default credentials on Google's endpoint) fails the check, naming
-  A.2; a custom endpoint is anonymous, as in ``tpubench``;
+* **auth** — the token source the run would use, resolved and asked
+  for a token: a key file or default credentials (ADC) on Google's
+  endpoint; a custom endpoint is anonymous, whatever the key file says;
 * **bucket** — open the configured backend and list it (auth, network
   and permission in one probe);
 * **directpath** — the gRPC DirectPath screen of the reference: grpc
@@ -81,26 +80,35 @@ def _bounded(name: str, fn: Callable[[], dict], timeout_s: float) -> dict:
 
 
 def _auth_check(cfg: BenchConfig) -> dict:
+    from tpubench_torch.storage.auth import (
+        AnonymousTokenSource,
+        make_token_source,
+    )
+
     t = cfg.transport
     if t.protocol in ("fake", "local"):
         return _check(
             "auth", True,
             f"protocol {t.protocol!r} needs no credentials", skipped=True,
         )
-    google = not t.endpoint or "googleapis.com" in t.endpoint
-    if t.key_file or google:
-        need = (f"service-account key {t.key_file!r}" if t.key_file
-                else "default credentials (ADC) for Google's endpoint")
+    try:
+        src = make_token_source(t.key_file, t.endpoint)
+    except Exception as e:  # noqa: BLE001 — bad key file, no ADC
+        return _check("auth", False, f"token source construction: {e}")
+    if isinstance(src, AnonymousTokenSource):
         return _check(
-            "auth", False,
-            f"{need}: token sources are not ported to tpubench_torch yet "
-            "(ROADMAP A.2: token sources)",
+            "auth", True,
+            f"custom endpoint {t.endpoint!r}: anonymous (no Authorization "
+            "header) — hermetic/fake-server mode",
         )
-    return _check(
-        "auth", True,
-        f"custom endpoint {t.endpoint!r}: anonymous (no Authorization "
-        "header) — hermetic/fake-server mode",
-    )
+    try:
+        tok = src.token()
+    except Exception as e:  # noqa: BLE001 — refresh failure
+        return _check("auth", False, f"token refresh failed: {e}")
+    if not tok:
+        return _check("auth", False, "token source returned no token")
+    kind = "service-account key" if t.key_file else "ADC"
+    return _check("auth", True, f"{kind} minted a bearer token (not shown)")
 
 
 def _bucket_check(cfg: BenchConfig) -> dict:
@@ -221,6 +229,7 @@ def _executor_check(cfg: BenchConfig) -> dict:
         pool = eng.pool_create(
             1, tls=endpoint.startswith("https"), cafile=t.tls_ca_file,
             insecure=t.tls_insecure_skip_verify, mode=requested,
+            h2=t.http2 and requested == "reactor",
         )
     except Exception as e:  # noqa: BLE001 — reported as the check's failure
         return _check("fetch_executor", False, f"pool creation: {e}")
