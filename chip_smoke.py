@@ -148,11 +148,27 @@ before the last line:
 18. multichip — ``multichip-sweep --sizes 1,2 --shard-mb 8 --reps 1``
    (artifact under ``build/``): the ring algebra holds, every pod-ingest
    row verified, the size-1 child on the card over NCCL (its launches
-   counted in the child), the size-2 child two gloo ranks.
+   counted in the child), the size-2 child two gloo ranks;
+19. train — ``train-ingest`` through ``cli.execute`` over phase read's
+   store (48 x 100 MiB, 2 MiB chunks, 32 a step, 75 steps = one epoch of
+   the 4.8 GiB dataset, 20 ms of step compute) in modes train_cold
+   (readahead 0, page-locked slab pool, the overlapped copy window taking
+   each lease in place: one transfer per chunk, no kernel), train_prefetch
+   (readahead 64, 8 prefetch workers, 1 GiB cache; its stalls printed
+   beside train_cold's, not gated), train_validate (the serial ring:
+   ``tb_checksum`` per transfer), train_pallas (``tb_land`` per
+   transfer), train_bytes (no slab pool: 2 copies a byte), train_warm (16
+   steps x 2 epochs in a 1.25 GiB cache: epoch 2 all hits) and train_pod
+   (one-rank NCCL: ``tb_checksum`` once per step and once for the
+   warm-up, each step's pod sum the host's sum of its batch); every mode
+   with zero errors, every byte delivered, no slab leaked. Then ``tune
+   --tune-workload train-ingest`` (a sweep at 8 steps a cell, and an
+   online session in ``train-ingest --tune``).
 
-Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB)
-and at phase pod's (1 GiB, 8,388,608 × 128) against its plain version,
-the latter with its time and bound.
+Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB),
+at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128) and
+at phase pod's (1 GiB, 8,388,608 × 128) against its plain version, the
+last with its time and bound.
 
 Every mode of phases read, protocols, obs and tail also checks its flight
 records (one read record per read; one stage record per transfer in a copy
@@ -247,7 +263,8 @@ KERNELS = {
                  replaces="tpubench/staging/pallas_stage.py:101",
                  paths=("read/pallas", "protocols/http_pallas",
                         "obs/obs_pallas", "tail/tail_pallas",
-                        "tune/sweep_pallas", "sweep/pallas")),
+                        "tune/sweep_pallas", "sweep/pallas",
+                        "train/train_pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
@@ -261,7 +278,8 @@ KERNELS = {
                             "tune/online_validate", "sweep/validate",
                             "native/native_h2_validate",
                             *(f"stream/{m}" for m in STREAM_MODES),
-                            "multichip/size1")),
+                            "multichip/size1", "train/train_validate",
+                            "train/train_pod")),
 }
 
 
@@ -312,6 +330,7 @@ def main() -> int:
     phase_preflight(smi)
     counts.update(phase_stream(store, smi))
     counts.update(phase_multichip(smi))
+    counts.update(phase_train(store, smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -432,7 +451,8 @@ def phase_kernels(torch, seed: int) -> dict:
     shapes = {
         "land": [("main_path", LAND_ROWS * 128), ("block", 512 * 128)],
         "checksum": [("main_path", CHECKSUM_ROWS * 128), ("block", 512 * 128),
-                     ("gather_shard", GATHER_SHARD_MB * MIB)],
+                     ("gather_shard", GATHER_SHARD_MB * MIB),
+                     ("train_pod_shard", TRAIN_BATCH * GRANULE)],
     }
     ragged, wraps = 777_777, 17 * MIB + 13
     edges = checksum_edges(landing.checksum_plan, landing.sm_count(torch.device("cuda")))
@@ -2711,6 +2731,315 @@ def phase_multichip(smi) -> dict:
                       "one H100; NCCL takes one rank per GPU)"],
           "card": smi})
     return {"multichip/size1": one["launches"]}
+
+
+# ------------------------------------------------------------- phase 19 --
+# Phase train: `train-ingest` over phase read's store (48 x 100 MiB, the
+# reference's deployment): 2 MiB chunks (the granule), 32 a step (64 MiB),
+# 75 steps (one epoch is the 4.8 GiB dataset, every object once), 20 ms of
+# step compute. TRAIN_STEPS_CUT are the modes whose steps were cut.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_COMPUTE_MS = 32, 75, 20
+TRAIN_WARM_STEPS, TRAIN_TUNE_STEPS = 16, 8
+TRAIN_MODES = {
+    "train_cold": ["--readahead", "0", "--staging", "device_put",
+                   "--depth", "3"],
+    "train_prefetch": ["--readahead", "64", "--prefetch-workers", "8",
+                       "--cache-bytes", str(1 << 30), "--staging",
+                       "device_put", "--depth", "3"],
+    "train_validate": ["--validate"],
+    "train_pallas": ["--staging", "pallas"],
+    "train_bytes": ["--no-slab-pool", "--readahead", "64"],
+    "train_warm": ["--steps", str(TRAIN_WARM_STEPS), "--epochs", "2",
+                   "--readahead", "0", "--cache-bytes", str(1280 * MIB)],
+    "train_pod": ["--pipeline-pod"],
+}
+TRAIN_STEPS_CUT = {
+    "train_warm": f"{TRAIN_WARM_STEPS} steps x 2 epochs (1 GiB, inside "
+                  "the 1.25 GiB cache, so epoch 2 is all hits)",
+    "tune_train": f"{TRAIN_TUNE_STEPS} steps a sweep cell",
+}
+
+
+class TrainObserved:
+    """Keeps, for one train-ingest run, every call of the pod's collective
+    (the group's backend, where the gather landed, the pod checksum) by
+    wrapping the workload's ``make_reassemble``; what it builds and does
+    is unchanged."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from tpubench_torch.workloads import train_ingest
+
+        self._saved = make = train_ingest.make_reassemble
+
+        def build(pod):
+            fn = make(pod)
+
+            def call(staged):
+                gathered, csum = fn(staged)
+                self.calls.append((dist.get_backend(pod.group),
+                                   gathered.device.type, int(csum)))
+                return gathered, csum
+
+            return call
+
+        train_ingest.make_reassemble = build
+        return self
+
+    def __exit__(self, *exc):
+        from tpubench_torch.workloads import train_ingest
+
+        train_ingest.make_reassemble = self._saved
+
+
+def _train_argv(flags: list, steps: int = TRAIN_STEPS) -> list:
+    """The train-ingest flags of phase train's deployment, then ``flags``
+    (which may set ``--steps`` again: the last one wins)."""
+    return ["--protocol", "fake", "--workers", str(WORKERS),
+            "--object-size", str(OBJECT_SIZE), "--granule-bytes",
+            str(GRANULE), "--chunk-bytes", str(GRANULE), "--batch-shards",
+            str(TRAIN_BATCH), "--step-compute-ms", str(TRAIN_COMPUTE_MS),
+            "--steps", str(steps), *flags]
+
+
+def _step_sums(store, cfg) -> list:
+    """The host's mod-2³² byte sum of every step's batch, from the plan
+    and the store's own arrays (an independent count to hold the pod's
+    device checksums against)."""
+    import numpy as np
+
+    from tpubench_torch.workloads.train_ingest import build_plan
+
+    plan = build_plan(cfg, store)
+    b = cfg.pipeline.batch_shards
+    return [sum(int(store._objects[k.object][k.start:k.start + k.length]
+                    .sum(dtype=np.uint64)) for k in plan[i:i + b]) % MOD
+            for i in range(0, len(plan), b)]
+
+
+def _train_line(mode: str, res, counts: dict, seconds: float, smi) -> dict:
+    pipe = res.extra["pipeline"]
+    stall, cache, pf, cp = (pipe["stall"], pipe["cache"], pipe["prefetch"],
+                            pipe["copies"])
+    st = res.extra.get("staging") or {}
+    stage = res.summaries.get("stage")
+    return {
+        "phase": "train", "mode": mode, "steps": stall["steps"],
+        "batch_shards": pipe["plan"]["batch_shards"],
+        "chunk_bytes": pipe["plan"]["chunk_bytes"],
+        "bytes_total": res.bytes_total, "wall_s": res.wall_seconds,
+        "gbps_per_chip": res.gbps_per_chip, "n_chips": res.n_chips,
+        "stall_p50_ms": stall["p50_ms"], "stall_p99_ms": stall["p99_ms"],
+        "stalled_fraction": stall["stalled_fraction"],
+        "cache": {k: cache[k] for k in ("hits", "misses", "coalesced",
+                                        "hit_ratio", "evictions")},
+        "prefetch": None if pf is None else {
+            k: pf[k] for k in ("issued", "completed", "skipped", "cancelled",
+                               "errors", "used_bytes", "wasted_bytes",
+                               "efficiency")},
+        "copies_per_byte": cp["copies_per_byte"], "copies_mode": cp["mode"],
+        "pool": cp.get("pool"),
+        "pool_pin_seconds": pipe.get("pool_pin_seconds"),
+        "transfers": st.get("transfers",
+                            stage.count if stage is not None else None),
+        "staged_bytes": res.extra.get("staged_bytes"),
+        "checksum_ok": res.extra.get("checksum_ok"),
+        "staging_efficiency": st.get("staging_efficiency"),
+        "launches": counts, "seconds": seconds, "card": smi,
+    }
+
+
+def _check_train(mode: str, res, counts: dict, obs, step_sums) -> None:
+    pipe = res.extra["pipeline"]
+    steps = pipe["stall"]["steps"]
+    chunk = GRANULE
+    check(res.errors == 0, f"train/{mode}: errors {res.errors}")
+    check(res.bytes_total == steps * TRAIN_BATCH * chunk,
+          f"train/{mode}: {res.bytes_total} B for {steps} steps")
+    cp = pipe["copies"]
+    slab = mode != "train_bytes"
+    if slab:
+        pool = cp["pool"]
+        check(cp["mode"] == "slab" and pool["leaked_slabs"] == 0
+              and pool["native"] is True,
+              f"train/{mode}: copies {cp}")
+        check(cp["copies_per_byte"] == 1.0,
+              f"train/{mode}: {cp['copies_per_byte']} copies a byte")
+    else:
+        check(cp["mode"] == "bytes" and cp["copies_per_byte"] >= 2.0,
+              f"train/{mode}: copies {cp}")
+    pod = mode == "train_pod"
+    stage = res.summaries.get("stage")
+    transfers = None if pod else stage.count
+    if not pod:
+        check(res.extra["staged_bytes"] == res.bytes_total,
+              f"train/{mode}: staged {res.extra['staged_bytes']}")
+    if mode in ("train_cold", "train_prefetch", "train_bytes", "train_warm"):
+        st = res.extra["staging"]
+        check(st["drain"] == "overlap" and st["transfers"] == transfers,
+              f"train/{mode}: staging {st}")
+    if mode in ("train_cold", "train_prefetch", "train_warm"):
+        # submit_owned: the window copies each lease in place.
+        check(transfers == steps * TRAIN_BATCH,
+              f"train/{mode}: {transfers} transfers for "
+              f"{steps * TRAIN_BATCH} chunks")
+    want = {"land": 0, "checksum": 0}
+    if mode in ("train_validate", "train_pallas"):
+        ring = "pallas" if mode == "train_pallas" else "device_put"
+        slot = _slot(_config(WORKERS, OBJECT_SIZE, GRANULE,
+                             "pallas" if ring == "pallas"
+                             else "device_put_validate"))
+        n = expected_transfers(steps * TRAIN_BATCH * chunk, GRANULE, slot)
+        check(transfers == n, f"train/{mode}: {transfers} transfers, "
+              f"want {n} of {slot} B")
+        check(res.extra.get("checksum_ok") is True,
+              f"train/{mode}: checksum {res.extra.get('checksum_ok')}")
+        want["land" if ring == "pallas" else "checksum"] = transfers
+    if pod:
+        want["checksum"] = steps + 1
+        check(len(obs.calls) == steps + 1,
+              f"train/{mode}: {len(obs.calls)} collective calls")
+        check(all(b == "nccl" and d == "cuda" for b, d, _ in obs.calls),
+              f"train/{mode}: calls {obs.calls[:2]}")
+        sums = [c for _, _, c in obs.calls]
+        check(sums[0] == 0 and sums[1:] == step_sums,
+              f"train/{mode}: device checksums differ from the host's")
+        check(res.n_chips == 1, f"train/{mode}: n_chips {res.n_chips}")
+    check(counts == want, f"train/{mode}: launches {counts}, want {want}")
+    pf = pipe["prefetch"]
+    if pf is not None:
+        check(pf["errors"] == 0, f"train/{mode}: prefetch errors {pf}")
+        check(pf["prefetched_bytes"] == pf["completed"] * chunk
+              and pf["used_bytes"] + pf["wasted_bytes"]
+              == pf["prefetched_bytes"]
+              + pipe["cache"]["prefetch_dropped_bytes"],
+              f"train/{mode}: prefetch accounting {pf}")
+    if mode == "train_warm":
+        n = TRAIN_WARM_STEPS * TRAIN_BATCH
+        check((pipe["cache"]["hits"], pipe["cache"]["misses"]) == (n, n),
+              f"train/{mode}: cache {pipe['cache']}")
+
+
+def phase_train(store, smi) -> dict:
+    """``train-ingest`` through ``cli.execute`` over phase read's store,
+    in each mode of TRAIN_MODES, then ``tune --tune-workload train-ingest``
+    (a sweep, and an online session). Every mode: zero errors, every
+    step's bytes delivered, no slab leaked, the copies per byte of its
+    arm; the rings' kernels launched once per transfer, the overlapped
+    window one transfer per chunk, the pod's ``tb_checksum`` once per step
+    and once for the warm-up, each step's pod sum the host's."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    launches, lines = {}, {}
+    t_phase = time.perf_counter()
+    for mode in TRAIN_MODES:
+        args, cfg = _cli(["train-ingest", *_train_argv(TRAIN_MODES[mode])])
+        step_sums = _step_sums(store, cfg) if mode == "train_pod" else None
+        buf = io.StringIO()
+        with TrainObserved() as obs, contextlib.redirect_stdout(buf):
+            landing.reset_launches()
+            t0 = time.perf_counter()
+            res = cli.execute("train-ingest", cfg, device="cuda",
+                              backend=store, args=args)
+            seconds = time.perf_counter() - t0
+            counts = {"land": landing.land.launches,
+                      "checksum": landing.checksum.launches}
+        check("== ingest-pipeline scorecard ==" in buf.getvalue(),
+              f"train/{mode}: no scorecard printed")
+        _check_train(mode, res, counts, obs, step_sums)
+        launches[f"train/{mode}"] = counts
+        lines[mode] = _train_line(mode, res, counts, seconds, smi)
+        if mode in TRAIN_STEPS_CUT:
+            lines[mode]["reduced"] = [TRAIN_STEPS_CUT[mode]]
+        if mode == "train_pod":
+            lines[mode]["reduced"] = ["one rank (the machine has one H100)"]
+            lines[mode]["step_checksums_checked"] = len(step_sums)
+        if mode == "train_prefetch":
+            cold = lines["train_cold"]
+            lines[mode]["vs_cold"] = {
+                k: [cold[k], lines[mode][k]]
+                for k in ("stall_p50_ms", "stall_p99_ms", "stalled_fraction",
+                          "gbps_per_chip")}
+        emit(lines[mode])
+    launches.update(_tune_train(store, smi))
+    emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
+          "reduced": [f"{m}: {r}" for m, r in TRAIN_STEPS_CUT.items()]
+          + ["train_pod: one rank"]})
+    return launches
+
+
+def _tune_train(store, smi) -> dict:
+    """``tune --tune-workload train-ingest --tune-mode sweep`` at
+    TRAIN_TUNE_STEPS steps a cell, then one online session inside
+    ``train-ingest --tune`` (readahead and prefetch workers, 0.2 s
+    windows): every cell without errors and with goodput, ``extra.tune``
+    stamped."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    out = {}
+    for mode, argv, cmd in (
+        ("tune_train", ["tune", "--tune-workload", "train-ingest",
+                        "--tune-mode", "sweep",
+                        *_train_argv([], steps=TRAIN_TUNE_STEPS)], "tune"),
+        ("tune_train_online", ["train-ingest", *_train_argv([
+            "--tune", "--tune-window", "0.2", "--tune-knobs",
+            "readahead,prefetch_workers"])], "train-ingest"),
+    ):
+        args, cfg = _cli(argv)
+        buf = io.StringIO()
+        landing.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.execute(cmd, cfg, device="cuda", backend=store,
+                              args=args)
+        seconds = time.perf_counter() - t0
+        counts = {"land": landing.land.launches,
+                  "checksum": landing.checksum.launches}
+        check(counts == {"land": 0, "checksum": 0},
+              f"train/{mode}: launches {counts}")
+        tune = res.extra.get("tune")
+        check(tune is not None, f"train/{mode}: extra.tune not stamped")
+        line = {"phase": "train", "mode": mode, "launches": counts,
+                "seconds": seconds, "card": smi}
+        if cmd == "tune":
+            sw = tune["sweep"]
+            check(set(sw["axes"]) == {"readahead", "prefetch_workers",
+                                      "staging_depth"},
+                  f"train/{mode}: axes {sw['axes']}")
+            check(all(c["errors"] == 0 and c["goodput_bps"] > 0
+                      for c in sw["cells"]),
+                  f"train/{mode}: cells {sw['cells']}")
+            line.update(axes=sw["axes"], cells=[
+                {**c["values"], "goodput_gbps": c["goodput_bps"] / 1e9,
+                 "read_p99_ms": c["p99_ms"]} for c in sw["cells"]],
+                best=sw["best"]["values"], recommended=tune["recommended"],
+                reduced=[TRAIN_STEPS_CUT["tune_train"]])
+        else:
+            check(res.errors == 0 and tune.get("error") is None
+                  and tune["n_windows"] >= 2,
+                  f"train/{mode}: errors {res.errors}, tune {tune}")
+            check(res.bytes_total == TRAIN_STEPS * TRAIN_BATCH * GRANULE,
+                  f"train/{mode}: {res.bytes_total} B")
+            line.update(n_windows=tune["n_windows"],
+                        initial=tune["initial"], final=tune["final"],
+                        accepts=tune.get("accepts"),
+                        reverts=tune.get("reverts"),
+                        gbps_per_chip=res.gbps_per_chip)
+        emit(line)
+        out[f"train/{mode}"] = counts
+    return out
 
 
 if __name__ == "__main__":

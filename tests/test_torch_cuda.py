@@ -377,3 +377,100 @@ def test_one_rank_nccl_stream_matches_cpu(cuda, tmp_path):
         assert res.errors == 0 and res.extra["verified"] is True
         assert res.extra["object_checksums"] == want
         assert res.bytes_total == 2 * sum(sizes)
+
+
+def test_slab_leases_land_intact_through_the_window(cuda):
+    """Page-locked slab leases copied in place by the overlapped window
+    (``submit_owned``), reused from a two-slab pool as soon as each
+    retires: every landed chunk equals its source — a slab handed back
+    before its copy's event completed would land the next chunk's
+    bytes."""
+    import time
+
+    from tpubench_torch.device import worker_stream
+    from tpubench_torch.mem.slab import SlabPool
+    from tpubench_torch.staging.executor import TransferEngine
+
+    class Keeping(TransferEngine):
+        """The stager's own engine, keeping each landed tensor."""
+
+        def __init__(self, stream):
+            super().__init__(stream)
+            self.landed = []
+
+        def submit(self, array, device):
+            handle = super().submit(array, device)
+            self.landed.append(handle[0])
+            return handle
+
+    pool = SlabPool(1 << 20, 2, device="cuda")
+    assert pool.native and pool.pin_seconds > 0
+    eng = Keeping(worker_stream(torch.device("cuda", 0), 0))
+    st = DevicePutStager(0, GRANULE, cfg=StagingConfig(depth=3),
+                         device="cuda", transfer_engine=eng)
+    assert st.stream is eng._stream
+    sources = []
+    for i in range(64):
+        while pool.leased >= 2:
+            time.sleep(0.0001)
+        lease = pool.lease((1 << 20) - 4096 * (i % 3))
+        assert lease.as_tensor().is_pinned()
+        src = deterministic_bytes(f"slab/{i}", len(lease))
+        lease.view()[:] = src.tobytes()
+        sources.append(src)
+        st.submit_owned(lease)
+    stats = st.finish()
+    assert stats["transfers"] == 64
+    assert stats["staged_bytes"] == sum(len(s) for s in sources)
+    for landed, src in zip(eng.landed, sources):
+        assert landed.device.type == "cuda"
+        assert np.array_equal(landed.cpu().numpy(), src)
+    s = pool.stats()
+    assert s["overflow_leases"] == 0 and pool.close()["leaked_slabs"] == 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--depth", "3"], ["--validate"], ["--staging", "pallas"],
+    ["--pipeline-pod"],
+], ids=["depth3", "validate", "pallas", "pod"])
+def test_train_ingest_on_cuda_matches_cpu(cuda, tmp_path, flags):
+    """``train-ingest`` through ``cli.execute`` on the card and on the
+    CPU: the same cache counters, bytes, staged bytes and checksums;
+    page-locked slabs on the card; the rings' kernels launched once per
+    transfer (the pod's checksum once per step and once for the
+    warm-up), none by the overlapped copy window."""
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage.fake import FakeBackend
+
+    store = FakeBackend.prepopulated("tpubench/file_", 4, 1_000_003)
+    args = cli.build_parser().parse_args([
+        "train-ingest", "--protocol", "fake", "--workers", "4",
+        "--granule-bytes", str(GRANULE), "--steps", "6", "--epochs", "2",
+        "--batch-shards", "8", "--readahead", "0", "--slot-bytes",
+        str(256 * 1024), "--results-dir", str(tmp_path), *flags])
+    cfg = cli.build_config(args)
+    out, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        landing.reset_launches()
+        out[dev] = cli.execute("train-ingest", cfg, device=dev,
+                               backend=store, args=args)
+        launches[dev] = (landing.land.launches, landing.checksum.launches)
+    cpu, gpu = out["cpu"], out["cuda"]
+    pool = gpu.extra["pipeline"]["copies"]["pool"]
+    assert pool["native"] is True and pool["leaked_slabs"] == 0
+    for res in (cpu, gpu):
+        # 48 chunks a pass: the first three objects, 16 chunks each.
+        assert res.errors == 0 and res.bytes_total == 2 * 3 * 1_000_003
+    assert gpu.extra["pipeline"]["cache"] == cpu.extra["pipeline"]["cache"]
+    for key in ("staged_bytes", "checksum_ok", "checksum_device",
+                "checksum_host"):
+        assert gpu.extra.get(key) == cpu.extra.get(key), key
+    stage = gpu.summaries.get("stage")
+    want = {"depth3": (0, 0), "validate": (0, stage and stage.count),
+            "pallas": (stage and stage.count, 0),
+            "pod": (0, 12 + 1)}[
+        {"--depth": "depth3", "--validate": "validate", "--staging": "pallas",
+         "--pipeline-pod": "pod"}[flags[0]]]
+    assert launches == {"cpu": (0, 0), "cuda": want}
+    assert sum(want) > 0 or gpu.extra["staging"]["transfers"] == 96

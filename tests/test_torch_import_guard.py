@@ -65,6 +65,10 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.storage.auth",
         "tpubench_torch.workloads.pod_ingest_stream",
         "tpubench_torch.dist.sweep",
+        "tpubench_torch.mem", "tpubench_torch.mem.slab",
+        "tpubench_torch.pipeline", "tpubench_torch.pipeline.cache",
+        "tpubench_torch.pipeline.prefetch",
+        "tpubench_torch.workloads.train_ingest",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -194,7 +198,7 @@ def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe",
-                                 "sweep", "list", "stream"])
+                                 "sweep", "list", "stream", "train-ingest"])
 def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
     argv = [cmd, "--protocol", "fake", "--workers", "1", "--object-size",
             "70001", "--dir", str(tmp_path), "--results-dir", str(tmp_path)]

@@ -18,6 +18,10 @@ Not compared for equality, and why:
   buffers where it builds, the port pins slots only on CUDA.
 """
 
+import contextlib
+import io
+import json
+
 import numpy as np
 import pytest
 
@@ -243,13 +247,30 @@ def test_unported_switch_is_refused(switch, item):
         refuse_unported(cfg)
 
 
-def test_tune_over_train_ingest_is_refused():
-    """``tune --tune-workload train-ingest`` names its ROADMAP item (the
-    workload is not ported), through the CLI as through ``run_tune``."""
-    args = ["tune", "--tune-workload", "train-ingest", "--protocol", "fake",
-            "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        cli.main(args)
+def test_tune_over_train_ingest_is_refused(tmp_path):
+    """``tune --tune-workload train-ingest --tune-mode sweep`` runs
+    through the CLI on the CPU: every cell of the sweep (readahead,
+    prefetch workers, staging depth) finishes with zero errors and moves
+    bytes."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([
+            "tune", "--tune-workload", "train-ingest", "--tune-mode",
+            "sweep", "--protocol", "fake", "--workers", "2",
+            "--object-size", str(256 * 1024), "--granule-bytes",
+            str(64 * 1024), "--steps", "3", "--batch-shards", "2",
+            "--readahead", "2", "--prefetch-workers", "1",
+            "--device", "cpu", "--results-dir", str(tmp_path),
+        ])
+    assert rc == 0
+    assert "== tune (sweep over train-ingest) ==" in buf.getvalue()
+    doc = json.loads(next(tmp_path.glob("tune_*.json")).read_text())
+    sweep = doc["extra"]["tune"]["sweep"]
+    assert set(sweep["axes"]) == {"readahead", "prefetch_workers",
+                                  "staging_depth"}
+    cells = sweep["cells"]
+    assert len(cells) == 1 + sum(len(v) - 1 for v in sweep["axes"].values())
+    assert all(c["errors"] == 0 and c["goodput_bps"] > 0 for c in cells)
 
 
 @pytest.mark.parametrize("switch", [

@@ -147,8 +147,45 @@ def test_report_cli_timeline_and_trace(docs, capsys):
         cli.main(["report", "trace"])
 
 
+def test_train_ingest_report_prints_the_reference_scorecard(tmp_path):
+    """The pipeline block renders: the port's ``report`` of a
+    train-ingest result holds the text of ``tpubench``'s
+    ``format_pipeline_scorecard`` for the same block, and both packages'
+    ``report`` give the same document text; a 2-run report adds the
+    pipeline A/B lines in both."""
+    from tpubench.workloads.train_ingest import (
+        format_pipeline_scorecard as jax_scorecard,
+    )
+    from tpubench_torch.workloads.train_ingest import (
+        format_pipeline_scorecard,
+        run_train_ingest,
+    )
+
+    paths = []
+    for readahead in (0, 2):
+        cfg = BenchConfig()
+        cfg.transport.protocol = "fake"
+        cfg.workload.workers = 2
+        cfg.workload.object_size = 200_000
+        cfg.workload.granule_bytes = 64 * 1024
+        cfg.pipeline.steps, cfg.pipeline.epochs = 3, 2
+        cfg.pipeline.readahead = readahead
+        cfg.staging.depth = 3
+        res = run_train_ingest(cfg, device="cpu")
+        paths.append(write_result(res, str(tmp_path), tag=f"ra{readahead}"))
+    for path in paths:
+        pipe = json.loads(Path(path).read_text())["extra"]["pipeline"]
+        text = jax_scorecard(pipe)
+        assert format_pipeline_scorecard(pipe) == text
+        out = report_cmd.run_report([path])
+        assert text in out and out == jax_report.run_report([path])
+    both = report_cmd.run_report(paths)
+    assert both == jax_report.run_report(paths)
+    assert "pipeline: stalled" in both
+
+
 @pytest.mark.parametrize("block, item", [
-    ("chaos", "A.6"), ("pipeline", "A.6"), ("serve", "A.7"),
+    ("chaos", "A.6"), ("serve", "A.7"),
     ("membership", "A.7"), ("drill", "A.7"), ("drill_sweep", "A.7"),
     ("fleet", "A.7"), ("replay", "A.7"), ("lifecycle", "A.7"),
 ])

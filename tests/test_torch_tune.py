@@ -579,12 +579,32 @@ def test_tune_over_http_spawns_the_hermetic_server():
 
 
 def test_tune_refusals():
-    """``train-ingest`` is not ported (A.6); without ``--device cpu`` and
-    without CUDA the command raises instead of running on the CPU."""
+    """An online session over ``train-ingest`` runs on the CPU: the
+    controller moves the readahead and prefetch knobs inside the step
+    loop and the result carries ``extra.tune``.
+    Without ``--device cpu`` and without CUDA the command still raises
+    instead of running on the CPU."""
     cfg = BenchConfig()
     cfg.transport.protocol = "fake"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        port_tune.run_tune(cfg, workload="train-ingest", device="cpu")
+    cfg.workload.workers = 2
+    cfg.workload.object_size = 256 * 1024
+    cfg.workload.granule_bytes = 64 * 1024
+    cfg.pipeline.steps = 40
+    cfg.pipeline.batch_shards = 2
+    cfg.pipeline.readahead = 2
+    cfg.pipeline.step_compute_ms = 5.0
+    cfg.tune.window_s = 0.02
+    cfg.tune.warmup_windows = 1
+    cfg.tune.knobs = ["readahead", "prefetch_workers"]
+    res = port_tune.run_tune(cfg, workload="train-ingest", device="cpu")
+    assert res.workload == "tune" and res.errors == 0
+    tune = res.extra["tune"]
+    assert tune["workload"] == "train-ingest"
+    ad = tune["adaptive"]
+    assert ad["enabled"] and ad["n_windows"] >= 2 and ad.get("error") is None
+    assert set(ad["initial"]) == {"readahead", "prefetch_workers"}
+    assert res.bytes_total == 40 * 2 * 64 * 1024
+    assert res.extra["pipeline"]["stall"]["steps"] == 40
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_tune.run_tune(cfg)

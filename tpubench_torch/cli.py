@@ -1,6 +1,6 @@
-"""tpubench_torch CLI: ``tpubench``'s ``read``, ``sweep``, ``pod-ingest``,
-``stream``, ``gather-bench``, ``multichip-sweep``, ``probe`` and ``tune``
-on PyTorch and CUDA, its
+"""tpubench_torch CLI: ``tpubench``'s ``read``, ``train-ingest``, ``sweep``,
+``pod-ingest``, ``stream``, ``gather-bench``, ``multichip-sweep``, ``probe``
+and ``tune`` on PyTorch and CUDA, its
 filesystem workloads (``prepare``, ``read-fs``, ``write``, ``list``,
 ``open``, ``ssd``), ``report`` and ``top`` over the results and journals
 they write, ``preflight`` (what a run needs, checked without a device),
@@ -31,6 +31,14 @@ continue it); ``gather-bench`` sweeps a collective (``--collective``,
 pod-ingest and the collectives in one child per pod size (``--sizes``);
 ``probe`` measures the host→device copy.
 
+``train-ingest`` is a step-paced training loop over the ingest pipeline
+(chunk cache, readahead prefetcher, page-locked slab pool): each step
+takes ``--batch-shards`` chunks of ``--chunk-bytes``, stages them to the
+card and sleeps ``--step-compute-ms``; it prints the data-stall
+scorecard. ``--readahead 0`` is the cold arm, ``--no-slab-pool`` the
+bytes arm, ``--pipeline-pod`` stages each step's batch as shards gathered
+over the process group (``--coop`` is refused: ROADMAP A.6).
+
 ``sweep`` runs ``read`` over protocols × the reference's four object
 sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
 prints the rows; ``--protocol http --http2`` and ``--protocol grpc
@@ -39,10 +47,12 @@ one connection. The filesystem workloads read and write files under
 ``--dir`` (``prepare`` writes them first; ``--no-direct`` skips
 ``O_DIRECT``; ``--mount-cmd``/``--unmount-cmd`` bracket the run).
 
-``tune`` finds the read path's operating point: ``--tune-mode sweep``
-(one short run per knob value), ``online`` (the controller moves
-``workers`` and the staging depth live; ``read --tune`` does the same
-inside a plain read) or ``ab`` (both, compared). ``--tune-profile PATH``
+``tune`` finds the operating point of ``read`` or (``--tune-workload
+train-ingest``) ``train-ingest``: ``--tune-mode sweep`` (one short run per
+knob value), ``online`` (the controller moves ``workers`` and the staging
+depth live, or the readahead and prefetch workers; ``read --tune`` and
+``train-ingest --tune`` do the same inside a plain run) or ``ab`` (both,
+compared). ``--tune-profile PATH``
 is where ``tune`` writes its recommendation and what every other command
 applies. ``report <result.json>...`` renders results (``report timeline``
 / ``report trace <journal>...`` the flight journals; ``--fail-on`` gates
@@ -69,6 +79,7 @@ import sys
 from tpubench_torch.config import (
     MB,
     BenchConfig,
+    validate_pipeline_config,
     validate_telemetry_config,
     validate_tune_config,
 )
@@ -105,6 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
         return p
 
     add("read", "root read benchmark (main.go)")
+    add("train-ingest", "step-paced training-loop ingest: chunk cache + "
+                        "readahead prefetch + data-stall accounting (see "
+                        "--cache-bytes/--readahead/--steps/"
+                        "--step-compute-ms)")
     pod = add("pod-ingest", "sharded object → every rank's device memory, "
                             "all-gathered over the process group")
     pod.add_argument("--ring", action="store_true",
@@ -133,10 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="identical measure cycles for burst/floor "
                             "detection")
     probe.add_argument("--cycle-sleep", type=float, default=2.0)
-    tune = add("tune", "adaptive autotuner over read: offline coordinate "
-                       "sweep or online AIMD session; emits a convergence "
-                       "trace + a recommended-config block (reusable via "
-                       "--tune-profile)")
+    tune = add("tune", "adaptive autotuner over read / train-ingest: "
+                       "offline coordinate sweep or online AIMD session; "
+                       "emits a convergence trace + a recommended-config "
+                       "block (reusable via --tune-profile)")
     tune.add_argument("--tune-mode", choices=("sweep", "online", "ab"),
                       default="online",
                       help="sweep = offline coordinate sweep; online = "
@@ -144,8 +159,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "static-vs-adaptive comparison")
     tune.add_argument("--tune-workload", choices=("read", "train-ingest"),
                       default="read",
-                      help="workload the tuning session drives "
-                           "(train-ingest is not ported yet)")
+                      help="workload the tuning session drives")
     for name, help_ in FS_CMDS.items():
         add(name, help_)
     prep = add("prepare", "generate worker-indexed data files")
@@ -319,16 +333,91 @@ def _add_common(p) -> None:
     _add_obs_args(p)
     _add_fault_args(p)
     _add_tail_args(p)
+    _add_pipeline_args(p)
     _add_tune_args(p)
+
+
+def _add_pipeline_args(p) -> None:
+    """The ingest pipeline's flags (``tpubench``'s, the same defaults)."""
+    p.add_argument("--cache-bytes", type=int,
+                   help="ingest pipeline: host chunk-cache budget in bytes "
+                        "(LRU, single-flight dedup; 0 disables caching)")
+    p.add_argument("--readahead", type=int,
+                   help="ingest pipeline: readahead depth in chunks the "
+                        "prefetcher keeps scheduled ahead of the consumer "
+                        "(0 = cold demand reads, the A/B baseline)")
+    p.add_argument("--readahead-bytes", type=int,
+                   help="ingest pipeline: prefetch byte budget (in-flight "
+                        "+ unconsumed prefetched bytes; 0 = depth-bounded)")
+    p.add_argument("--prefetch-workers", type=int,
+                   help="ingest pipeline: prefetch worker threads")
+    p.add_argument("--steps", type=int,
+                   help="train-ingest: training steps per epoch")
+    p.add_argument("--epochs", type=int,
+                   help="train-ingest: epochs (the plan repeats; epoch 2+ "
+                        "measures the warm-cache path)")
+    p.add_argument("--batch-shards", type=int,
+                   help="train-ingest: chunks consumed per step")
+    p.add_argument("--chunk-bytes", type=int,
+                   help="ingest pipeline: chunk size in bytes "
+                        "(default: workload.granule_bytes)")
+    p.add_argument("--step-compute-ms", type=float,
+                   help="train-ingest: synthetic per-step compute window "
+                        "(ms) the prefetcher hides fetch latency behind")
+    p.add_argument("--stall-threshold-ms", type=float,
+                   help="train-ingest: a step whose data wait exceeds this "
+                        "counts as a stalled step")
+    p.add_argument("--pipeline-pod", action="store_true",
+                   help="train-ingest: stage each step's batch as "
+                        "byte-range shards, one per rank, and all-gather "
+                        "them over the process group instead of the "
+                        "slot-ring path")
+    p.add_argument("--slab-bytes", type=int,
+                   help="zero-copy datapath: slab size in bytes for the "
+                        "page-locked chunk-buffer pool (0 = one chunk per "
+                        "slab; must hold at least one chunk)")
+    p.add_argument("--pool-slabs", type=int,
+                   help="zero-copy datapath: slab pool capacity (0 = "
+                        "auto-sized from cache budget + readahead + "
+                        "batch; exhaustion spills to counted pageable "
+                        "overflow leases, never blocks)")
+    p.add_argument("--no-slab-pool", action="store_true",
+                   help="disable the zero-copy slab datapath: chunks "
+                        "materialize as bytes (2+ host-RAM copies per "
+                        "chunk — the copies-per-byte A/B baseline arm)")
+    p.add_argument("--coop", action="store_true",
+                   help="cooperative chunk cache (not ported yet: "
+                        "train-ingest refuses it, ROADMAP A.6)")
+
+
+def _apply_pipeline_args(cfg: BenchConfig, args) -> None:
+    pl = cfg.pipeline
+    for attr in (
+        "cache_bytes", "readahead", "readahead_bytes", "prefetch_workers",
+        "steps", "epochs", "batch_shards", "chunk_bytes",
+        "step_compute_ms", "stall_threshold_ms",
+        "slab_bytes", "pool_slabs",
+    ):
+        v = getattr(args, attr)
+        if v is not None:
+            setattr(pl, attr, v)
+    if args.pipeline_pod:
+        pl.pod = True
+    if args.no_slab_pool:
+        pl.slab_pool = False
+    validate_pipeline_config(pl, staging=cfg.staging)
+    if args.coop:
+        cfg.raw.setdefault("coop", {})["enabled"] = True
 
 
 def _add_tune_args(p) -> None:
     """The tune plane's flags (``tpubench``'s, the same defaults)."""
     p.add_argument("--tune", action="store_true",
                    help="run the online controller during this run: "
-                        "worker fan-out, the staging depth and the hedge "
-                        "delay become live knobs driven by windowed "
-                        "goodput under a p99 guardrail (read)")
+                        "worker fan-out (read) or readahead and prefetch "
+                        "workers (train-ingest), the staging depth and the "
+                        "hedge delay become live knobs driven by windowed "
+                        "goodput under a p99 guardrail")
     p.add_argument("--tune-window", type=float,
                    help="tune decision window seconds (default 0.5)")
     p.add_argument("--tune-warmup", type=int,
@@ -346,7 +435,9 @@ def _add_tune_args(p) -> None:
                         "(default 8)")
     p.add_argument("--tune-knobs",
                    help="comma list of knobs the controller may actuate "
-                        "(read: workers,staging_depth,hedge_delay_s)")
+                        "(read: workers,staging_depth,hedge_delay_s; "
+                        "train-ingest: readahead,readahead_bytes,"
+                        "prefetch_workers,staging_depth,hedge_delay_s)")
     p.add_argument("--tune-profile",
                    help="tune profile JSON: `tune` WRITES the recommended "
                         "operating point here; every other command READS "
@@ -558,6 +649,7 @@ def build_config(args) -> BenchConfig:
         if v is not None:
             setattr(t.fault, field, v)
     _apply_tail_args(cfg.transport.tail, args)
+    _apply_pipeline_args(cfg, args)
     _apply_tune_args(cfg, args)
     return cfg
 
@@ -700,11 +792,33 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
     if args is None:
         args = build_parser().parse_args([cmd])
-    with bringup.session(cfg.dist, device,
-                         one_rank_group=cmd in POD_COLLECTIVE_CMDS) as topo:
-        with maybe_profile(cfg.obs.profile_dir, device):
+    # A single process's pod commands get a one-rank group, and so does
+    # train-ingest's pod path (also under tune).
+    one_rank = cmd in POD_COLLECTIVE_CMDS or (
+        cfg.pipeline.pod and cmd in ("train-ingest", "tune"))
+    # train-ingest owns its capture (StepProfiler: the step window, the
+    # extra["profile"] stamp); the whole-run wrap steps aside for it.
+    outer_profile = "" if cmd == "train-ingest" else cfg.obs.profile_dir
+    with bringup.session(cfg.dist, device, one_rank_group=one_rank) as topo:
+        with maybe_profile(outer_profile, device):
             if cmd == "read":
                 res = read(cfg, device=device, backend=backend)
+            elif cmd == "train-ingest":
+                from tpubench_torch.workloads.train_ingest import (
+                    format_pipeline_scorecard,
+                    run_train_ingest,
+                )
+
+                res = run_train_ingest(cfg, backend=backend, device=device)
+                pipe = res.extra["pipeline"]
+                print(format_pipeline_scorecard(pipe))
+                pool = pipe["copies"].get("pool")
+                if pool:
+                    print(f"  pool: leaked_slabs={pool['leaked_slabs']} "
+                          f"overflow_leases={pool['overflow_leases']} "
+                          f"page-locked={pool['native']} in "
+                          f"{pipe['pool_pin_seconds']:.3f} s (before the "
+                          "timed window)")
             elif cmd == "pod-ingest":
                 from tpubench_torch.workloads.pod_ingest import run_pod_ingest
 

@@ -3,8 +3,8 @@
 
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (pipeline,
-coop, serve, lifecycle, drill, fleet, …) are kept as the raw dicts
+unchanged. The sections the port has no code for yet (coop, serve,
+lifecycle, drill, fleet, …) are kept as the raw dicts
 they were loaded as, so they round-trip without a dataclass.
 
 :func:`refuse_unported` rejects a config that switches on a feature this
@@ -259,6 +259,119 @@ def validate_telemetry_config(tc: TelemetryConfig,
         )
 
 
+@dataclass
+class PipelineConfig:
+    """Ingest pipeline (``tpubench_torch/pipeline``): host chunk cache +
+    readahead prefetcher + the step-paced ``train-ingest`` workload
+    (``tpubench/config.py:272``, field for field).
+
+    The reference (and every other tpubench workload) issues cold,
+    demand-driven reads — no overlap between fetch and consumption. This
+    subsystem is the input pipeline that hides storage latency behind
+    compute and *measures how well it does so*: per-step data-stall time,
+    cache hit ratio, prefetch efficiency (used vs wasted bytes).
+    """
+
+    # Host-RAM chunk cache budget (bytes). Entries are keyed by
+    # (bucket, object, generation, range); byte-budgeted LRU eviction with
+    # single-flight dedup of concurrent misses. 0 disables caching (every
+    # chunk access is a backend read — the cold baseline).
+    cache_bytes: int = 256 * MB
+    # Readahead depth in CHUNKS: how far ahead of the consumer the
+    # prefetcher walks the access plan. 0 disables prefetch entirely
+    # (the cold A/B arm).
+    readahead: int = 8
+    # Prefetch byte budget: in-flight + cached-but-unconsumed prefetched
+    # bytes never exceed this (0 = bounded by readahead depth alone).
+    readahead_bytes: int = 0
+    # Worker threads issuing prefetch reads through the backend stack
+    # (hedging/watchdog/breaker/retry compose underneath, like any read).
+    prefetch_workers: int = 2
+    # --- train-ingest step loop ---
+    steps: int = 8  # training steps per epoch
+    epochs: int = 1  # plan repeats; epoch 2+ re-reads (cache hit path)
+    batch_shards: int = 4  # chunks consumed per step
+    # Chunk size (bytes); 0 = workload.granule_bytes.
+    chunk_bytes: int = 0
+    # Synthetic per-step compute time (ms): the window prefetch has to
+    # hide the next batch's fetch latency behind.
+    step_compute_ms: float = 0.0
+    # A step whose data-wait exceeds this is a *stalled step* (the
+    # stalled-step fraction the scorecard reports).
+    stall_threshold_ms: float = 1.0
+    # Pod path: stage each step's batch as byte-range shards across the
+    # pod's ranks and all-gather them (dist.shard / dist.reassemble),
+    # instead of the per-host slot-ring path.
+    pod: bool = False
+    # --- zero-copy slab datapath (tpubench_torch/mem) ---
+    # Lease chunks from a refcounted page-locked slab pool: the transport
+    # readinto()s wire bytes straight into a leased slab, the cache
+    # stores the lease, and the consumer stages the slab view in place —
+    # one host-RAM write per chunk byte. False = the legacy bytes path
+    # (the copies-per-byte A/B baseline arm).
+    slab_pool: bool = True
+    # Slab size in bytes; 0 = the effective chunk size (chunk_bytes or
+    # workload.granule_bytes). Must be >= one chunk.
+    slab_bytes: int = 0
+    # Pool capacity in slabs; 0 = auto-sized so the cache budget plus the
+    # readahead window plus one step's batch fit without overflow.
+    pool_slabs: int = 0
+
+
+def validate_pipeline_config(pc: "PipelineConfig",
+                             where: str = "pipeline",
+                             staging: "StagingConfig" = None) -> None:
+    """Parse-time sanity for the pipeline knobs (one-line SystemExit).
+    With ``staging`` supplied, also
+    cross-checks the overlapped staging window against the slab pool."""
+    for name, lo in (
+        ("cache_bytes", 0), ("readahead", 0), ("readahead_bytes", 0),
+        ("prefetch_workers", 1), ("steps", 1), ("epochs", 1),
+        ("batch_shards", 1), ("chunk_bytes", 0),
+        ("slab_bytes", 0), ("pool_slabs", 0),
+    ):
+        v = getattr(pc, name)
+        if v < lo:
+            raise SystemExit(f"{where}.{name}={v!r}: must be >= {lo}")
+    for name in ("step_compute_ms", "stall_threshold_ms"):
+        v = getattr(pc, name)
+        if not (v >= 0):  # also rejects NaN
+            raise SystemExit(f"{where}.{name}={v!r}: must be >= 0")
+    if (
+        staging is not None and staging.mode == "device_put"
+        and staging.double_buffer and not staging.validate_checksum
+        and not pc.pod and pc.slab_pool
+        and pc.pool_slabs > 0 and pc.slab_bytes > 0
+    ):
+        # Scope: only the device_put overlapped window holds leases past
+        # submit — pallas stages synchronously, validation forces the
+        # serial ring, and the pod path never builds a stager at all.
+        # The overlapped executor holds one chunk lease per in-flight
+        # transfer until the bytes LAND (not until submit returns), so an
+        # explicitly-sized pool must have room for the in-flight window
+        # on top of the cache's working set. Without this check the
+        # misconfiguration only surfaces as counted overflow leases
+        # mid-run — an hour in, as pool-pressure noise, not as the
+        # config error it is.
+        depth = max(1, staging.depth)
+        inflight = depth * pc.slab_bytes
+        budget = pc.pool_slabs * pc.slab_bytes
+        if inflight > budget:
+            raise SystemExit(
+                f"staging.depth={depth} × {where}.slab_bytes="
+                f"{pc.slab_bytes} = {inflight} B of in-flight leases "
+                f"exceeds the slab-pool budget ({where}.pool_slabs="
+                f"{pc.pool_slabs} × {pc.slab_bytes} = {budget} B): every "
+                "overlapped transfer would overflow-lease — raise "
+                "--pool-slabs or lower --staging-depth"
+            )
+    # The cross-field readahead/cache/chunk checks live in
+    # run_train_ingest, where the effective chunk size is known AND only
+    # the workload that actually constructs the pipeline pays them —
+    # `tpubench read --cache-bytes 0` must not fail on the pipeline's
+    # default readahead.
+
+
 # Knobs the tune controller may actuate (``tpubench/config.py:1077``; the
 # controller's ACTUATED registry maps each to its config field and CLI
 # flag). The port's read path actuates ``workers``, ``hedge_delay_s`` and
@@ -348,7 +461,7 @@ def validate_tune_config(tc: TuneConfig, where: str = "tune") -> None:
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
-                   "telemetry", "tune")
+                   "telemetry", "tune", "pipeline")
 
 
 @dataclass
@@ -360,6 +473,7 @@ class BenchConfig:
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     tune: TuneConfig = field(default_factory=TuneConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -405,6 +519,7 @@ _SUBTYPES = {
     "obs": ObservabilityConfig,
     "telemetry": TelemetryConfig,
     "tune": TuneConfig,
+    "pipeline": PipelineConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,

@@ -51,6 +51,7 @@ from tpubench_torch.device import (
     worker_stream,
 )
 from tpubench_torch.kernels import landing
+from tpubench_torch.mem.slab import SlabLease
 from tpubench_torch.metrics.recorder import LatencyRecorder
 from tpubench_torch.obs import flight as _flight
 from tpubench_torch.obs.profiling import hot_region
@@ -117,8 +118,14 @@ class GranuleAggregator:
 
     def submit(self, mv) -> None:
         """Slot-fill path (granule was filled elsewhere): copy the source
-        into slot free space, launching transfers as slots fill."""
-        if not isinstance(mv, memoryview):
+        into slot free space, launching transfers as slots fill. Takes
+        any bytes-like source or a :class:`~tpubench_torch.mem.slab.
+        SlabLease` (the pipeline's page-locked chunk slabs feed the ring
+        with no ``bytes`` in between; the caller keeps its reference until
+        submit returns, as the fill is synchronous)."""
+        if isinstance(mv, SlabLease):
+            mv = mv.view()
+        elif not isinstance(mv, memoryview):
             mv = memoryview(mv)
         off = 0
         n = len(mv)
@@ -381,6 +388,25 @@ class DevicePutStager(GranuleAggregator):
         self._drain_slot(k)
         return self._slot_views[k][self._fill :]
 
+    def submit_owned(self, lease: SlabLease, label: str = "chunk") -> None:
+        """Zero-copy staging of a page-locked slab lease: the copy to the
+        card reads straight out of the slab (no slot copy), and the
+        lease's reference, which the caller hands over, is released by
+        the window's reaper once the copy's event has completed — never
+        here. Serial ring (depth 1 / validation): the copying slot path,
+        releasing after the synchronous fill."""
+        if not self._overlap:
+            try:
+                self.submit(lease)
+            finally:
+                lease.release()
+            return
+        self.transfers += 1
+        self._window.enqueue(
+            lease.as_tensor(), len(lease), on_complete=lease.release,
+            label=label,
+        )
+
     def _precommit(self, n: int) -> None:
         if self._validate:
             chunk = self._slot_flat[self._k][self._fill : self._fill + n]
@@ -486,6 +512,12 @@ class LockedSink:
     def submit(self, mv: memoryview) -> None:
         with self._lock:
             self._inner.submit(mv)
+
+    def submit_owned(self, lease, label: str = "chunk") -> None:
+        """Lease staging under the same lock as slot submits: the enqueue
+        moves the window's credit and the ring's transfer count."""
+        with self._lock:
+            self._inner.submit_owned(lease, label=label)
 
     def flush(self) -> None:
         with self._lock:

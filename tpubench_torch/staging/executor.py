@@ -14,10 +14,11 @@ stamps ``stage_submit`` and, when the event reports the copy done,
 ``stage_complete``/``hbm_staged`` — host times, as ``tpubench`` stamps
 after ``block_until_ready``.
 
-Each transfer's resources (the slot to free) are dropped by the reaper at
-*completion* — when the copy's event has fired — never at submit: a pinned
-slot refilled while its asynchronous copy still reads it would ship
-corrupted bytes. The landed device buffer is released at completion too
+Each transfer's resources (the slot to free, or the page-locked slab
+lease of a chunk staged in place) are dropped by the reaper at
+*completion* — when the copy's event has fired — never at submit: a
+pinned buffer refilled while its asynchronous copy still reads it would
+ship corrupted bytes. The landed device buffer is released at completion too
 (its reference is dropped, and the caching allocator reuses the memory for
 later work on the same stream).
 
@@ -94,7 +95,7 @@ class _Transfer:
                  seq: int):
         self.array = array
         self.nbytes = nbytes
-        self.on_complete = on_complete  # free the slot
+        self.on_complete = on_complete  # free the slot / release the lease
         self.op = op  # flight record (kind="stage"), finished by the reaper
         self.enqueue_ns = enqueue_ns
         self.seq = seq

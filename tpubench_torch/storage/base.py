@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Optional, Protocol, runtime_checkable
+from typing import Iterator, Optional, Protocol, runtime_checkable
 
 import numpy as np
 
@@ -127,3 +127,12 @@ def read_object_into_sink(
     finally:
         reader.close()
     return total, reader.first_byte_ns
+
+
+def iter_ranges(size: int, granule: int) -> Iterator[tuple[int, int]]:
+    """(start, length) granule decomposition of a byte range."""
+    off = 0
+    while off < size:
+        n = min(granule, size - off)
+        yield off, n
+        off += n

@@ -12,7 +12,7 @@ given two or more runs — pairwise deltas grouped by config axis
 (transport bit, staging mode, fetch executor).
 
 A document carrying the block of a workload the port does not have yet
-(chaos, train-ingest, serve, drill, fleet, replay, lifecycle) is refused
+(chaos, serve, drill, fleet, replay, lifecycle) is refused
 with ``NotImplementedError`` naming its ``ROADMAP.md`` item, never
 rendered without that block. ``bench.py`` lines and multichip-sweep
 artifacts are plain dicts and render as in ``tpubench``.
@@ -145,7 +145,6 @@ def _axis(run: dict) -> str:
 # the ROADMAP item that brings it.
 UNPORTED_BLOCKS = {
     "chaos": "A.6: the chaos entry point",
-    "pipeline": "A.6: train-ingest",
     "serve": "A.7: serve",
     "membership": "A.7: dist/membership.py",
     "drill": "A.7: drill",
@@ -192,6 +191,16 @@ def summarize_run(run: dict, label: str = "") -> str:
         lines.append(format_staging_block(staging))
     if "checksum_ok" in extra:
         lines.append(f"  checksum_ok={extra['checksum_ok']}")
+    pipe = extra.get("pipeline")
+    if pipe:
+        # Ingest-pipeline scorecard (train-ingest): the body the CLI
+        # printed live — stall accounting, cache hit ratio, prefetch
+        # efficiency, copies per byte.
+        from tpubench_torch.workloads.train_ingest import (
+            format_pipeline_scorecard,
+        )
+
+        lines.append(format_pipeline_scorecard(pipe))
     for key, item in UNPORTED_BLOCKS.items():
         if extra.get(key):
             # The block's formatter lives in a workload not ported yet:

@@ -1,5 +1,6 @@
 """``tune`` — offline coordinate sweeps and online-adaptive tuning
-sessions over the ``read`` workload (``tpubench/workloads/tune_cmd.py``).
+sessions over the ``read`` and ``train-ingest`` workloads
+(``tpubench/workloads/tune_cmd.py``).
 
 The reference asserts its operating point (``--worker 48``,
 ``main.go:36``); this workload *finds* it, two ways:
@@ -15,9 +16,11 @@ The reference asserts its operating point (``--worker 48``,
   converged goodput and p99 against the best static cell.
 
 On the read path the knobs are worker fan-out (``workers``), the copy
-ring's depth (``staging_depth``) and, with hedging, the hedge delay. The
-``train-ingest`` workload is not ported yet (``ROADMAP.md`` A.6) and is
-refused. Hermetic when asked: with ``--protocol http`` and no endpoint,
+ring's depth (``staging_depth``) and, with hedging, the hedge delay; on
+``train-ingest`` the readahead depth, the prefetch workers, the copy
+ring's depth (capped by an explicitly sized slab pool) and the hedge
+delay. The cooperative cache's knobs (``coop``, ``peer_budget_bytes``)
+wait for its port (``ROADMAP.md`` A.6). Hermetic when asked: with ``--protocol http`` and no endpoint,
 an in-process fake server (HTTP/1.1, or the h2 server under ``--http2``)
 is spawned carrying the config's fault plan. ``--protocol fake`` is
 hermetic as usual.
@@ -118,13 +121,9 @@ def recommended_flags(values: dict) -> str:
 
 
 def refuse_workload(workload: str) -> None:
-    """Only ``read`` is tunable in the port so far."""
-    if workload == "train-ingest":
-        raise NotImplementedError(
-            "not ported to tpubench_torch yet: tune over train-ingest "
-            "(ROADMAP A.6: train-ingest)"
-        )
-    if workload != "read":
+    """``read`` and ``train-ingest`` are tunable; anything else is an
+    error."""
+    if workload not in ("read", "train-ingest"):
         raise SystemExit(f"tune: unknown workload {workload!r} "
                          "(read|train-ingest)")
 
@@ -145,24 +144,44 @@ def _ladder(around: int, lo: int, hi: int) -> list[int]:
 def sweep_axes(cfg: BenchConfig, workload: str) -> dict[str, list]:
     """Candidate values per knob axis (intersected with cfg.tune.knobs),
     derived from the config's own operating point — ``tpubench``'s axes
-    for the read workload."""
-    from tpubench_torch.tune.controller import staging_depth_ceiling
+    (the cooperative cache's excepted: not ported)."""
+    from tpubench_torch.tune.controller import (
+        prefetch_workers_ceiling,
+        readahead_ceiling,
+        staging_depth_ceiling,
+    )
 
     refuse_workload(workload)
-    w, s, tail = cfg.workload, cfg.staging, cfg.transport.tail
-    pod = bool(cfg.raw.get("pipeline", {}).get("pod", False))
+    w, p, s, tail = cfg.workload, cfg.pipeline, cfg.staging, cfg.transport.tail
     axes: dict[str, list] = {}
-    if w.workers > 1:
-        axes["workers"] = _ladder(w.workers, 1, w.workers)
+    if workload == "read":
+        if w.workers > 1:
+            axes["workers"] = _ladder(w.workers, 1, w.workers)
+    else:  # train-ingest
+        if p.readahead > 0:
+            axes["readahead"] = _ladder(
+                p.readahead, 1, readahead_ceiling(p.readahead)
+            )
+        axes["prefetch_workers"] = _ladder(
+            p.prefetch_workers, 1, prefetch_workers_ceiling(p.prefetch_workers)
+        )
     if tail.hedge:
         d = tail.hedge_delay_s
         axes["hedge_delay_s"] = sorted({d / 4, d / 2, d, d * 2})
-    if s.mode != "none" and s.double_buffer and not pod:
+    if s.mode != "none" and s.double_buffer and not p.pod:
         # The ladder the online knob explores (ceiling single-sourced in
         # controller.py): depth 1 is the serial comparator cell, the rest
-        # find the overlap knee.
+        # find the overlap knee. An explicitly sized slab pool caps it: a
+        # cell past the pool budget would fail validate_pipeline_config
+        # inside run_train_ingest and end the sweep.
+        pool_cap = (
+            p.pool_slabs
+            if (workload != "read" and p.slab_pool and p.slab_bytes > 0)
+            else 0
+        )
         axes["staging_depth"] = _ladder(
-            max(1, s.depth), 1, staging_depth_ceiling(max(1, s.depth)),
+            max(1, s.depth), 1,
+            staging_depth_ceiling(max(1, s.depth), pool_cap),
         )
     wanted = set(cfg.tune.knobs)
     return {k: v for k, v in axes.items() if k in wanted}
@@ -173,11 +192,15 @@ def sweep_axes(cfg: BenchConfig, workload: str) -> dict[str, list]:
 
 def _run_target(cfg: BenchConfig, workload: str, tracer=None, backend=None,
                 device="cuda") -> RunResult:
-    """One run of the tuned workload, as the ``read`` command runs it."""
+    """One run of the tuned workload, as its command runs it."""
+    refuse_workload(workload)
+    if workload == "train-ingest":
+        from tpubench_torch.workloads.train_ingest import run_train_ingest
+
+        return run_train_ingest(cfg, backend=backend, device=device)
     from tpubench_torch.staging.device import make_sink_factory
     from tpubench_torch.workloads.read import run_read
 
-    refuse_workload(workload)
     return run_read(cfg, backend=backend, device=device, tracer=tracer,
                     sink_factory=make_sink_factory(cfg, device=device))
 
