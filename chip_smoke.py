@@ -163,10 +163,30 @@ before the last line:
    warm-up, each step's pod sum the host's sum of its batch); every mode
    with zero errors, every byte delivered, no slab leaked. Then ``tune
    --tune-workload train-ingest`` (a sweep at 8 steps a cell, and an
-   online session in ``train-ingest --tune``).
+   online session in ``train-ingest --tune``);
+20. coop — the cooperative chunk cache at phase train's deployment:
+   coop/coop_validate (``train-ingest --validate --coop``, the loopback
+   channel, one host: ``checksum_ok``, ``tb_checksum`` once per slot, as
+   many slots as train_validate; its GB/s printed beside
+   train_validate's), coop/coop_ici (``--pipeline-pod --readahead 0
+   --coop --coop-channel ici`` on the one-rank NCCL group: ``tb_checksum``
+   once per step and once for the warm-up, each step's pod sum the
+   host's, the channel built on NCCL and no broadcast, since a pod of
+   one routes nothing); both with the coop stamp of one host (no peer
+   request, origin fetches = the cache's misses), the scorecard's coop
+   line, zero errors, every byte delivered, no slab leaked. Then
+   coop/channel (``IciPeerChannel.broadcast`` at 128, 1000, 4096 B and
+   one 2 MiB chunk on the one-rank NCCL group: every echo bit-exact, one
+   ``tb_checksum`` a broadcast, the ms of each and the steady ms of a
+   2 MiB broadcast) and coop/sim (``run_coop_sim`` coop on and off at 2
+   and 4 hosts with page-locked slab pools, at ``tests/test_coop.py``'s
+   acceptance settings: the pod's origin bytes and fetches, unique
+   chunks and the most fetches of one chunk equal ``tpubench``'s CPU
+   numbers; the origin bytes saved and the seconds printed).
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB),
-at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128) and
+at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128), at
+the slots of phase coop's broadcasts (128, 1,024, 4,096 B and 2 MiB) and
 at phase pod's (1 GiB, 8,388,608 × 128) against its plain version, the
 last with its time and bound.
 
@@ -279,7 +299,8 @@ KERNELS = {
                             "native/native_h2_validate",
                             *(f"stream/{m}" for m in STREAM_MODES),
                             "multichip/size1", "train/train_validate",
-                            "train/train_pod")),
+                            "train/train_pod", "coop/coop_validate",
+                            "coop/coop_ici", "coop/channel")),
 }
 
 
@@ -330,7 +351,9 @@ def main() -> int:
     phase_preflight(smi)
     counts.update(phase_stream(store, smi))
     counts.update(phase_multichip(smi))
-    counts.update(phase_train(store, smi))
+    train_counts, train_lines = phase_train(store, smi)
+    counts.update(train_counts)
+    counts.update(phase_coop(store, smi, train_lines))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -452,7 +475,9 @@ def phase_kernels(torch, seed: int) -> dict:
         "land": [("main_path", LAND_ROWS * 128), ("block", 512 * 128)],
         "checksum": [("main_path", CHECKSUM_ROWS * 128), ("block", 512 * 128),
                      ("gather_shard", GATHER_SHARD_MB * MIB),
-                     ("train_pod_shard", TRAIN_BATCH * GRANULE)],
+                     ("train_pod_shard", TRAIN_BATCH * GRANULE),
+                     *((f"coop_slot_{n}", -(-n // 128) * 128)
+                       for n in COOP_CHANNEL_SIZES)],
     }
     ragged, wraps = 777_777, 17 * MIB + 13
     edges = checksum_edges(landing.checksum_plan, landing.sm_count(torch.device("cuda")))
@@ -2753,6 +2778,29 @@ TRAIN_MODES = {
                    "--readahead", "0", "--cache-bytes", str(1280 * MIB)],
     "train_pod": ["--pipeline-pod"],
 }
+# Phase coop: train-ingest with the cooperative cache at phase train's
+# deployment (coop_validate: the loopback channel, one host; coop_ici: the
+# lockstep channel on the one-rank NCCL group, which routes nothing at a
+# pod of one), then the lockstep channel alone at the sizes below (the
+# last one a 2 MiB chunk), then run_coop_sim's A/B at the acceptance
+# settings of tests/test_coop.py with page-locked slab pools.
+COOP_MODES = {
+    "coop_validate": ["--validate", "--coop"],
+    "coop_ici": ["--pipeline-pod", "--readahead", "0", "--coop",
+                 "--coop-channel", "ici"],
+}
+COOP_CHANNEL_SIZES = (128, 1000, 4096, 2 * MIB)
+COOP_CHANNEL_REPS = 20  # steady 2 MiB broadcasts, timed after the count
+COOP_SIM = dict(accesses_per_host=96, alpha=1.2, seed=3, slab_pool=True)
+COOP_SIM_FIELDS = ("origin_bytes_per_pod", "origin_fetches_per_pod",
+                   "unique_chunks_fetched", "max_origin_fetches_per_chunk")
+# (hosts, coop) -> COOP_SIM_FIELDS, as tpubench's run_coop_sim gives them
+# on the CPU (tests/test_torch_coop.py::test_sim_parity holds the port's
+# CPU run to the same numbers).
+COOP_SIM_EXPECT = {
+    (2, True): (7864320, 30, 30, 1), (2, False): (11534336, 44, 30, 2),
+    (4, True): (8126464, 31, 31, 1), (4, False): (22282240, 85, 31, 4),
+}
 TRAIN_STEPS_CUT = {
     "train_warm": f"{TRAIN_WARM_STEPS} steps x 2 epochs (1 GiB, inside "
                   "the 1.25 GiB cache, so epoch 2 is all hits)",
@@ -2924,14 +2972,15 @@ def _check_train(mode: str, res, counts: dict, obs, step_sums) -> None:
               f"train/{mode}: cache {pipe['cache']}")
 
 
-def phase_train(store, smi) -> dict:
+def phase_train(store, smi) -> tuple[dict, dict]:
     """``train-ingest`` through ``cli.execute`` over phase read's store,
     in each mode of TRAIN_MODES, then ``tune --tune-workload train-ingest``
     (a sweep, and an online session). Every mode: zero errors, every
     step's bytes delivered, no slab leaked, the copies per byte of its
     arm; the rings' kernels launched once per transfer, the overlapped
     window one transfer per chunk, the pod's ``tb_checksum`` once per step
-    and once for the warm-up, each step's pod sum the host's."""
+    and once for the warm-up, each step's pod sum the host's. Returns the
+    launch counts and each mode's line."""
     import contextlib
     import io
 
@@ -2973,7 +3022,7 @@ def phase_train(store, smi) -> dict:
     emit({"phase": "train_total", "seconds": time.perf_counter() - t_phase,
           "reduced": [f"{m}: {r}" for m, r in TRAIN_STEPS_CUT.items()]
           + ["train_pod: one rank"]})
-    return launches
+    return launches, lines
 
 
 def _tune_train(store, smi) -> dict:
@@ -3040,6 +3089,289 @@ def _tune_train(store, smi) -> dict:
         emit(line)
         out[f"train/{mode}"] = counts
     return out
+
+
+class ChannelObserved:
+    """Keeps every lockstep channel a run builds, by replacing
+    ``tpubench_torch.dist.peer.IciPeerChannel`` (which ``coop_from_config``
+    looks up at each build) with a subclass that notes its instances; what
+    the channel does is unchanged."""
+
+    def __enter__(self):
+        from tpubench_torch.dist import peer
+
+        self._saved = base = peer.IciPeerChannel
+        made = self.channels = []
+
+        class Kept(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        peer.IciPeerChannel = Kept
+        return self
+
+    def __exit__(self, *exc):
+        from tpubench_torch.dist import peer
+
+        peer.IciPeerChannel = self._saved
+
+
+def _check_coop(mode: str, res, counts: dict, obs, chans, step_sums,
+                train_transfers) -> None:
+    pipe = res.extra["pipeline"]
+    steps = pipe["stall"]["steps"]
+    check(res.errors == 0, f"coop/{mode}: errors {res.errors}")
+    check(res.bytes_total == steps * TRAIN_BATCH * GRANULE,
+          f"coop/{mode}: {res.bytes_total} B for {steps} steps")
+    cp = pipe["copies"]
+    check(cp["mode"] == "slab" and cp["pool"]["leaked_slabs"] == 0
+          and cp["pool"]["native"] is True and cp["copies_per_byte"] == 1.0,
+          f"coop/{mode}: copies {cp}")
+    co, pf = pipe["coop"], pipe["prefetch"]
+    # Every origin fetch is a demand miss or a completed prefetch: both
+    # route through the cooperative cache (the cache's misses alone at
+    # readahead 0).
+    fetched = pipe["cache"]["misses"] + (pf["completed"] if pf else 0)
+    check(co["enabled"] and co["hosts"] == co["active_hosts"] == 1
+          and co["peer_requests"] == 0 and co["owner_fetches"] == 0
+          and co["origin_fetches"] == fetched > 0,
+          f"coop/{mode}: coop {co}, cache {pipe['cache']}, prefetch {pf}")
+    if mode == "coop_validate":
+        transfers = res.summaries["stage"].count
+        slot = _slot(_config(WORKERS, OBJECT_SIZE, GRANULE,
+                             "device_put_validate"))
+        n = expected_transfers(steps * TRAIN_BATCH * GRANULE, GRANULE, slot)
+        check(transfers == n == train_transfers,
+              f"coop/{mode}: {transfers} transfers, want {n} "
+              f"(train_validate: {train_transfers})")
+        check(res.extra.get("checksum_ok") is True
+              and res.extra["staged_bytes"] == res.bytes_total,
+              f"coop/{mode}: checksum {res.extra.get('checksum_ok')}")
+        want = {"land": 0, "checksum": transfers}
+        check(not chans.channels, f"coop/{mode}: a lockstep channel built")
+    else:
+        want = {"land": 0, "checksum": steps + 1}
+        check(len(obs.calls) == steps + 1
+              and all(b == "nccl" and d == "cuda" for b, d, _ in obs.calls),
+              f"coop/{mode}: calls {obs.calls[:2]} of {len(obs.calls)}")
+        sums = [c for _, _, c in obs.calls]
+        check(sums[0] == 0 and sums[1:] == step_sums,
+              f"coop/{mode}: device checksums differ from the host's")
+        check(len(chans.channels) == 1
+              and chans.channels[0].stats()["broadcasts"] == 0,
+              f"coop/{mode}: channels {[c.stats() for c in chans.channels]}")
+    check(counts == want, f"coop/{mode}: launches {counts}, want {want}")
+
+
+def _channel_parts(data: bytes) -> dict:
+    """Where a steady broadcast of ``data`` goes, step by step as the
+    channel takes them (ms, mean of COOP_CHANNEL_REPS, each step waited
+    for): the host copy into a page-locked buffer, its copy to the card,
+    the all-gather with the pod checksum, and the owner's slot back to
+    the host as bytes. Timed after the launch count is read."""
+    import numpy as np
+    import torch
+
+    from tpubench_torch.dist.reassemble import (
+        make_mesh,
+        make_reassemble,
+        shard_to_device_array,
+    )
+
+    n, lane = len(data), 128
+    pod = make_mesh(device="cuda")
+    gather = make_reassemble(pod)
+    host = torch.zeros(-(-n // lane) * lane, dtype=torch.uint8,
+                       pin_memory=True)
+    flat, src = host.numpy(), np.frombuffer(data, dtype=np.uint8)
+    sums = dict.fromkeys(("fill", "h2d", "gather", "d2h"), 0.0)
+    for _ in range(COOP_CHANNEL_REPS):
+        t0 = time.perf_counter()
+        flat[:n] = src
+        t1 = time.perf_counter()
+        staged = shard_to_device_array([host], pod, lane)
+        staged.event.synchronize()
+        t2 = time.perf_counter()
+        gathered, _ = gather(staged)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out = gathered.view(pod.size, -1)[0, :n].cpu().numpy().tobytes()
+        t4 = time.perf_counter()
+        check(out == data, "coop/channel: the timed parts' echo differs")
+        for k, dt in zip(sums, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            sums[k] += dt
+    return {k: v * 1e3 / COOP_CHANNEL_REPS for k, v in sums.items()}
+
+
+def _coop_channel(smi) -> dict:
+    """``IciPeerChannel.broadcast`` on the one-rank NCCL group at
+    COOP_CHANNEL_SIZES, after a warm-up channel has set the communicator
+    up: every echo bit-exact, one ``tb_checksum`` a broadcast; then the
+    steady time of a 2 MiB broadcast."""
+    import torch.distributed as dist
+
+    from tpubench_torch.config import DistConfig
+    from tpubench_torch.dist import bringup
+    from tpubench_torch.dist.peer import IciPeerChannel
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.pipeline.cache import ChunkKey
+    from tpubench_torch.storage.base import deterministic_bytes
+
+    keys = {n: ChunkKey("tpubench", f"coop/chunk_{n}", 1, 0, n)
+            for n in COOP_CHANNEL_SIZES}
+    datas = {n: deterministic_bytes(k.object, n).tobytes()
+             for n, k in keys.items()}
+    big = COOP_CHANNEL_SIZES[-1]
+    with bringup.session(DistConfig(), "cuda", one_rank_group=True):
+        check(dist.get_backend() == "nccl", "coop/channel: group not NCCL")
+        warm = IciPeerChannel(device="cuda")
+        for n, k in keys.items():
+            warm.broadcast(0, datas[n], k)
+        warm.close()
+        ch = IciPeerChannel(device="cuda")
+        landing.reset_launches()
+        first_ms = {}
+        for n, k in keys.items():
+            t0 = time.perf_counter()
+            got = ch.broadcast(0, datas[n], k)
+            first_ms[n] = (time.perf_counter() - t0) * 1e3
+            check(got == datas[n], f"coop/channel: {n} B echo differs")
+        counts = {"land": landing.land.launches,
+                  "checksum": landing.checksum.launches}
+        st = ch.stats()
+        check(st["broadcasts"] == len(keys)
+              and counts == {"land": 0, "checksum": len(keys)},
+              f"coop/channel: stats {st}, launches {counts}")
+        t0 = time.perf_counter()
+        for _ in range(COOP_CHANNEL_REPS):
+            check(ch.broadcast(0, datas[big], keys[big]) == datas[big],
+                  "coop/channel: steady echo differs")
+        steady_ms = (time.perf_counter() - t0) * 1e3 / COOP_CHANNEL_REPS
+        ch.close()
+        parts = _channel_parts(datas[big])
+    emit({"phase": "coop", "mode": "channel", "broadcasts": st["broadcasts"],
+          "broadcast_bytes": st["broadcast_bytes"], "launches": counts,
+          "ms_per_broadcast": {str(n): v for n, v in first_ms.items()},
+          "steady_ms_per_2mib_broadcast": steady_ms,
+          "steady_gbps": big / (steady_ms / 1e3) / 1e9,
+          "steady_parts_ms": parts,
+          "reps": COOP_CHANNEL_REPS, "card": smi,
+          "reduced": ["world size 1 (the machine has one H100): the owner's "
+                      "own slot, no peer on the wire"]})
+    return counts
+
+
+def _coop_sim(smi) -> None:
+    """``run_coop_sim`` coop on / off at 2 and 4 hosts with page-locked
+    slab pools: the pod counters equal ``tpubench``'s CPU numbers
+    (COOP_SIM_EXPECT) and the port's own CPU run; zero errors, <= 1.0
+    copies a byte."""
+    from tpubench_torch.pipeline.coop import run_coop_sim
+
+    for hosts in (2, 4):
+        arms = {}
+        for coop in (True, False):
+            t0 = time.perf_counter()
+            r = run_coop_sim(n_hosts=hosts, coop=coop, device="cuda",
+                             **COOP_SIM)
+            call_s = time.perf_counter() - t0
+            cpu = run_coop_sim(n_hosts=hosts, coop=coop, device="cpu",
+                               **COOP_SIM)
+            got = tuple(r[f] for f in COOP_SIM_FIELDS)
+            check(not r["errors"] and r["copies_per_byte_ok"],
+                  f"coop/sim_{hosts}: {r['errors']}")
+            check(got == COOP_SIM_EXPECT[(hosts, coop)]
+                  == tuple(cpu[f] for f in COOP_SIM_FIELDS)
+                  and r["peer_hits"] + r["peer_misses"]
+                  == cpu["peer_hits"] + cpu["peer_misses"],
+                  f"coop/sim_{hosts}: {got} (coop={coop}) against "
+                  f"{COOP_SIM_EXPECT[(hosts, coop)]}")
+            arms["coop" if coop else "per_host"] = dict(
+                r, call_seconds=call_s, cpu_seconds=cpu["seconds"])
+        c, b = arms["coop"], arms["per_host"]
+        check(c["max_origin_fetches_per_chunk"] == 1
+              and c["peer_hit_ratio"] == 1.0,
+              f"coop/sim_{hosts}: {c['max_origin_fetches_per_chunk']} "
+              f"fetches a chunk, peer hits {c['peer_hit_ratio']}")
+        emit({"phase": "coop", "mode": f"sim_{hosts}hosts",
+              "origin_bytes_saved_ratio":
+                  1.0 - c["origin_bytes_per_pod"] / b["origin_bytes_per_pod"],
+              **{f"{arm}_{f}": a[f] for arm, a in arms.items()
+                 for f in COOP_SIM_FIELDS},
+              "peer_hits": c["peer_hits"],
+              "copies_per_byte_ok": [c["copies_per_byte_ok"],
+                                     b["copies_per_byte_ok"]],
+              "seconds": {arm: a["seconds"] for arm, a in arms.items()},
+              "call_seconds": {arm: a["call_seconds"]
+                               for arm, a in arms.items()},
+              "cpu_seconds": {arm: a["cpu_seconds"]
+                              for arm, a in arms.items()},
+              "card": smi})
+
+
+def phase_coop(store, smi, train_lines: dict) -> dict:
+    """``train-ingest --coop`` through ``cli.execute`` at phase train's
+    deployment (COOP_MODES), the lockstep channel alone, and the
+    simulation's A/B. Every mode: zero errors, every step's bytes
+    delivered, no slab leaked, the coop stamp of a pod of one (no peer
+    request, origin fetches = the cache's misses) and the scorecard's coop
+    line printed; coop_validate's ``tb_checksum`` once a transfer,
+    coop_ici's once a step and once for the warm-up with each step's pod
+    sum the host's, and its channel built on NCCL with no broadcast."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    launches = {}
+    t_phase = time.perf_counter()
+    for mode, flags in COOP_MODES.items():
+        args, cfg = _cli(["train-ingest", *_train_argv(flags)])
+        step_sums = _step_sums(store, cfg) if mode == "coop_ici" else None
+        buf = io.StringIO()
+        with TrainObserved() as obs, ChannelObserved() as chans, \
+                contextlib.redirect_stdout(buf):
+            landing.reset_launches()
+            t0 = time.perf_counter()
+            res = cli.execute("train-ingest", cfg, device="cuda",
+                              backend=store, args=args)
+            seconds = time.perf_counter() - t0
+            counts = {"land": landing.land.launches,
+                      "checksum": landing.checksum.launches}
+        text = buf.getvalue()
+        check("== ingest-pipeline scorecard ==" in text
+              and "  coop: hosts=1/1 " in text,
+              f"coop/{mode}: no scorecard coop line printed")
+        _check_coop(mode, res, counts, obs, chans, step_sums,
+                    train_lines["train_validate"]["transfers"])
+        line = {**_train_line(mode, res, counts, seconds, smi),
+                "phase": "coop",
+                "coop": {k: res.extra["pipeline"]["coop"][k] for k in (
+                    "hosts", "active_hosts", "peer_requests", "peer_hits",
+                    "origin_fetches", "origin_bytes", "owner_fetches")}}
+        if mode == "coop_validate":
+            tv = train_lines["train_validate"]
+            line["vs_train_validate"] = {
+                k: [tv[k], line[k]] for k in ("gbps_per_chip", "wall_s",
+                                              "stall_p50_ms")}
+        else:
+            tp = train_lines["train_pod"]
+            line["vs_train_pod"] = {
+                k: [tp[k], line[k]] for k in ("gbps_per_chip", "wall_s")}
+            line["broadcasts"] = chans.channels[0].stats()["broadcasts"]
+            line["step_checksums_checked"] = len(step_sums)
+            line["reduced"] = ["one rank (the machine has one H100): a pod "
+                               "of one routes nothing"]
+        emit(line)
+        launches[f"coop/{mode}"] = counts
+    launches["coop/channel"] = _coop_channel(smi)
+    _coop_sim(smi)
+    emit({"phase": "coop_total", "seconds": time.perf_counter() - t_phase,
+          "reduced": ["coop_ici and channel: one rank (several ranks run "
+                      "only as gloo groups on the CPU)"]})
+    return launches
 
 
 if __name__ == "__main__":

@@ -474,3 +474,77 @@ def test_train_ingest_on_cuda_matches_cpu(cuda, tmp_path, flags):
          "--pipeline-pod": "pod"}[flags[0]]]
     assert launches == {"cpu": (0, 0), "cuda": want}
     assert sum(want) > 0 or gpu.extra["staging"]["transfers"] == 96
+
+
+def test_ici_peer_channel_round_trip_on_nccl(cuda):
+    """``IciPeerChannel.broadcast`` on a one-rank NCCL group: every echo
+    bit-exact and one ``tb_checksum`` launch per broadcast (the
+    all-gather's pod checksum); a gloo group on CUDA is refused."""
+    import torch.distributed as dist
+
+    from tpubench_torch.config import DistConfig
+    from tpubench_torch.dist import bringup
+    from tpubench_torch.dist.peer import IciPeerChannel
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.pipeline.cache import ChunkKey
+
+    sizes = (128, 1000, 4096, 2 << 20)
+    with bringup.session(DistConfig(), "cuda", one_rank_group=True):
+        assert dist.get_backend() == "nccl"
+        ch = IciPeerChannel(device="cuda")
+        landing.reset_launches()
+        for n in sizes:
+            data = deterministic_bytes(f"coop/{n}", n).tobytes()
+            assert ch.broadcast(0, data, ChunkKey("b", "o", 1, 0, n)) == data
+        assert landing.checksum.launches == len(sizes)
+        assert ch.stats()["broadcasts"] == len(sizes)
+        ch.close()
+    assert not dist.is_initialized()
+    with bringup.session(DistConfig(), "cpu", one_rank_group=True):
+        from tpubench_torch.dist.reassemble import make_mesh
+
+        pod = make_mesh(device="cpu")
+        cuda_pod = type(pod)(pod.group, torch.device("cuda", 0), pod.ranks)
+        with pytest.raises(RuntimeError, match="NCCL"):
+            IciPeerChannel(pod=cuda_pod)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--validate"], ["--pipeline-pod", "--coop-channel", "ici"],
+], ids=["validate", "pod_ici"])
+def test_train_ingest_coop_on_cuda_matches_cpu(cuda, tmp_path, flags):
+    """``train-ingest --coop`` on the card and on the CPU: the same coop
+    stamp (a pod of one routes nothing), cache counters and bytes; the
+    validating ring's ``tb_checksum`` once per transfer, the pod's once
+    per step and once for the warm-up."""
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage.fake import FakeBackend
+
+    store = FakeBackend.prepopulated("tpubench/file_", 4, 1_000_003)
+    args = cli.build_parser().parse_args([
+        "train-ingest", "--protocol", "fake", "--workers", "4",
+        "--granule-bytes", str(GRANULE), "--steps", "6",
+        "--batch-shards", "8", "--readahead", "0", "--slot-bytes",
+        str(256 * 1024), "--coop", "--results-dir", str(tmp_path), *flags])
+    cfg = cli.build_config(args)
+    out, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        landing.reset_launches()
+        out[dev] = cli.execute("train-ingest", cfg, device=dev,
+                               backend=store, args=args)
+        launches[dev] = landing.checksum.launches
+    cpu, gpu = out["cpu"], out["cuda"]
+    for res in (cpu, gpu):
+        co = res.extra["pipeline"]["coop"]
+        assert res.errors == 0 and co["hosts"] == 1
+        assert co["peer_requests"] == 0
+        # readahead 0: every origin fetch is a demand miss
+        assert co["origin_fetches"] == res.extra["pipeline"]["cache"]["misses"]
+    assert gpu.extra["pipeline"]["coop"] == cpu.extra["pipeline"]["coop"]
+    assert gpu.extra["pipeline"]["cache"] == cpu.extra["pipeline"]["cache"]
+    stage = gpu.summaries.get("stage")
+    want = 6 + 1 if "--pipeline-pod" in flags else stage.count
+    assert launches == {"cpu": 0, "cuda": want}
+    if "--validate" in flags:
+        assert gpu.extra["checksum_ok"] is True

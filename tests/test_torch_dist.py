@@ -49,13 +49,13 @@ SHARD_MB = 0.25  # 262,144 B: a multiple of LANE x 8, rounded alike at 4 and 8
 
 
 # ----------------------------------------------------------- the ranks ----
-def _rank_entry(target, rank, world, port, out_q, args):
+def _rank_entry(target, rank, world, port, out_q, args, pg_timeout_s=None):
     result = None
     try:
         bringup.initialize(
             DistConfig(num_processes=world, process_id=rank,
                        coordinator_address=f"127.0.0.1:{port}"),
-            device="cpu",
+            device="cpu", timeout_s=pg_timeout_s,
         )
         result = ("ok", target(rank, world, *args))
     except BaseException:  # noqa: BLE001 — reported to the test process
@@ -66,16 +66,20 @@ def _rank_entry(target, rank, world, port, out_q, args):
             torch.distributed.destroy_process_group()
 
 
-def run_ranks(target, world: int, *args, timeout: float = 90.0) -> list:
+def run_ranks(target, world: int, *args, timeout: float = 90.0,
+              pg_timeout_s=None) -> list:
     """``target(rank, world, *args)`` on each rank of a fresh ``world``-rank
     gloo group on the loopback interface; the per-rank results, in rank
-    order. Every process is joined, or killed, before this returns."""
+    order. Every process is joined, or killed, before this returns.
+    ``pg_timeout_s`` bounds the group's rendezvous and collectives (a
+    collective whose ranks lost step then fails in each rank)."""
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
     port = bringup.free_port()
     procs = [
         ctx.Process(target=_rank_entry, daemon=True,
-                    args=(target, rank, world, port, out_q, args))
+                    args=(target, rank, world, port, out_q, args,
+                          pg_timeout_s))
         for rank in range(world)
     ]
     for p in procs:

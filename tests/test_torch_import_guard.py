@@ -69,6 +69,8 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.pipeline", "tpubench_torch.pipeline.cache",
         "tpubench_torch.pipeline.prefetch",
         "tpubench_torch.workloads.train_ingest",
+        "tpubench_torch.pipeline.coop", "tpubench_torch.dist.peer",
+        "tpubench_torch.workloads.arrivals",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"

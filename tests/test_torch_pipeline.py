@@ -12,7 +12,8 @@
   against ``tpubench``'s 8-device mesh: the port at one rank and as a
   2-rank gloo group, every step's gather equal to the step's bytes in
   both packages. Tolerance: exact (bytes and integers).
-* The guards (``SystemExit``\\ s, ``--coop``), and the CLI in each arm.
+* The guards (``SystemExit``\\ s, ``--coop-channel ici`` off the pod
+  path), ``--coop`` at one process, and the CLI in each arm.
 """
 
 import io
@@ -541,14 +542,26 @@ def test_train_ingest_cold_arm_takes_any_cache_budget():
     assert run_train_ingest(cfg, device="cpu").errors == 0
 
 
-def test_train_ingest_coop_is_refused():
+def test_train_ingest_coop_is_refused(tmp_path):
+    """``--coop`` runs (a pod of one routes nothing, the stamp is
+    written); what is still refused is the lockstep channel without the
+    plan-synchronized pod path."""
     cfg = _ti_cfg()
-    cfg.raw["coop"] = {"enabled": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        run_train_ingest(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        cli.main(["train-ingest", "--protocol", "fake", "--coop",
-                  "--device", "cpu"])
+    cfg.coop.enabled = True
+    res = run_train_ingest(cfg, device="cpu")
+    co = res.extra["pipeline"]["coop"]
+    assert res.errors == 0 and co["hosts"] == 1 and co["peer_requests"] == 0
+    assert co["origin_fetches"] == res.extra["pipeline"]["plan"]["unique_chunks"]
+    argv = ["train-ingest", "--protocol", "fake", "--coop", "--steps", "2",
+            "--device", "cpu", "--results-dir", str(tmp_path)]
+    with redirect_stdout(io.StringIO()) as out:
+        assert cli.main(argv) == 0
+    assert "coop: hosts=1/1" in out.getvalue()
+    doc = json.loads(next(tmp_path.glob("train_ingest_*.json")).read_text())
+    assert doc["config"]["coop"]["enabled"] is True
+    assert doc["extra"]["pipeline"]["coop"]["peer_requests"] == 0
+    with pytest.raises(SystemExit, match="lockstep"):
+        cli.main([*argv, "--coop-channel", "ici"])
 
 
 def test_train_ingest_needs_cuda_unless_asked_for_the_cpu(tmp_path):

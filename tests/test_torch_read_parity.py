@@ -214,7 +214,7 @@ def test_saved_reference_config_loads_and_round_trips():
     ref.coop.hosts = 3
     cfg = BenchConfig.from_json(ref.to_json())
     assert cfg.workload.workers == 7 and cfg.staging.mode == "pallas"
-    assert cfg.raw["serve"]["rate_rps"] == 123.0 and cfg.raw["coop"]["hosts"] == 3
+    assert cfg.raw["serve"]["rate_rps"] == 123.0 and cfg.coop.hosts == 3
     assert cfg.to_dict() == ref.to_dict()
     assert BenchConfig.from_json(cfg.to_json()).to_dict() == ref.to_dict()
 

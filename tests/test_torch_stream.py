@@ -330,12 +330,54 @@ def test_stream_no_stale_bytes_across_reused_buffers(route, monkeypatch):
     assert res.extra["object_checksums"] == want
 
 
-def test_stream_overlap_hides_device_work():
+class GatedFetch:
+    """The read of object k + 1's shard returns only once object k's
+    gather is complete (the first gather is the warm-up): the storage's
+    latency then spans the device work, whatever the load on the
+    machine's cores, so the ratio below measures whether the fetch
+    overlaps at all. A stream that fetched after gathering would find the
+    gate open and score under 1.0."""
+
+    def __init__(self, monkeypatch):
+        self._cond = threading.Condition()
+        self._gathers = self._fetches = 0
+        real_fetch = pod_ingest_stream.fetch_shard
+        real_make = pod_ingest_stream.make_reassemble
+
+        def fetch(*a, **kw):
+            with self._cond:
+                k = self._fetches
+                self._fetches += 1
+            real_fetch(*a, **kw)
+            with self._cond:  # object k - 1's gather, after the warm-up
+                self._cond.wait_for(lambda: self._gathers > k, timeout=30)
+
+        def make(pod):
+            fn = real_make(pod)
+
+            def call(staged):
+                out = fn(staged)
+                with self._cond:
+                    self._gathers += 1
+                    self._cond.notify_all()
+                return out
+
+            return call
+
+        monkeypatch.setattr(pod_ingest_stream, "fetch_shard", fetch)
+        monkeypatch.setattr(pod_ingest_stream, "make_reassemble", make)
+
+
+def test_stream_overlap_hides_device_work(monkeypatch):
     """With fetch latency injected, the fetch of object k+1 overlaps
-    object k's stage and gather: (fetch + device) / wall > 1.05."""
+    object k's stage and gather: (fetch + device) / wall > 1.05. The
+    store is gated (``GatedFetch``): on a loaded machine the gloo
+    gather's CPU time grew to 5-14x the latency-bound fetch's, which
+    capped the ratio near 1.05 though the fetch still overlapped."""
     size = 32 * 1024 * 1024
     store = FakeBackend.prepopulated(
         PREFIX, 2, size, fault=FaultPlan(per_read_latency_s=0.015))
+    GatedFetch(monkeypatch)
     res = _one_rank(_cfg(size=size), store, 6)
     assert res.errors == 0
     assert res.extra["overlap_efficiency"] > 1.05, res.extra

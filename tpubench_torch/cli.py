@@ -37,7 +37,11 @@ takes ``--batch-shards`` chunks of ``--chunk-bytes``, stages them to the
 card and sleeps ``--step-compute-ms``; it prints the data-stall
 scorecard. ``--readahead 0`` is the cold arm, ``--no-slab-pool`` the
 bytes arm, ``--pipeline-pod`` stages each step's batch as shards gathered
-over the process group (``--coop`` is refused: ROADMAP A.6).
+over the process group. ``--coop`` puts the cooperative chunk cache in
+the miss path (``--coop-hosts``, ``--coop-host-id``, ``--coop-vnodes``,
+``--peer-budget-bytes``, ``--no-coop-demote``); ``--coop-channel ici``
+moves peer chunks by the pod's all-gather and needs ``--pipeline-pod
+--readahead 0``.
 
 ``sweep`` runs ``read`` over protocols × the reference's four object
 sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
@@ -79,6 +83,7 @@ import sys
 from tpubench_torch.config import (
     MB,
     BenchConfig,
+    validate_coop_config,
     validate_pipeline_config,
     validate_telemetry_config,
     validate_tune_config,
@@ -386,8 +391,32 @@ def _add_pipeline_args(p) -> None:
                         "materialize as bytes (2+ host-RAM copies per "
                         "chunk — the copies-per-byte A/B baseline arm)")
     p.add_argument("--coop", action="store_true",
-                   help="cooperative chunk cache (not ported yet: "
-                        "train-ingest refuses it, ROADMAP A.6)")
+                   help="cooperative chunk cache: consistent-hash chunk "
+                        "ownership across the pod's hosts, peer-first "
+                        "miss resolution, pod-wide single-flight (only "
+                        "the owner fetches a chunk from origin) and "
+                        "straggler-aware owner demotion")
+    p.add_argument("--coop-hosts", type=int,
+                   help="hosts on the ownership ring (default 0 = "
+                        "--num-processes)")
+    p.add_argument("--coop-host-id", type=int,
+                   help="this host's ring id (default -1 = --process-id)")
+    p.add_argument("--coop-vnodes", type=int,
+                   help="virtual nodes per host on the consistent-hash "
+                        "ring (default 64)")
+    p.add_argument("--peer-budget-bytes", type=int,
+                   help="serve-side byte budget: bytes concurrently "
+                        "served to peers never exceed this — past it the "
+                        "owner sheds and peers fall back to origin "
+                        "(0 = unbounded; live-tunable)")
+    p.add_argument("--coop-channel", choices=("auto", "loopback", "ici"),
+                   help="peer transport: loopback = in-process "
+                        "request/reply; ici = lockstep all-gather over the "
+                        "pod's process group (NCCL on CUDA; needs "
+                        "--pipeline-pod --readahead 0); auto = loopback")
+    p.add_argument("--no-coop-demote", action="store_true",
+                   help="disable straggler-aware owner demotion (keep "
+                        "slow-decile hosts on the ownership ring)")
 
 
 def _apply_pipeline_args(cfg: BenchConfig, args) -> None:
@@ -406,8 +435,22 @@ def _apply_pipeline_args(cfg: BenchConfig, args) -> None:
     if args.no_slab_pool:
         pl.slab_pool = False
     validate_pipeline_config(pl, staging=cfg.staging)
+    co = cfg.coop
     if args.coop:
-        cfg.raw.setdefault("coop", {})["enabled"] = True
+        co.enabled = True
+    for attr, dest in (
+        ("coop_hosts", "hosts"), ("coop_host_id", "host_id"),
+        ("coop_vnodes", "vnodes"),
+        ("peer_budget_bytes", "peer_budget_bytes"),
+    ):
+        v = getattr(args, attr)
+        if v is not None:
+            setattr(co, dest, v)
+    if args.coop_channel:
+        co.channel = args.coop_channel
+    if args.no_coop_demote:
+        co.demote = False
+    validate_coop_config(co)
 
 
 def _add_tune_args(p) -> None:
@@ -437,7 +480,8 @@ def _add_tune_args(p) -> None:
                    help="comma list of knobs the controller may actuate "
                         "(read: workers,staging_depth,hedge_delay_s; "
                         "train-ingest: readahead,readahead_bytes,"
-                        "prefetch_workers,staging_depth,hedge_delay_s)")
+                        "prefetch_workers,staging_depth,hedge_delay_s,"
+                        "peer_budget_bytes,coop)")
     p.add_argument("--tune-profile",
                    help="tune profile JSON: `tune` WRITES the recommended "
                         "operating point here; every other command READS "

@@ -3,7 +3,7 @@
 
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (coop, serve,
+unchanged. The sections the port has no code for yet (serve,
 lifecycle, drill, fleet, …) are kept as the raw dicts
 they were loaded as, so they round-trip without a dataclass.
 
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import sys
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -458,10 +457,87 @@ def validate_tune_config(tc: TuneConfig, where: str = "tune") -> None:
         )
 
 
+@dataclass
+class CoopConfig:
+    """Pod-scale cooperative chunk cache (:mod:`tpubench_torch.pipeline.coop`):
+    consistent-hash chunk ownership across the pod's hosts, peer-first
+    miss resolution over a peer channel, pod-wide single-flight (only
+    the owner ever fetches a chunk from origin), and straggler-aware
+    owner demotion fed by the flight recorder's per-host tables.
+
+    Off by default — the per-host cache is the baseline arm of the
+    coop-vs-per-host A/B the scorecard reports (origin GCS bytes per
+    POD, not per host)."""
+
+    enabled: bool = False
+    # Pod membership: number of hosts on the ring (0 = dist.num_processes)
+    # and this host's id (-1 = dist.process_id). Explicit values exist
+    # for embedding harnesses (the hermetic multi-"host" sim).
+    hosts: int = 0
+    host_id: int = -1
+    # Virtual nodes per host: more = smoother key balance, identical
+    # rehash-minimality (~1/N of keys move on a join/leave either way).
+    vnodes: int = 64
+    # Serve-side byte budget: bytes concurrently being served to peers
+    # never exceed this — past it the owner sheds (peers fall back to
+    # origin) instead of queueing unboundedly. 0 = unbounded. Live: the
+    # `peer_budget_bytes` tune knob actuates it.
+    peer_budget_bytes: int = 0
+    # Peer transport: "loopback" = in-process request/reply (hermetic
+    # tests, single-host dev); "ici" = lockstep all-gather over the pod's
+    # process group (dist/peer.py: NCCL on CUDA, gloo on the CPU —
+    # plan-synchronized pod workloads only); "auto" = loopback. The name
+    # is the reference's, so saved configs load in both packages.
+    channel: str = "auto"
+    # Straggler demotion: owners whose per-host flight table places them
+    # in the slowest decile (tail_share >= demote_share) leave the ring
+    # until a later table clears them; the recorder scan runs at most
+    # once per demote_interval_s.
+    demote: bool = True
+    demote_share: float = 0.5
+    demote_interval_s: float = 2.0
+
+
+def validate_coop_config(cc: "CoopConfig", where: str = "coop") -> None:
+    """Parse-time sanity for the coop knobs (one-line SystemExit at
+    config load — the validate_fault_config style)."""
+    if cc.hosts < 0:
+        raise SystemExit(f"{where}.hosts={cc.hosts!r}: must be >= 0 "
+                         "(0 = dist.num_processes)")
+    if cc.host_id < -1:
+        raise SystemExit(f"{where}.host_id={cc.host_id!r}: must be >= -1 "
+                         "(-1 = dist.process_id)")
+    if cc.hosts and cc.host_id >= cc.hosts:
+        raise SystemExit(
+            f"{where}.host_id={cc.host_id} is outside the pod "
+            f"({where}.hosts={cc.hosts})"
+        )
+    if cc.vnodes < 1:
+        raise SystemExit(f"{where}.vnodes={cc.vnodes!r}: must be >= 1")
+    if cc.peer_budget_bytes < 0:
+        raise SystemExit(
+            f"{where}.peer_budget_bytes={cc.peer_budget_bytes!r}: must be "
+            ">= 0 (0 = unbounded)"
+        )
+    if cc.channel not in ("auto", "loopback", "ici"):
+        raise SystemExit(
+            f"{where}.channel={cc.channel!r}: must be auto|loopback|ici"
+        )
+    if not (0.0 < cc.demote_share <= 1.0):  # also rejects NaN
+        raise SystemExit(
+            f"{where}.demote_share={cc.demote_share!r}: must be in (0, 1]"
+        )
+    if not (cc.demote_interval_s > 0):
+        raise SystemExit(
+            f"{where}.demote_interval_s={cc.demote_interval_s!r}: "
+            "must be > 0"
+        )
+
+
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
-                   "telemetry", "tune", "pipeline")
+                   "telemetry", "tune", "pipeline", "coop")
 
 
 @dataclass
@@ -474,6 +550,7 @@ class BenchConfig:
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     tune: TuneConfig = field(default_factory=TuneConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    coop: CoopConfig = field(default_factory=CoopConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -520,6 +597,7 @@ _SUBTYPES = {
     "telemetry": TelemetryConfig,
     "tune": TuneConfig,
     "pipeline": PipelineConfig,
+    "coop": CoopConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,
@@ -532,7 +610,7 @@ def refuse_unported(cfg: BenchConfig) -> None:
     """Raise ``NotImplementedError`` (naming the ``ROADMAP.md`` item) for
     every read-path feature the config switches on that this port does
     not have yet, and ``ValueError`` for an unknown staging mode."""
-    s, raw = cfg.staging, cfg.raw
+    s = cfg.staging
     if cfg.obs.results_bucket:
         raise NotImplementedError(
             "not ported to tpubench_torch yet: obs.results_bucket (ROADMAP "
@@ -543,12 +621,4 @@ def refuse_unported(cfg: BenchConfig) -> None:
     if s.mode not in STAGING_MODES:
         raise ValueError(
             f"unknown staging mode {s.mode!r} ({'|'.join(STAGING_MODES)})"
-        )
-    if raw.get("coop", {}).get("enabled"):
-        # tpubench's own policy for --coop on the read workload: say so
-        # rather than run the plain read quietly.
-        print(
-            "read: --coop has no effect on this workload (the cooperative "
-            "cache rides the train-ingest pipeline miss path)",
-            file=sys.stderr,
         )

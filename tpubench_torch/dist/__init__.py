@@ -5,7 +5,9 @@
 * :mod:`.shard` — host×worker→object and object→byte-range shard tables;
 * :mod:`.reassemble` — the pod of ranks and its four collectives
   (all-gather, send/recv ring, reduce-scatter, all-reduce) over the shards,
-  with the per-rank checksum taken by ``tb_checksum``.
+  with the per-rank checksum taken by ``tb_checksum``;
+* :mod:`.peer` — the cooperative cache's lockstep peer channel
+  (``IciPeerChannel``), which moves a chunk by the pod's all-gather.
 
 Where the reference has one process driving n local chips, the port has n
 ranks, one device each.

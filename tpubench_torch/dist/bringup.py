@@ -16,8 +16,9 @@ through NCCL on one card too.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import socket
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -56,13 +57,17 @@ def topology() -> dict:
 
 
 def initialize(cfg: DistConfig, device: DeviceLike = "cuda",
-               one_rank_group: bool = False) -> dict:
+               one_rank_group: bool = False,
+               timeout_s: Optional[float] = None) -> dict:
     """Join the process group ``cfg`` describes and return the topology.
 
     Idempotent: a process already in a group keeps it (its world size and
     rank must match ``cfg`` when ``cfg`` names several processes). With
     one process nothing is brought up unless ``one_rank_group``, which
-    builds a group of one rank on a free loopback port."""
+    builds a group of one rank on a free loopback port. ``timeout_s``
+    bounds the rendezvous and every collective of the group (``torch``'s
+    default when None): a rank that loses step then fails instead of
+    waiting."""
     dev = resolve_device(device)
     world = cfg.num_processes
     if dist.is_initialized():
@@ -92,8 +97,11 @@ def initialize(cfg: DistConfig, device: DeviceLike = "cuda",
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(rank_device(dev, rank))
+    kw = {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(
         backend, init_method=f"tcp://{address}", world_size=world, rank=rank,
+        **kw,
     )
     if backend == "nccl" and world > 1:
         try:

@@ -7,8 +7,9 @@ ratio, prefetch efficiency.
 
 Chunk payloads ride the zero-copy slab datapath (:mod:`tpubench_torch.mem`):
 leased page-locked slabs filled once off the wire, cached and staged as
-they are (``copies_per_byte == 1.0``). The cooperative cache of
-``tpubench`` (``pipeline/coop.py``) is not ported yet (``ROADMAP.md`` A.6).
+they are (``copies_per_byte == 1.0``). The cooperative cache
+(:mod:`.coop`) shares the pod's chunks between hosts: consistent-hash
+ownership, peer-first misses, pod-wide single-flight.
 """
 
 from tpubench_torch.pipeline.cache import ChunkCache, ChunkKey  # noqa: F401

@@ -46,8 +46,7 @@ from typing import Callable, Optional, Sequence
 from tpubench_torch.config import TUNE_KNOBS, TuneConfig
 
 # Knob name -> (config field path, CLI flag dest), as in ``tpubench``:
-# profiles and configs name knobs by these keys in both packages. Paths
-# under sections the port keeps raw (pipeline, coop) address those dicts.
+# profiles and configs name knobs by these keys in both packages.
 ACTUATED = {
     "workers": {"config": ("workload", "workers"), "cli": "workers"},
     "readahead": {"config": ("pipeline", "readahead"), "cli": "readahead"},

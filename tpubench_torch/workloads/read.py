@@ -31,6 +31,7 @@ a session is bounded by ``tune.duration_s``; its trace lands in
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -427,6 +428,15 @@ def run_read(
     gets the same one, so its request spans nest under them."""
     resolve_device(device)
     refuse_unported(cfg)
+    if cfg.coop.enabled:
+        # The cooperative cache lives in the pipeline miss path, which
+        # only train-ingest drives: say so rather than run the plain
+        # per-host read quietly (a quiet no-op would poison an A/B).
+        print(
+            "read: --coop has no effect on this workload (the cooperative "
+            "cache rides the train-ingest pipeline miss path)",
+            file=sys.stderr,
+        )
     tracer = tracer or NoopTracer()
     owns_backend = backend is None
     backend = backend or open_backend(cfg, tracer=tracer)

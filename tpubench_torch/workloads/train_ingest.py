@@ -40,8 +40,13 @@ pod all-gathers the shards over NCCL, with the pod's checksum
 the pod's size: one rank per card here, where ``tpubench`` counts the
 chips of its mesh.
 
-The cooperative cache (``pipeline/coop.py``) is not ported yet:
-``coop.enabled`` raises, naming ``ROADMAP.md`` A.6.
+Cooperative cache (``coop.enabled``, :mod:`tpubench_torch.pipeline.
+coop`): demand and prefetch misses alike route through ``CoopCache.fetch``
+— a chunk whose consistent-hash owner is a peer comes over the peer
+channel instead of from origin, and the result carries the
+``pipeline.coop`` stamp. The lockstep channel (``coop.channel="ici"``,
+the pod's all-gather) needs the plan-synchronized pod path
+(``--pipeline-pod --readahead 0``) and never demotes.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ from tpubench_torch.obs.profiling import (
 )
 from tpubench_torch.obs.telemetry import telemetry_from_config
 from tpubench_torch.pipeline.cache import ChunkCache, ChunkKey
+from tpubench_torch.pipeline.coop import coop_from_config
 from tpubench_torch.pipeline.prefetch import Prefetcher, fetch_chunk
 from tpubench_torch.staging.device import make_sink_factory, new_slot
 from tpubench_torch.staging.stats import staging_extra
@@ -136,11 +142,6 @@ def run_train_ingest(
     pod path needs a joined process group (``cli.execute`` brings up a
     one-rank group for a single process)."""
     resolve_device(device)
-    if cfg.raw.get("coop", {}).get("enabled"):
-        raise NotImplementedError(
-            "not ported to tpubench_torch yet: coop.enabled on train-ingest "
-            "(ROADMAP A.6: the cooperative cache)"
-        )
     refuse_unported(cfg)
     validate_pipeline_config(cfg.pipeline, staging=cfg.staging)
     p = cfg.pipeline
@@ -178,6 +179,21 @@ def run_train_ingest(
             f"pipeline.slab_bytes={p.slab_bytes} is smaller than one "
             f"chunk ({chunk} B): no chunk can be leased — raise "
             "--slab-bytes (or 0 = auto: one chunk per slab)"
+        )
+    if cfg.coop.enabled and cfg.coop.channel == "ici" and not (
+        p.pod and p.readahead == 0
+    ):
+        # A lockstep (ici) channel moves bytes by COLLECTIVES every host
+        # must enter together, in the same order: only the
+        # plan-synchronized pod demand path qualifies. Asynchronous
+        # prefetch workers — or per-host cache divergence seeded by
+        # readahead — desynchronize the broadcasts and hang the pod, so
+        # refuse loudly instead (before any channel is built).
+        raise SystemExit(
+            "coop: the ici (lockstep) channel requires the "
+            "plan-synchronized pod path (--pipeline-pod) with "
+            "--readahead 0; use the request/reply channel for "
+            "asynchronous consumers"
         )
     owns_backend = backend is None
     backend = backend or open_backend(cfg)
@@ -298,8 +314,19 @@ class _TrainIngest:
         consumer_wf = flight.worker("consumer") if flight is not None else None
         step_wf = flight.worker("steps") if flight is not None else None
 
-        def fetch_one(key: ChunkKey):
+        # Cooperative chunk cache (pipeline/coop.py): misses whose
+        # consistent-hash owner is a peer resolve over the peer channel
+        # instead of origin; demand and prefetch misses alike route through
+        # coop.fetch, so pod-wide single-flight covers both. None when
+        # cfg.coop is off — the per-host baseline arm.
+        def origin_fetch(key: ChunkKey):
             return fetch_chunk(self.backend, key, pool=pool, meter=meter)
+
+        coop = coop_from_config(
+            cfg, cache, origin_fetch, pool=pool, meter=meter, flight=flight,
+            device=self.device,
+        )
+        routed_fetch = coop.fetch if coop is not None else origin_fetch
 
         step_rec = LatencyRecorder("step")
         stall_rec = LatencyRecorder("stall")
@@ -381,6 +408,7 @@ class _TrainIngest:
                         byte_budget=p.readahead_bytes,
                         transport=tlabel,
                         pool=pool, meter=meter,
+                        fetch_fn=routed_fetch if coop is not None else None,
                         # Tuning pre-spawns headroom so the
                         # prefetch_workers knob can grow the live pool
                         # (ceiling shared with the sweep axes).
@@ -394,6 +422,7 @@ class _TrainIngest:
                     controller = _build_train_ingest_controller(
                         cfg, fetch_rec, lambda: consumed_bytes,
                         self.backend, pf, len(plan), flight, stager,
+                        coop=coop,
                     )
                     if controller is not None:
                         controller.start()
@@ -444,7 +473,7 @@ class _TrainIngest:
                             try:
                                 data, source = cache.get_or_fetch_info(
                                     key,
-                                    lambda k=key: fetch_one(k),
+                                    lambda k=key: routed_fetch(k),
                                 )
                             except BaseException as e:
                                 # errgroup semantics (read.py parity): a
@@ -554,6 +583,18 @@ class _TrainIngest:
                     # "trains" — that overlap is the whole point.
                     if pf is not None:
                         pf.advance(lo + batch)
+                    if (coop is not None and cfg.coop.demote
+                            and not coop.lockstep
+                            and flight is not None):
+                        # Straggler demotion off the run's own per-host
+                        # flight tables + locally-observed per-owner
+                        # transfer tails (rate-limited inside). NEVER
+                        # under a lockstep channel: demotion mutates the
+                        # per-host ring from per-host signals, and hosts
+                        # whose rings disagree enter different broadcasts
+                        # — a hung or mis-sliced collective. Lockstep pods
+                        # keep a static ring.
+                        coop.maybe_refresh_demotions(flight)
                     if compute_s:
                         time.sleep(compute_s)
                     if op is not None:
@@ -570,6 +611,8 @@ class _TrainIngest:
                 tune_stats = controller.stop()
             if pf is not None:
                 pf.close()
+            if coop is not None:
+                coop.close()
             if stager is not None:
                 sink_stats = stager.finish() or {}
             if tel is not None:
@@ -614,6 +657,8 @@ class _TrainIngest:
                 "chunk_bytes": p.chunk_bytes or w.granule_bytes,
             },
         }
+        if coop is not None:
+            pipe_extra["coop"] = coop.stats()
         # Copies-per-byte: the zero-copy datapath's proof (and the A/B's
         # headline axis) — host-RAM writes of chunk payload per delivered
         # byte; 1.0 = written once off the wire, never copied again.
@@ -704,13 +749,14 @@ class _TrainIngest:
 
 
 def _build_train_ingest_controller(cfg, fetch_rec, bytes_fn, backend, pf,
-                                   plan_len, flight, stager=None):
+                                   plan_len, flight, stager=None, coop=None):
     """Tune controller for train-ingest: live knobs are the prefetcher's
     readahead depth / byte budget / worker fan-out (Prefetcher.reclamp /
-    set_workers), the hedge delay and the overlapped copy ring's
-    in-flight depth (stager.set_depth); goodput is windowed consumed
-    bytes, the p99 guardrail watches demand-fetch latency. The
-    cooperative cache's knobs wait for its port (ROADMAP A.6)."""
+    set_workers), the hedge delay, the overlapped copy ring's in-flight
+    depth (stager.set_depth) and the cooperative cache's serve budget and
+    routing switch (``peer_budget_bytes``, ``coop``; neither under a
+    lockstep channel); goodput is windowed consumed bytes, the p99
+    guardrail watches demand-fetch latency."""
     from tpubench_torch.storage.tail import HedgedBackend, find_tail_layer
     from tpubench_torch.tune.controller import (
         Knob,
@@ -763,6 +809,30 @@ def _build_train_ingest_controller(cfg, fetch_rec, bytes_fn, backend, pf,
             lo=1, hi=staging_depth_ceiling(stager.depth, pool_cap),
             mode="mul",
         ))
+    if coop is not None and coop.lockstep:
+        # Per-host controllers diverge: one host parking at coop=0 stops
+        # entering the collectives the others still wait in (a hung pod),
+        # and the serve budget is meaningless on the broadcast path.
+        # Lockstep routing is not a live knob.
+        coop = None
+    if "peer_budget_bytes" in wanted and coop is not None \
+            and coop.peer_budget_bytes > 0:
+        # A configured serve budget is live-resizable; 0 (unbounded) has
+        # no meaningful probe neighborhood, so the knob stays inert.
+        chunk = p.chunk_bytes or cfg.workload.granule_bytes
+        knobs.append(Knob(
+            "peer_budget_bytes", coop.peer_budget_bytes,
+            coop.set_peer_budget,
+            lo=chunk, hi=8 * coop.peer_budget_bytes, mode="mul",
+        ))
+    if "coop" in wanted and coop is not None:
+        # Binary routing knob: the controller may discover that on this
+        # pod/workload the peer round-trip loses to origin and park the
+        # run at coop=0 (set_enabled takes truthy ints).
+        knobs.append(Knob(
+            "coop", int(coop.enabled), coop.set_enabled,
+            lo=0, hi=1, mode="add",
+        ))
     if not knobs:
         return None
     sampler = RecorderSampler([fetch_rec], bytes_fn)
@@ -775,8 +845,7 @@ def _build_train_ingest_controller(cfg, fetch_rec, bytes_fn, backend, pf,
 
 def format_pipeline_scorecard(pipe: dict) -> str:
     """Human rendering of ``extra["pipeline"]`` (printed by the CLI and
-    by ``report`` on train-ingest result files): ``tpubench``'s text, its
-    coop line kept for results the cooperative cache wrote."""
+    by ``report`` on train-ingest result files): ``tpubench``'s text."""
     stall = pipe.get("stall", {})
     cache = pipe.get("cache", {})
     pf = pipe.get("prefetch")

@@ -18,9 +18,10 @@ The reference asserts its operating point (``--worker 48``,
 On the read path the knobs are worker fan-out (``workers``), the copy
 ring's depth (``staging_depth``) and, with hedging, the hedge delay; on
 ``train-ingest`` the readahead depth, the prefetch workers, the copy
-ring's depth (capped by an explicitly sized slab pool) and the hedge
-delay. The cooperative cache's knobs (``coop``, ``peer_budget_bytes``)
-wait for its port (``ROADMAP.md`` A.6). Hermetic when asked: with ``--protocol http`` and no endpoint,
+ring's depth (capped by an explicitly sized slab pool), the hedge delay
+and, with the cooperative cache on a request/reply channel, its routing
+switch (``coop``) and serve budget (``peer_budget_bytes``). Hermetic when
+asked: with ``--protocol http`` and no endpoint,
 an in-process fake server (HTTP/1.1, or the h2 server under ``--http2``)
 is spawned carrying the config's fault plan. ``--protocol fake`` is
 hermetic as usual.
@@ -55,28 +56,17 @@ _KNOB_FLAGS = {
 }
 
 
-def _section(cfg: BenchConfig, name: str):
-    """A config section: the dataclass, or the raw dict the port keeps
-    for a section it has no code for (created empty when missing)."""
-    if hasattr(cfg, name):
-        return getattr(cfg, name)
-    return cfg.raw.setdefault(name, {})
-
-
 def _set_path(cfg: BenchConfig, path: tuple, value) -> None:
-    obj = _section(cfg, path[0])
-    for name in path[1:-1]:
+    obj = cfg
+    for name in path[:-1]:
         obj = getattr(obj, name)
-    if isinstance(obj, dict):
-        obj[path[-1]] = value
-    else:
-        setattr(obj, path[-1], value)
+    setattr(obj, path[-1], value)
 
 
 def _get_path(cfg: BenchConfig, path: tuple):
-    obj = _section(cfg, path[0])
-    for name in path[1:]:
-        obj = obj.get(name) if isinstance(obj, dict) else getattr(obj, name)
+    obj = cfg
+    for name in path:
+        obj = getattr(obj, name)
     return obj
 
 
@@ -143,8 +133,7 @@ def _ladder(around: int, lo: int, hi: int) -> list[int]:
 
 def sweep_axes(cfg: BenchConfig, workload: str) -> dict[str, list]:
     """Candidate values per knob axis (intersected with cfg.tune.knobs),
-    derived from the config's own operating point — ``tpubench``'s axes
-    (the cooperative cache's excepted: not ported)."""
+    derived from the config's own operating point — ``tpubench``'s axes."""
     from tpubench_torch.tune.controller import (
         prefetch_workers_ceiling,
         readahead_ceiling,
@@ -183,6 +172,19 @@ def sweep_axes(cfg: BenchConfig, workload: str) -> dict[str, list]:
             max(1, s.depth), 1,
             staging_depth_ceiling(max(1, s.depth), pool_cap),
         )
+    if cfg.coop.enabled and workload != "read" \
+            and cfg.coop.channel != "ici":
+        # The routing switch is a 2-cell axis (the sweep's answer to "is
+        # the peer round-trip worth it on this pod/workload"); a
+        # configured serve budget sweeps the same neighborhood the
+        # online knob probes (0 = unbounded has no neighborhood). Only
+        # train-ingest builds a CoopCache (a read-workload coop axis
+        # would sweep identical-noise cells), and lockstep routing is
+        # not a knob (see _build_train_ingest_controller).
+        axes["coop"] = [0, 1]
+        b = cfg.coop.peer_budget_bytes
+        if b > 0:
+            axes["peer_budget_bytes"] = sorted({b // 2, b, b * 2, b * 4})
     wanted = set(cfg.tune.knobs)
     return {k: v for k, v in axes.items() if k in wanted}
 
