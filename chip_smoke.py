@@ -182,7 +182,22 @@ before the last line:
    and 4 hosts with page-locked slab pools, at ``tests/test_coop.py``'s
    acceptance settings: the pod's origin bytes and fetches, unique
    chunks and the most fetches of one chunk equal ``tpubench``'s CPU
-   numbers; the origin bytes saved and the seconds printed).
+   numbers; the origin bytes saved and the seconds printed);
+21. ckpt — ``ckpt-save`` then ``ckpt-restore`` through ``cli.execute``,
+   each mode on a store of its own: a 2 GiB checkpoint (16 objects x
+   128 MiB, 16 MiB parts, 8 writers, 8 readers, verified) in the
+   in-process store (ckpt_fake), behind the HTTP/1.1 fake server that
+   ``hermetic_target`` starts (ckpt_http) and behind the gRPC wire fake
+   (ckpt_grpc, 4 objects), the last two under ``CKPT_FAULT``'s upload
+   reset and stalls. Save: zero errors and corrupt finalizes, verified,
+   8 parts an object, resumed parts under faults, the stored bytes the
+   manifest's (read straight from the store), the manifest present.
+   Restore onto ``cuda:0``: verified, staged, one shard an object, one
+   chip, and every staged tensor equal on the card to its object's
+   bytes. Then results_upload: ``read --protocol http --results-bucket``
+   at phase read's deployment through the validating ring behind the
+   HTTP/1.1 fake (one ``tb_checksum`` per transfer): the stored
+   ``results/<file>`` equals the result file byte for byte.
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB),
 at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128), at
@@ -278,6 +293,20 @@ NATIVE_H2_WORKERS = 8
 STREAM_MODES = {"stream": 8, "stream_resume": 10, "stream_h2_mux": 4}
 MULTICHIP = ["multichip-sweep", "--sizes", "1,2", "--shard-mb", "8",
              "--reps", "1"]
+# Phase ckpt: a sharded checkpoint of a 1B-parameter model in bf16, 16
+# objects x 128 MiB = 2 GiB (the order of Llama-3.2-1B's published 2.47 GB
+# safetensors), 16 MiB parts (the Go GCS client's resumable chunk,
+# googleapi.DefaultUploadChunkSize), 8 writers and 8 readers, verified.
+# Mode -> (protocol, faulted, objects): the gRPC wire path is cut to 4
+# objects (against these Python fakes it moves 5-7x slower than HTTP/1.1).
+CKPT_OBJECT_BYTES, CKPT_PART_BYTES, CKPT_WORKERS = 128 * MIB, 16 * MIB, 8
+CKPT_MODES = {"ckpt_fake": ("fake", False, 16),
+              "ckpt_http": ("http", True, 16),
+              "ckpt_grpc": ("grpc", True, 4)}
+# The reference's acceptance timeline scaled to the part: one reset a
+# session mid part 2, a 10 ms stall in half the sessions.
+CKPT_FAULT = dict(upload_reset_after_bytes=24 * MIB, upload_stall_s=0.01,
+                  upload_stall_rate=0.5, seed=11)
 KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
@@ -300,7 +329,8 @@ KERNELS = {
                             *(f"stream/{m}" for m in STREAM_MODES),
                             "multichip/size1", "train/train_validate",
                             "train/train_pod", "coop/coop_validate",
-                            "coop/coop_ici", "coop/channel")),
+                            "coop/coop_ici", "coop/channel",
+                            "ckpt/results_upload")),
 }
 
 
@@ -354,6 +384,7 @@ def main() -> int:
     train_counts, train_lines = phase_train(store, smi)
     counts.update(train_counts)
     counts.update(phase_coop(store, smi, train_lines))
+    counts.update(phase_ckpt(store, smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -3372,6 +3403,213 @@ def phase_coop(store, smi, train_lines: dict) -> dict:
           "reduced": ["coop_ici and channel: one rank (several ranks run "
                       "only as gloo groups on the CPU)"]})
     return launches
+
+
+
+class RestoreObserved:
+    """Keeps every ``StagedShards`` a restore makes, by wrapping
+    ``dist.reassemble.shard_to_device_array`` (``workloads.ckpt`` looks it
+    up at each call); what it stages is unchanged. ``compare`` then holds
+    each staged tensor against its object's bytes in ``store``, on the
+    card."""
+
+    def __init__(self):
+        from tpubench_torch.dist import reassemble
+
+        self.mod, self.made = reassemble, []
+
+    def __enter__(self):
+        self.real = self.mod.shard_to_device_array
+
+        def kept(*a, **kw):
+            st = self.real(*a, **kw)
+            self.made.append(st)
+            return st
+
+        self.mod.shard_to_device_array = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.shard_to_device_array = self.real
+
+    def compare(self, store, names: list, size: int) -> tuple[int, bool]:
+        """(staged tensors equal to their objects, all on the card); one
+        rank, so each object's one shard is the whole object."""
+        import torch
+
+        equal, on_card = 0, len(self.made) == len(names)
+        for name, st in zip(names, self.made):
+            staged = st.ready()
+            on_card &= staged.is_cuda
+            want = torch.from_numpy(store._objects[name]).to(staged.device)
+            equal += bool(torch.equal(staged.reshape(-1)[:size], want))
+        self.made.clear()
+        return equal, on_card
+
+
+def _ckpt_mode(mode: str, smi) -> dict:
+    """One checkpoint mode: save, then restore onto the card, on a store
+    of its own; every check of phase ckpt; the mode's line."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from tpubench_torch import cli
+    from tpubench_torch.lifecycle.manifest import (
+        manifest_name,
+        shard_object_name,
+    )
+    from tpubench_torch.storage import base_backend, open_backend
+    from tpubench_torch.storage.base import deterministic_bytes
+    from tpubench_torch.workloads.chaos import hermetic_target
+
+    proto, faulted, objects = CKPT_MODES[mode]
+    _, cfg = _cli([
+        "ckpt-save", "--protocol", proto, "--bucket", "ckpt-bucket",
+        "--ckpt-objects", str(objects),
+        "--ckpt-object-bytes", str(CKPT_OBJECT_BYTES),
+        "--ckpt-part-bytes", str(CKPT_PART_BYTES),
+        "--ckpt-writers", str(CKPT_WORKERS),
+        "--ckpt-readers", str(CKPT_WORKERS), "--workers", "1",
+        "--object-size", "1",
+    ])
+    t = cfg.transport
+    t.directpath = False  # the gRPC fake is no Google endpoint
+    t.retry.initial_backoff_s, t.retry.max_backoff_s = 0.001, 0.01
+    t.retry.deadline_s = 60.0
+    if faulted:
+        for k, v in CKPT_FAULT.items():
+            setattr(t.fault, k, v)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        if proto == "fake":
+            backend = open_backend(cfg)  # retry over a store of one object
+            store = base_backend(backend)
+        else:
+            backend = None
+            store = stack.enter_context(hermetic_target(cfg)).backend
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        save = cli.execute("ckpt-save", cfg, device="cuda", backend=backend)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with RestoreObserved() as obs:
+            restore = cli.execute("ckpt-restore", cfg, device="cuda",
+                                  backend=backend)
+        peak = torch.cuda.max_memory_allocated() - held
+        check("lifecycle [save]" in buf.getvalue()
+              and "lifecycle [restore]" in buf.getvalue(),
+              f"ckpt/{mode}: no scorecard printed")
+        ls, lr = save.extra["lifecycle"], restore.extra["lifecycle"]
+        check(save.errors == 0 and ls["corrupt_finalizes"] == 0
+              and ls["verified"] is True,
+              f"ckpt/{mode}: save errors {save.errors}, {ls}")
+        check(ls["parts"] == objects * (CKPT_OBJECT_BYTES // CKPT_PART_BYTES),
+              f"ckpt/{mode}: {ls['parts']} parts")
+        check(ls["resumed_parts"] > 0 if faulted else True,
+              f"ckpt/{mode}: no resumed part under faults")
+        names = [shard_object_name("ckpt/", i) for i in range(objects)]
+        stored_ok = all(
+            np.array_equal(store._objects[n],
+                           deterministic_bytes(n, CKPT_OBJECT_BYTES))
+            for n in names)
+        check(stored_ok, f"ckpt/{mode}: stored bytes differ")
+        check(store.stat(manifest_name("ckpt/")).size > 0,
+              f"ckpt/{mode}: no manifest")
+        check(restore.errors == 0 and lr["verified"] is True
+              and lr["staged"] is True and lr["shards_per_object"] == 1
+              and restore.n_chips == 1,
+              f"ckpt/{mode}: restore errors {restore.errors}, {lr}")
+        equal, on_card = obs.compare(store, names, CKPT_OBJECT_BYTES)
+        check(equal == objects and on_card,
+              f"ckpt/{mode}: {equal}/{objects} staged tensors equal on the "
+              f"card (all on the card: {on_card})")
+    part = ls["part_latency"]
+    line = {
+        "phase": "ckpt", "mode": mode, "protocol": proto,
+        "objects": objects, "object_bytes": CKPT_OBJECT_BYTES,
+        "part_bytes": CKPT_PART_BYTES, "writers": CKPT_WORKERS,
+        "readers": CKPT_WORKERS, "fault": CKPT_FAULT if faulted else None,
+        "save": {"gbps": ls["goodput_gbps"], "wall_s": save.wall_seconds,
+                 "parts": ls["parts"], "resumed_parts": ls["resumed_parts"],
+                 "part_p50_ms": part["p50_ms"], "part_p99_ms": part["p99_ms"],
+                 "corrupt_finalizes": ls["corrupt_finalizes"]},
+        "restore": {k: lr[k] for k in ("time_to_restore_s", "fetch_seconds",
+                                       "stage_seconds")}
+        | {"gbps": lr["goodput_gbps"], "staged_equal_on_card": equal},
+        "peak_hbm_allocated_bytes": peak,
+        "stored_bytes_equal": stored_ok, "seconds": time.perf_counter() - t0,
+        "card": smi,
+    }
+    if mode == "ckpt_grpc":
+        line["reduced"] = [f"{objects} x 128 MiB (the gRPC wire path runs "
+                           "5-7x slower than HTTP/1.1 against the Python "
+                           "fakes)"]
+    return line
+
+
+def _results_upload(store, smi) -> dict:
+    """``read --protocol http --results-bucket`` at phase read's deployment
+    (the validating ring) behind the HTTP/1.1 fake over ``store``; the
+    stored ``results/<file>`` must equal the result file."""
+    import contextlib
+    import io
+    import os
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage.fake_server import FakeGcsServer
+
+    t0 = time.perf_counter()
+    with FakeGcsServer(store) as srv:
+        args, cfg = _cli([
+            "read", "--protocol", "http", "--endpoint", srv.endpoint,
+            "--bucket", "testbucket", "--object-name-prefix",
+            "tpubench/file_", "--workers", str(WORKERS),
+            "--read-call-per-worker", "1", "--object-size", str(OBJECT_SIZE),
+            "--granule-bytes", str(GRANULE), "--staging", "device_put",
+            "--validate", "--results-bucket", "results-bucket",
+        ])
+        landing.reset_launches()
+        res = cli.execute("read", cfg, device="cuda", args=args)
+        counts = {"land": landing.land.launches,
+                  "checksum": landing.checksum.launches}
+        with contextlib.redirect_stdout(io.StringIO()):
+            path = cli.finish(res, cfg, pod_collective=False)
+    name = f"results/{os.path.basename(path)}"
+    with open(path, "rb") as f:
+        local = f.read()
+    same = store._objects[name].tobytes() == local
+    transfers = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, _slot(cfg))
+    check(res.errors == 0 and res.extra["checksum_ok"] is True
+          and res.bytes_total == WORKERS * OBJECT_SIZE,
+          f"ckpt/results_upload: errors {res.errors}, checksum_ok "
+          f"{res.extra.get('checksum_ok')}, {res.bytes_total} B")
+    check(counts == {"land": 0, "checksum": transfers},
+          f"ckpt/results_upload: launches {counts}, want {transfers}")
+    check(same, f"ckpt/results_upload: stored {name} differs from {path}")
+    emit({"phase": "ckpt", "mode": "results_upload", "object": name,
+          "result_bytes": len(local), "stored_equal": same,
+          "read_gbps": res.gbps, "bytes_total": res.bytes_total,
+          "launches": counts, "seconds": time.perf_counter() - t0,
+          "card": smi})
+    return counts
+
+
+def phase_ckpt(store, smi) -> dict:
+    """The checkpoint pair in each of CKPT_MODES, then results_upload
+    over phase read's store (the one path here that launches a kernel)."""
+    t_phase = time.perf_counter()
+    for mode in CKPT_MODES:
+        emit(_ckpt_mode(mode, smi))
+    counts = _results_upload(store, smi)
+    emit({"phase": "ckpt_total", "seconds": time.perf_counter() - t_phase,
+          "reduced": ["ckpt_grpc: 4 of 16 objects", "one rank: a shard an "
+                      "object (several ranks run only as gloo groups on "
+                      "the CPU)"]})
+    return {"ckpt/results_upload": counts}
 
 
 if __name__ == "__main__":

@@ -548,3 +548,61 @@ def test_train_ingest_coop_on_cuda_matches_cpu(cuda, tmp_path, flags):
     assert launches == {"cpu": 0, "cuda": want}
     if "--validate" in flags:
         assert gpu.extra["checksum_ok"] is True
+
+
+def test_ckpt_restore_onto_the_card(cuda, tmp_path, monkeypatch):
+    """``ckpt-restore`` through ``cli.execute`` on a one-rank NCCL group:
+    every object's shard lands on the card and equals its object's bytes
+    there; the same restore on the CPU
+    gives the same scorecard but for times. An injected copy failure
+    raises instead of falling back to a host-RAM restore."""
+    import torch.distributed as dist
+
+    from tpubench_torch import cli
+    from tpubench_torch.dist import reassemble
+    from tpubench_torch.storage.fake import FakeBackend
+
+    store = FakeBackend()
+    args = cli.build_parser().parse_args([
+        "ckpt-save", "--protocol", "fake", "--ckpt-objects", "3",
+        "--ckpt-object-bytes", "3000001", "--ckpt-part-bytes",
+        str(1 << 20), "--results-dir", str(tmp_path)])
+    cfg = cli.build_config(args)
+    assert cli.execute("ckpt-save", cfg, device="cuda",
+                       backend=store).errors == 0
+    made = []
+    real = reassemble.shard_to_device_array
+
+    def kept(*a, **kw):
+        st = real(*a, **kw)
+        made.append(st)
+        return st
+
+    monkeypatch.setattr(reassemble, "shard_to_device_array", kept)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        made.clear()
+        out[dev] = cli.execute("ckpt-restore", cfg, device=dev, backend=store)
+        assert not dist.is_initialized()
+    assert len(made) == 3
+    for i, st in enumerate(made):  # the cuda run's, in manifest order
+        name = f"ckpt/shard_{i:05d}"
+        staged = st.ready()
+        want = torch.from_numpy(
+            deterministic_bytes(name, 3_000_001)).to(staged.device)
+        assert staged.is_cuda
+        assert torch.equal(staged.reshape(-1)[:3_000_001], want)
+    times = {"time_to_restore_s", "fetch_seconds", "stage_seconds",
+             "goodput_gbps"}
+    cpu, gpu = ({k: v for k, v in out[d].extra["lifecycle"].items()
+                 if k not in times} for d in ("cpu", "cuda"))
+    assert gpu == cpu and gpu["verified"] is True and gpu["staged"] is True
+    assert out["cuda"].errors == 0 and out["cuda"].n_chips == 1
+
+    def broken(*a, **kw):
+        raise RuntimeError("injected copy failure")
+
+    monkeypatch.setattr(reassemble, "shard_to_device_array", broken)
+    with pytest.raises(RuntimeError, match="injected copy failure"):
+        cli.execute("ckpt-restore", cfg, device="cuda", backend=store)
+    assert not dist.is_initialized()

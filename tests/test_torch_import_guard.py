@@ -71,6 +71,8 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.workloads.train_ingest",
         "tpubench_torch.pipeline.coop", "tpubench_torch.dist.peer",
         "tpubench_torch.workloads.arrivals",
+        "tpubench_torch.lifecycle", "tpubench_torch.lifecycle.manifest",
+        "tpubench_torch.lifecycle.upload", "tpubench_torch.workloads.ckpt",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -238,6 +240,27 @@ def test_multichip_child_never_imports_jax(tmp_path):
     row = json.loads(proc.stdout.strip().splitlines()[-2])
     assert row["devices"] == 1 and row["backend"] == "gloo"
     assert row["pod_ingest_all_gather"]["verified"] is True
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if m in ("jax", "tpubench")
+            or m.startswith(("jax.", "jaxlib", "tpubench."))] == []
+
+
+def test_ckpt_commands_never_import_jax(tmp_path):
+    """``ckpt-save`` then ``ckpt-restore`` through the CLI (local files,
+    the CPU) run without loading ``jax`` or ``tpubench``."""
+    common = ["--protocol", "local", "--dir", str(tmp_path / "store"),
+              "--ckpt-objects", "2", "--ckpt-object-bytes", "70001",
+              "--ckpt-part-bytes", "32768", "--device", "cpu",
+              "--results-dir", str(tmp_path / "r")]
+    proc = _run(
+        "import json, sys\n"
+        "from tpubench_torch.cli import main\n"
+        f"assert main(['ckpt-save'] + {common!r}) == 0\n"
+        f"assert main(['ckpt-restore'] + {common!r}) == 0\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "verified=True" in proc.stdout
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert [m for m in loaded if m in ("jax", "tpubench")
             or m.startswith(("jax.", "jaxlib", "tpubench."))] == []

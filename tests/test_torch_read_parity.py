@@ -222,7 +222,7 @@ def test_saved_reference_config_loads_and_round_trips():
 def test_ported_defaults_match_reference():
     ref, port = JaxBenchConfig().to_dict(), BenchConfig().to_dict()
     for section in ("workload", "transport", "staging", "dist", "obs",
-                    "telemetry"):
+                    "telemetry", "lifecycle"):
         assert port[section] == ref[section], section
 
 
@@ -236,15 +236,34 @@ def _switched(section: str, name: str, value):
     return ref
 
 
-@pytest.mark.parametrize("switch, item", [
-    (("obs", "results_bucket", "b"), "A.2"),
-])
-def test_unported_switch_is_refused(switch, item):
-    """A reference config that switches on a feature this slice leaves out
-    raises naming its ROADMAP item — never a silent no-op."""
-    cfg = BenchConfig.from_dict(_switched(*switch).to_dict())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        refuse_unported(cfg)
+def test_read_uploads_its_result_to_a_bucket(tmp_path, capsys):
+    """``read --results-bucket B`` (``obs.results_bucket``) uploads the
+    result file to bucket B as ``results/<file>`` over the run's own
+    protocol, after writing it: the stored object equals the file byte for
+    byte. An in-process or local protocol is refused at parse time."""
+    from tpubench_torch.storage.fake import FakeBackend
+    from tpubench_torch.storage.fake_server import FakeGcsServer
+
+    store = FakeBackend.prepopulated("tpubench/file_", 1, 70_001)
+    with FakeGcsServer(store) as srv:
+        rc = cli.main([
+            "read", "--protocol", "http", "--endpoint", srv.endpoint,
+            "--bucket", "data", "--object-name-prefix", "tpubench/file_",
+            "--workers", "1", "--read-call-per-worker", "1",
+            "--staging", "device_put", "--device", "cpu",
+            "--results-dir", str(tmp_path), "--results-bucket", "B",
+        ])
+    assert rc == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    path = out[-2].removeprefix("result: ")
+    name = f"results/{path.rsplit('/', 1)[-1]}"
+    assert out[-1] == f"uploaded: B/{name}"
+    stored = store._objects[name].tobytes()
+    assert stored == open(path, "rb").read()
+    assert json.loads(stored)["config"]["obs"]["results_bucket"] == "B"
+    with pytest.raises(SystemExit, match="requires --protocol http"):
+        cli.main(["read", "--protocol", "fake", "--results-bucket", "B",
+                  "--device", "cpu", "--results-dir", str(tmp_path)])
 
 
 def test_tune_over_train_ingest_is_refused(tmp_path):

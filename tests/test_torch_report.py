@@ -187,7 +187,7 @@ def test_train_ingest_report_prints_the_reference_scorecard(tmp_path):
 @pytest.mark.parametrize("block, item", [
     ("chaos", "A.6"), ("serve", "A.7"),
     ("membership", "A.7"), ("drill", "A.7"), ("drill_sweep", "A.7"),
-    ("fleet", "A.7"), ("replay", "A.7"), ("lifecycle", "A.7"),
+    ("fleet", "A.7"), ("replay", "A.7"),
 ])
 def test_unported_block_is_refused(docs, block, item, tmp_path):
     doc = json.loads(Path(docs["validate"]).read_text())
@@ -196,3 +196,40 @@ def test_unported_block_is_refused(docs, block, item, tmp_path):
     path.write_text(json.dumps(doc))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         report_cmd.run_report([str(path)])
+
+
+LIFECYCLE_BLOCKS = {
+    "save": {"op": "save", "goodput_gbps": 1.25, "objects": 16,
+             "bytes": 1 << 31, "parts": 128, "part_bytes": 16 << 20,
+             "part_latency": {"p50_ms": 40.5, "p99_ms": 90.25, "count": 128},
+             "resumed_parts": 16, "corrupt_finalizes": 0, "verified": True},
+    "restore": {"op": "restore", "time_to_restore_s": 1.5,
+                "goodput_gbps": 1.43, "objects": 16, "bytes": 1 << 31,
+                "fetch_seconds": 1.25, "stage_seconds": 0.25,
+                "staged": True, "shards_per_object": 1, "verified": True},
+    "meta_storm": {"op": "meta_storm", "ops": 400, "offered_rps": 200.0,
+                   "achieved_rps": 198.5, "errors": 0,
+                   "latency": {"p50_ms": 1.5, "p99_ms": 9.0},
+                   "by_kind": {"list": {"count": 80, "p50_ms": 2.0,
+                                        "p99_ms": 9.5}}},
+}
+
+
+@pytest.mark.parametrize("op", list(LIFECYCLE_BLOCKS))
+def test_lifecycle_block_renders_as_reference(docs, op, tmp_path):
+    """The ``lifecycle`` block renders as ``tpubench``'s, every op's
+    branch, and so do the A/B lines between two documents of one op."""
+    base = json.loads(Path(docs["validate"]).read_text())
+    paths = []
+    for i, scale in enumerate((1.0, 0.5)):
+        doc = json.loads(json.dumps(base))
+        block = dict(LIFECYCLE_BLOCKS[op])
+        if "goodput_gbps" in block:
+            block["goodput_gbps"] *= scale
+        doc["extra"]["lifecycle"] = block
+        path = tmp_path / f"doc{i}.json"
+        path.write_text(json.dumps(doc))
+        paths.append(str(path))
+    text = report_cmd.run_report(paths)
+    assert text == jax_report.run_report(paths)
+    assert f"lifecycle [{op}]" in text

@@ -162,14 +162,19 @@ def test_sweep_refuses_without_cuda(tmp_path, monkeypatch):
     assert not (tmp_path / "r").exists()
 
 
-def test_sweep_refuses_a_results_bucket(tmp_path):
-    """Uploading each cell's result needs a writing backend: refused,
-    naming ROADMAP A.2, before any cell runs."""
-    conf = tmp_path / "bucket.json"
-    conf.write_text(json.dumps({"obs": {"results_bucket": "b"}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        cli.main(["sweep", "--config", str(conf), "--protocol", "fake",
-                  "--sweep-protocols", "fake", "--sweep-sizes", "256kb",
-                  "--workers", "1", "--device", "cpu",
-                  "--results-dir", str(tmp_path / "r")])
-    assert not (tmp_path / "r").exists()
+def test_sweep_uploads_each_cell_to_a_bucket(tmp_path, capsys):
+    """``sweep --results-bucket B`` uploads every cell's result file as
+    ``results/<file>`` (the per-cell upload of ``tpubench sweep``): the
+    stored objects equal the files byte for byte."""
+    store = _store()
+    with FakeGcsServer(store) as srv:
+        rc = cli.main([*_server_argv(srv.endpoint), "--sweep-protocols",
+                       "http", "--sweep-native", "--results-bucket", "B",
+                       "--device", "cpu", "--results-dir", str(tmp_path)])
+        assert rc == 0
+    rows = json.loads(capsys.readouterr().out)
+    assert len(rows) == 2
+    for row in rows:
+        name = f"results/{row['result'].rsplit('/', 1)[-1]}"
+        with open(row["result"], "rb") as f:
+            assert store._objects[name].tobytes() == f.read()

@@ -43,6 +43,17 @@ the miss path (``--coop-hosts``, ``--coop-host-id``, ``--coop-vnodes``,
 moves peer chunks by the pod's all-gather and needs ``--pipeline-pod
 --readahead 0``.
 
+``ckpt-save`` writes a sharded checkpoint (``--ckpt-objects`` ×
+``--ckpt-object-bytes``) through resumable multi-part uploads
+(``--ckpt-part-bytes``, ``--ckpt-writers``) and publishes its manifest
+last; ``ckpt-restore`` fetches each rank's shard of every object
+(``--ckpt-readers``), verifies it against the manifest's crc32s and
+stages it onto the card (``--no-restore-device``: host RAM only;
+``--no-ckpt-verify`` skips both commands' checks). Under ``--protocol
+http|grpc`` with no ``--endpoint`` both run against an in-process fake
+server. ``--results-bucket B`` (``--protocol http|grpc``) also uploads
+each result file as ``results/<file>`` to bucket B.
+
 ``sweep`` runs ``read`` over protocols × the reference's four object
 sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
 prints the rows; ``--protocol http --http2`` and ``--protocol grpc
@@ -79,21 +90,38 @@ import argparse
 import json
 import os
 import sys
+from typing import Optional
 
 from tpubench_torch.config import (
     MB,
     BenchConfig,
     validate_coop_config,
+    validate_lifecycle_config,
     validate_pipeline_config,
     validate_telemetry_config,
     validate_tune_config,
 )
-from tpubench_torch.metrics.report import RunResult, write_result
+from tpubench_torch.metrics.report import (
+    RunResult,
+    upload_result,
+    write_result,
+)
 
 # Commands whose result is pod-global (the collectives run inside the
 # workload): rank 0 writes the one report. ``read`` measures its own host,
 # so every process reports.
 POD_COLLECTIVE_CMDS = {"pod-ingest", "stream", "gather-bench"}
+CKPT_CMDS = {
+    "ckpt-save": "storage lifecycle: save a sharded checkpoint through "
+                 "resumable multi-part uploads (session -> content-range "
+                 "parts -> finalize, part-level retry/resume through the "
+                 "fault plane); scorecard: save goodput, part p50/p99, "
+                 "resumed parts, zero corrupt finalizes",
+    "ckpt-restore": "storage lifecycle: restore the saved manifest, each "
+                    "rank's shard of every object staged onto its card; "
+                    "time-to-restore is the headline metric, bytes "
+                    "verified against the manifest crc32s",
+}
 FS_CMDS = {
     "read-fs": "sequential FS read (read_operation)",
     "write": "durable write (write_operations)",
@@ -167,6 +195,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="workload the tuning session drives")
     for name, help_ in FS_CMDS.items():
         add(name, help_)
+    for name, help_ in CKPT_CMDS.items():
+        _add_lifecycle_flags(add(name, help_))
     prep = add("prepare", "generate worker-indexed data files")
     prep.add_argument("--layout", choices=("flat", "ssd"), default="flat")
     sweep = add("sweep", "protocol A/B × size sweep (execute_pb.sh)")
@@ -252,6 +282,53 @@ def _add_report_parser(sub) -> None:
                           "exists in none")
 
 
+def _add_lifecycle_flags(p) -> None:
+    """The checkpoint flags (``tpubench``'s, the same defaults), on the
+    ``ckpt-*`` parsers only."""
+    p.add_argument("--ckpt-objects", type=int,
+                   help="checkpoint shard-objects in the manifest "
+                        "(default 4; one object per parameter shard)")
+    p.add_argument("--ckpt-object-bytes", type=int,
+                   help="bytes per shard-object (default 8 MiB)")
+    p.add_argument("--ckpt-part-bytes", type=int,
+                   help="resumable-upload part size (each part is one "
+                        "content-range PUT; default 1 MiB)")
+    p.add_argument("--ckpt-writers", type=int,
+                   help="concurrent object uploads during ckpt-save "
+                        "(default 4)")
+    p.add_argument("--ckpt-readers", type=int,
+                   help="concurrent shard fetches during ckpt-restore "
+                        "(default 4)")
+    p.add_argument("--ckpt-prefix",
+                   help="object-name prefix; the manifest lands at "
+                        "<prefix>MANIFEST.json (default ckpt/)")
+    p.add_argument("--no-ckpt-verify", action="store_true",
+                   help="skip the readback crc32 verification pass "
+                        "(save) / shard byte-identity check (restore)")
+    p.add_argument("--no-restore-device", action="store_true",
+                   help="ckpt-restore: host-RAM restore only — skip "
+                        "staging the shards onto the card")
+
+
+def _apply_lifecycle_args(cfg: BenchConfig, args) -> None:
+    lc = cfg.lifecycle
+    for attr, dest in (
+        ("ckpt_objects", "objects"), ("ckpt_object_bytes", "object_bytes"),
+        ("ckpt_part_bytes", "part_bytes"), ("ckpt_writers", "writers"),
+        ("ckpt_readers", "readers"),
+    ):
+        v = getattr(args, attr, None)
+        if v is not None:
+            setattr(lc, dest, v)
+    if getattr(args, "ckpt_prefix", None):
+        lc.prefix = args.ckpt_prefix
+    if getattr(args, "no_ckpt_verify", False):
+        lc.verify = False
+    if getattr(args, "no_restore_device", False):
+        lc.restore_device = False
+    validate_lifecycle_config(lc)
+
+
 def _add_common(p) -> None:
     p.add_argument("--config", help="JSON config file (tpubench --save-config)")
     p.add_argument("--protocol", choices=("http", "grpc", "local", "fake"),
@@ -321,6 +398,9 @@ def _add_common(p) -> None:
     p.add_argument("--slot-bytes", type=int,
                    help="staging slot target (capped by the host budget)")
     p.add_argument("--results-dir")
+    p.add_argument("--results-bucket",
+                   help="also upload result JSONs to this bucket via the "
+                        "configured storage protocol (execute_pb.sh:5)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--profile-dir",
                    help="trace the command with torch.profiler (host ops, "
@@ -684,6 +764,8 @@ def build_config(args) -> BenchConfig:
         s.slot_bytes = args.slot_bytes
     if args.results_dir:
         cfg.obs.results_dir = args.results_dir
+    if args.results_bucket:
+        cfg.obs.results_bucket = args.results_bucket
     if args.profile_dir:
         cfg.obs.profile_dir = args.profile_dir
     _apply_dist_args(cfg, args)
@@ -695,6 +777,15 @@ def build_config(args) -> BenchConfig:
     _apply_tail_args(cfg.transport.tail, args)
     _apply_pipeline_args(cfg, args)
     _apply_tune_args(cfg, args)
+    _apply_lifecycle_args(cfg, args)
+    if cfg.obs.results_bucket and t.protocol not in ("http", "grpc"):
+        # Fail at parse time, not after an hour-long run: upload_result
+        # needs an object-store protocol ('local' roots at workload.dir,
+        # 'fake' drops the bytes in a throwaway in-process store).
+        raise SystemExit(
+            f"--results-bucket requires --protocol http|grpc, "
+            f"not {t.protocol!r}"
+        )
     return cfg
 
 
@@ -836,14 +927,21 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
     if args is None:
         args = build_parser().parse_args([cmd])
-    # A single process's pod commands get a one-rank group, and so does
-    # train-ingest's pod path (also under tune).
+    # A single process's pod commands get a one-rank group, and so do
+    # train-ingest's pod path (also under tune) and a restore onto the
+    # card. ckpt-save and a host-RAM restore touch no device: their
+    # group (several processes only) is gloo.
     one_rank = cmd in POD_COLLECTIVE_CMDS or (
-        cfg.pipeline.pod and cmd in ("train-ingest", "tune"))
+        cfg.pipeline.pod and cmd in ("train-ingest", "tune")) or (
+        cmd == "ckpt-restore" and cfg.lifecycle.restore_device)
+    group_device = device
+    if cmd in CKPT_CMDS and not one_rank:
+        group_device = "cpu"
     # train-ingest owns its capture (StepProfiler: the step window, the
     # extra["profile"] stamp); the whole-run wrap steps aside for it.
     outer_profile = "" if cmd == "train-ingest" else cfg.obs.profile_dir
-    with bringup.session(cfg.dist, device, one_rank_group=one_rank) as topo:
+    with bringup.session(cfg.dist, group_device,
+                         one_rank_group=one_rank) as topo:
         with maybe_profile(outer_profile, device):
             if cmd == "read":
                 res = read(cfg, device=device, backend=backend)
@@ -909,6 +1007,26 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
                 print(format_tune_block(res.extra["tune"]))
             elif cmd in FS_CMDS:
                 res = run_fs(cmd, cfg, direct=not args.no_direct)
+            elif cmd in CKPT_CMDS:
+                from tpubench_torch.lifecycle import (
+                    format_lifecycle_scorecard,
+                )
+                from tpubench_torch.workloads.chaos import hermetic_target
+                from tpubench_torch.workloads.ckpt import (
+                    run_ckpt_restore,
+                    run_ckpt_save,
+                )
+
+                # http/grpc with no endpoint = hermetic: the run goes to
+                # the matching in-process fake server, transport.fault
+                # injected on the wire.
+                with hermetic_target(cfg):
+                    if cmd == "ckpt-save":
+                        res = run_ckpt_save(cfg, backend=backend)
+                    else:
+                        res = run_ckpt_restore(cfg, backend=backend,
+                                               device=device)
+                print(format_lifecycle_scorecard(res.extra["lifecycle"]))
             else:
                 raise SystemExit(f"unknown command {cmd!r}")
         if cfg.obs.profile_dir:
@@ -989,6 +1107,8 @@ def sweep(cfg: BenchConfig, protocols: str, sizes: str = "",
                 if nat is not None:
                     res.extra["sweep"]["native_receive"] = nat
                 path = write_result(res, cfg.obs.results_dir, tag=tag)
+                if cfg.obs.results_bucket:
+                    upload_result(cfg, path)
                 row = {
                     "protocol": proto,
                     "size": sz,
@@ -1003,10 +1123,13 @@ def sweep(cfg: BenchConfig, protocols: str, sizes: str = "",
     return rows
 
 
-def finish(res: RunResult, cfg: BenchConfig, pod_collective: bool) -> None:
-    """Write the result (``tpubench``'s ``_finish``): with several
-    processes, a pod command's report is rank 0's alone; ``read`` writes
-    one per process, tagged ``p<idx>``."""
+def finish(res: RunResult, cfg: BenchConfig,
+           pod_collective: bool) -> Optional[str]:
+    """Write the result (``tpubench``'s ``_finish``) and upload it to
+    ``obs.results_bucket`` when one is set: with several processes, a pod
+    command's report is rank 0's alone; ``read`` writes one per process,
+    tagged ``p<idx>``. Returns the result file's path (``None`` on a rank
+    that writes none)."""
     topo = res.extra.get("topology")
     tag = ""
     if topo and topo.get("process_count", 1) > 1:
@@ -1015,7 +1138,7 @@ def finish(res: RunResult, cfg: BenchConfig, pod_collective: bool) -> None:
             if idx != 0:
                 print(f"process {idx}/{topo['process_count']} done "
                       f"(report at process 0)")
-                return
+                return None
         else:
             tag = f"p{idx}"
     print(res.format())
@@ -1025,6 +1148,10 @@ def finish(res: RunResult, cfg: BenchConfig, pod_collective: bool) -> None:
         print(format_staging_block(res.extra["staging"]))
     path = write_result(res, cfg.obs.results_dir, tag=tag)
     print(f"result: {path}")
+    if cfg.obs.results_bucket:
+        obj = upload_result(cfg, path)
+        print(f"uploaded: {cfg.obs.results_bucket}/{obj}")
+    return path
 
 
 def report(args) -> int:

@@ -3,13 +3,12 @@
 
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (serve,
-lifecycle, drill, fleet, …) are kept as the raw dicts
-they were loaded as, so they round-trip without a dataclass.
+unchanged. The sections the port has no code for yet (serve, drill,
+fleet, …) are kept as the raw dicts they were loaded as, so they
+round-trip without a dataclass.
 
-:func:`refuse_unported` rejects a config that switches on a feature this
-port does not have yet, naming the ``ROADMAP.md`` item that brings it —
-a switched-on feature never silently does nothing.
+A command of ``tpubench`` the port does not have yet is not in its parser,
+so a switched-on feature never silently does nothing.
 
 All sizes are bytes unless the field name says otherwise.
 """
@@ -21,6 +20,7 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
+KB = 1024
 MB = 1024 * 1024
 
 
@@ -40,9 +40,8 @@ class RetryConfig:
 @dataclass
 class FaultConfig:
     """Fault injection for the fake backend (field-compatible with
-    :class:`tpubench_torch.storage.fake.FaultPlan`). The port's fake
-    backend acts on the open/read faults; the upload fields ride along
-    for the config round-trip."""
+    :class:`tpubench_torch.storage.fake.FaultPlan`): the open/read faults
+    and the upload faults of the fake store and the fake servers."""
 
     error_rate: float = 0.0  # P(read-open raises transient 503)
     read_error_rate: float = 0.0  # P(granule read raises mid-stream)
@@ -55,9 +54,17 @@ class FaultConfig:
     drip_bps: float = 0.0
     truncate_after_bytes: int = 0
     reset_after_bytes: int = 0
+    # --- upload-side faults (the ckpt-save chaos surface) ---
+    # P(a resumable-upload part append fails with a transient 503).
     upload_error_rate: float = 0.0
+    # One mid-upload pause per session (upload_stall_rate = P(a given
+    # session stalls at all) — the upload twin of the read straggler).
     upload_stall_s: float = 0.0
     upload_stall_rate: float = 1.0
+    # Truncate-then-reset: once a session has committed this many bytes,
+    # the in-flight part commits only a PREFIX and the connection dies —
+    # the mid-part shape resumable uploads exist to survive (one-shot
+    # per session, so a resumed upload makes progress past it). 0 = off.
     upload_reset_after_bytes: int = 0
     phases: list = field(default_factory=list)
 
@@ -534,10 +541,134 @@ def validate_coop_config(cc: "CoopConfig", where: str = "coop") -> None:
         )
 
 
+@dataclass
+class LifecycleConfig:
+    """Storage-lifecycle plane (``lifecycle/`` + the ``ckpt-save``/
+    ``ckpt-restore`` workloads; the ``meta_*`` fields are
+    ``meta-storm``'s, which the port does not have yet, and round-trip
+    unused).
+
+    Every prior workload READS; this is the other half of the reference
+    (``benchmark-script/``'s write/list/open binaries): a checkpoint-
+    shaped write path over resumable multi-part uploads, a sharded
+    restore with time-to-restore as the headline, and open-loop
+    list/stat/open metadata storms driven by the arrivals plane so
+    metadata ops get a knee curve too."""
+
+    # --- checkpoint shape (save + restore) ---
+    # The manifest: `objects` shard-objects of `object_bytes` each (a
+    # sharded model layout — one object per parameter shard).
+    objects: int = 4
+    object_bytes: int = 8 * MB
+    # Resumable-upload part size (each part is one content-range PUT).
+    part_bytes: int = 1 * MB
+    # Concurrent object uploads (save) / shard fetches (restore).
+    writers: int = 4
+    readers: int = 4
+    # Object-name prefix; the manifest lands at <prefix>MANIFEST.json.
+    prefix: str = "ckpt/"
+    # Readback-verify every finalized object's crc32 against the
+    # manifest (save) / verify fetched shard bytes (restore): the
+    # zero-corrupt-finalizes check. Costs one extra read pass on save.
+    verify: bool = True
+    # Restore stages each rank's shard of every object into device
+    # memory (dist.shard/reassemble path); False = host-RAM restore only.
+    restore_device: bool = True
+    # --- metadata storm ---
+    meta_objects: int = 64  # many small objects (the pathology)
+    meta_object_bytes: int = 4 * KB
+    meta_rate_rps: float = 200.0  # offered metadata ops/second
+    meta_duration_s: float = 2.0  # virtual schedule seconds
+    meta_arrival: str = "poisson"  # poisson | bursty | diurnal
+    # Op mix "kind:weight,..." over list/stat/open (open = open_read of
+    # the object head, the reference's open_file analogue).
+    meta_mix: str = "list:1,stat:2,open:2"
+    # Wire page bound for list ops (maxResults; multi-page listings).
+    meta_page_size: int = 16
+    # Bytes an `open` op reads from the object head before closing.
+    meta_read_bytes: int = 4 * KB
+    # Storm service worker threads (the concurrency the knee saturates).
+    meta_workers: int = 8
+    # --serve-sweep-style offered-load multipliers for the knee curve.
+    sweep_points: list = field(default_factory=lambda: [0.5, 1.0, 2.0, 4.0])
+    seed: int = 0
+
+
+def validate_lifecycle_config(lc: "LifecycleConfig",
+                              where: str = "lifecycle") -> None:
+    """Parse-time sanity for the lifecycle knobs (one-line SystemExit at
+    config load — the validate_fault_config style)."""
+    for name, lo in (
+        ("objects", 1), ("object_bytes", 1), ("part_bytes", 1),
+        ("writers", 1), ("readers", 1), ("meta_objects", 1),
+        ("meta_object_bytes", 0), ("meta_page_size", 0),
+        ("meta_read_bytes", 0), ("meta_workers", 1),
+    ):
+        v = getattr(lc, name)
+        if v < lo:
+            raise SystemExit(f"{where}.{name}={v!r}: must be >= {lo}")
+    for name in ("meta_rate_rps", "meta_duration_s"):
+        v = getattr(lc, name)
+        if not (v > 0):  # also rejects NaN
+            raise SystemExit(f"{where}.{name}={v!r}: must be > 0")
+    if not lc.prefix:
+        raise SystemExit(f"{where}.prefix: must be non-empty")
+    if lc.meta_arrival not in ("poisson", "bursty", "diurnal"):
+        raise SystemExit(
+            f"{where}.meta_arrival={lc.meta_arrival!r}: must be "
+            "poisson|bursty|diurnal"
+        )
+    parse_meta_mix(lc.meta_mix, where=where)
+    if not lc.sweep_points or not all(
+        isinstance(p, (int, float)) and p > 0 for p in lc.sweep_points
+    ):
+        raise SystemExit(
+            f"{where}.sweep_points={lc.sweep_points!r}: must be a "
+            "non-empty list of positive load multipliers"
+        )
+
+
+META_OP_KINDS = ("list", "stat", "open")
+
+
+def parse_meta_mix(spec: str, where: str = "lifecycle") -> dict[str, float]:
+    """``"list:1,stat:2,open:2"`` → normalized weight dict. Unknown op
+    kinds, malformed entries and non-positive weights are one-line
+    SystemExits at config load."""
+    out: dict[str, float] = {}
+    for entry in (spec or "").split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        kind, _, w_s = entry.partition(":")
+        kind = kind.strip()
+        if kind not in META_OP_KINDS:
+            raise SystemExit(
+                f"{where}.meta_mix: unknown op kind {kind!r}; valid: "
+                f"{'/'.join(META_OP_KINDS)}"
+            )
+        try:
+            w = float(w_s) if w_s else 1.0
+        except ValueError:
+            raise SystemExit(
+                f"{where}.meta_mix: bad weight {w_s!r} for {kind!r}"
+            ) from None
+        if not (w > 0):
+            raise SystemExit(
+                f"{where}.meta_mix: weight for {kind!r} must be > 0"
+            )
+        out[kind] = out.get(kind, 0.0) + w
+    if not out:
+        raise SystemExit(f"{where}.meta_mix={spec!r}: no ops configured")
+    total = sum(out.values())
+    return {k: v / total for k, v in out.items()}
+
+
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
-                   "telemetry", "tune", "pipeline", "coop")
+                   "telemetry", "tune", "pipeline", "coop",
+                   "lifecycle")
 
 
 @dataclass
@@ -551,6 +682,7 @@ class BenchConfig:
     tune: TuneConfig = field(default_factory=TuneConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     coop: CoopConfig = field(default_factory=CoopConfig)
+    lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -598,6 +730,7 @@ _SUBTYPES = {
     "tune": TuneConfig,
     "pipeline": PipelineConfig,
     "coop": CoopConfig,
+    "lifecycle": LifecycleConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,
@@ -607,15 +740,11 @@ STAGING_MODES = ("none", "device_put", "pallas")
 
 
 def refuse_unported(cfg: BenchConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ``ROADMAP.md`` item) for
-    every read-path feature the config switches on that this port does
-    not have yet, and ``ValueError`` for an unknown staging mode."""
+    """The checks every workload runs on its config: the telemetry and
+    tune sections, and ``ValueError`` for an unknown staging mode. Every
+    read-path feature of ``tpubench`` is ported now (``obs.results_bucket``
+    was the last), so nothing is refused as unported here."""
     s = cfg.staging
-    if cfg.obs.results_bucket:
-        raise NotImplementedError(
-            "not ported to tpubench_torch yet: obs.results_bucket (ROADMAP "
-            "A.2: object-store backends)"
-        )
     validate_telemetry_config(cfg.telemetry)
     validate_tune_config(cfg.tune)
     if s.mode not in STAGING_MODES:

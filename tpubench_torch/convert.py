@@ -13,6 +13,12 @@ JSON drives both packages either way.
 A stream's state is its snapshot (:func:`stream_state`): the format is
 ``tpubench``'s, so a snapshot ``tpubench stream`` wrote resumes the port's
 stream, and the other way round.
+
+A checkpoint's state is its manifest and its shard-objects: the manifest
+format (:func:`tpubench_torch.lifecycle.manifest.read_manifest`), the
+object names and their bytes are ``tpubench``'s, and the ``lifecycle``
+section loads field for field, so a checkpoint either package saved
+restores in the other.
 """
 
 from __future__ import annotations
@@ -44,3 +50,4 @@ def stream_state(snapshot: dict) -> dict:
         "resume_point": resume,
         "bytes": int(snapshot.get("bytes", 0)),
     }
+

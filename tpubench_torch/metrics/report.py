@@ -1,5 +1,6 @@
 """First-class result files: the same result JSON as ``tpubench``'s
-(``tpubench/metrics/report.py``), written by the port's workloads."""
+(``tpubench/metrics/report.py``), written by the port's workloads, and
+:func:`upload_result`, which pushes one to ``obs.results_bucket``."""
 
 from __future__ import annotations
 
@@ -52,6 +53,37 @@ class RunResult:
         for key, s in self.summaries.items():
             lines.append(format_summary(key, s))
         return "\n".join(lines)
+
+
+def upload_result(cfg, path: str, backend=None) -> str:
+    """Push one result JSON to ``cfg.obs.results_bucket`` over the run's own
+    storage protocol — the ``gsutil cp`` step of the reference's experiment
+    loop (execute_pb.sh:5) as a first-class framework capability. Returns
+    the uploaded object name."""
+    from tpubench_torch.storage import open_backend
+
+    owns = backend is None
+    if backend is None:
+        proto = cfg.transport.protocol
+        if proto not in ("http", "grpc"):
+            # 'local' would ignore the bucket (it roots at workload.dir) and
+            # 'fake' would drop the bytes in a throwaway in-process store —
+            # either way "uploaded" would be a lie. Fail loudly instead.
+            raise ValueError(
+                f"results_bucket requires an object-store protocol "
+                f"(http|grpc), not {proto!r}"
+            )
+        up_cfg = type(cfg).from_dict(cfg.to_dict())
+        up_cfg.workload.bucket = cfg.obs.results_bucket
+        backend = open_backend(up_cfg)
+    try:
+        name = f"results/{os.path.basename(path)}"
+        with open(path, "rb") as f:
+            backend.write(name, f.read())
+        return name
+    finally:
+        if owns:
+            backend.close()
 
 
 def write_result(result: RunResult, results_dir: str, tag: str = "") -> str:

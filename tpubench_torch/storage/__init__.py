@@ -1,4 +1,5 @@
-"""Storage backends of the port — the read side of ``tpubench/storage``.
+"""Storage backends of the port — ``tpubench/storage``, read and write
+sides (``write``/``open_write``/``delete`` on every backend).
 
 * :mod:`.base` — the backend protocol;
 * :mod:`.fake` — the in-process fake store (deterministic bytes, faults);
@@ -18,8 +19,8 @@
   (HTTP/1.1), :mod:`.fake_h2_server` (HTTP/2), :mod:`.fake_grpc_wire_server`
   (gRPC).
 
-Still to come (``ROADMAP.md``): gRPC library mode (A.2), the write side of every backend (A.6), the reactor-fetch wrapper
-of the serve plane (A.7).
+Still to come (``ROADMAP.md``): gRPC library mode (A.2), the
+reactor-fetch wrapper of the serve plane (A.7).
 """
 
 from tpubench_torch.storage.base import (  # noqa: F401

@@ -1,4 +1,4 @@
-"""Backend protocol and shared primitives — the read half of
+"""Backend protocol and shared primitives — a copy of
 ``tpubench/storage/base.py``.
 
 The reference's L1 surface is ``bucket.Object(name).NewReader(ctx)``
@@ -61,13 +61,62 @@ class ObjectReader(Protocol):
 
 
 @runtime_checkable
+class ObjectWriter(Protocol):
+    """Resumable streaming writer for one object (the GCS resumable-upload
+    shape: session open → content-range parts → finalize).
+
+    ``write`` appends one part and returns the server-acknowledged
+    committed offset; ``offset`` is the committed offset the CLIENT
+    currently believes; ``committed`` re-probes the server (the
+    308-with-Range resume query) and resyncs ``offset`` — the primitive
+    the mid-part resume path is built on. ``finalize`` completes the
+    object and returns its metadata; implementations make it IDEMPOTENT
+    server-side where the wire allows (a finalize retried after a lost
+    response must not double-commit). ``abort`` abandons the session
+    (best-effort; never raises)."""
+
+    offset: int
+
+    def write(self, data) -> int: ...
+
+    def committed(self) -> int: ...
+
+    def finalize(self) -> ObjectMeta: ...
+
+    def abort(self) -> None: ...
+
+
+@runtime_checkable
 class StorageBackend(Protocol):
-    """Read-side L1 backend. One instance is shared by every worker, so
-    implementations must be thread-safe."""
+    """L1 backend. One instance is shared by every worker, so
+    implementations must be thread-safe.
+
+    ``write`` is the one-shot media upload; ``open_write`` the resumable
+    multi-part session (both honor ``if_generation_match`` where the
+    store has generations: 0 = object must not exist, N = current
+    generation must be N; mismatch is a non-transient ``StorageError``
+    with ``code=412`` — the idempotent-retry correctness anchor).
+    ``list`` accepts ``page_size`` where the wire paginates
+    (``maxResults``/``pageToken``); in-process stores ignore it."""
 
     def open_read(
         self, name: str, start: int = 0, length: Optional[int] = None
     ) -> ObjectReader: ...
+
+    def write(
+        self, name: str, data: bytes,
+        if_generation_match: Optional[int] = None,
+    ) -> ObjectMeta: ...
+
+    def open_write(
+        self, name: str, if_generation_match: Optional[int] = None
+    ) -> ObjectWriter: ...
+
+    def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]: ...
+
+    def stat(self, name: str) -> ObjectMeta: ...
+
+    def delete(self, name: str) -> None: ...
 
     def close(self) -> None: ...
 

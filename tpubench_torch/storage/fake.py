@@ -1,7 +1,7 @@
 """In-process fake object store with deterministic content and fault
-injection — the read half of ``tpubench/storage/fake.py``: the same
-objects from the same names (``deterministic_bytes``), the same open/read
-faults, and no upload sessions (those arrive with the lifecycle slice).
+injection — a copy of ``tpubench/storage/fake.py``: the same objects
+from the same names (``deterministic_bytes``), the same open/read faults,
+and the same resumable-upload session store with its upload-side faults.
 """
 
 from __future__ import annotations
@@ -51,8 +51,11 @@ class FaultPlan:
     drip_bps: float = 0.0
     truncate_after_bytes: int = 0
     reset_after_bytes: int = 0
-    # Upload-side faults act on upload sessions, which this read-half
-    # backend does not have; kept so FaultConfig maps on by name.
+    # Upload-side faults (the ckpt-save chaos surface; see FaultConfig):
+    # part-append 503s, one mid-upload stall per session, and the
+    # truncate-then-reset shape — a part whose bytes are partially
+    # committed before the connection dies (one-shot per session so a
+    # resumed upload can make progress past it).
     upload_error_rate: float = 0.0
     upload_stall_s: float = 0.0
     upload_stall_rate: float = 1.0
@@ -165,9 +168,60 @@ class _FakeReader:
         self._closed = True
 
 
+class _UploadSession:
+    """One resumable-upload session: an append-only buffer plus the
+    committed watermark and one-shot fault state. The store's
+    finalize is IDEMPOTENT (the result meta is cached on the session) so
+    a finalize retried after a lost response never double-commits — the
+    correctness anchor for ``ifGenerationMatch`` retries."""
+
+    __slots__ = ("uid", "name", "if_generation_match", "buf", "final_meta",
+                 "stall_rolled", "reset_done")
+
+    def __init__(self, uid: str, name: str, if_generation_match):
+        self.uid = uid
+        self.name = name
+        self.if_generation_match = if_generation_match
+        self.buf = bytearray()
+        self.final_meta: Optional[ObjectMeta] = None
+        self.stall_rolled = False
+        self.reset_done = False
+
+
+class _FakeWriter:
+    """ObjectWriter over the backend's in-process session store."""
+
+    def __init__(self, backend: "FakeBackend", uid: str):
+        self._backend = backend
+        self._uid = uid
+        self.offset = 0
+
+    def write(self, data) -> int:
+        self.offset = self._backend.upload_append(
+            self._uid, self.offset, data
+        )
+        return self.offset
+
+    def committed(self) -> int:
+        self.offset = self._backend.upload_committed(self._uid)
+        return self.offset
+
+    def finalize(self) -> ObjectMeta:
+        return self._backend.finalize_upload(self._uid, total=self.offset)
+
+    def abort(self) -> None:
+        self._backend.abort_upload(self._uid)
+
+
 class FakeBackend:
-    """Thread-safe in-memory store whose objects come from
-    :func:`deterministic_bytes` via ``prepopulated``/``from_population``."""
+    """Thread-safe in-memory store. Objects created explicitly via ``write``
+    or lazily from :func:`deterministic_bytes` via ``prepopulated``.
+
+    Also carries the resumable-upload SESSION STORE (begin/append/
+    committed/finalize/abort) that the fake servers translate wire
+    requests onto — one semantics definition (offsets, preconditions,
+    idempotent finalize, upload-side faults) the h1.1, h2 and gRPC
+    surfaces cannot drift apart on."""
 
     def __init__(self, fault: Optional[FaultPlan] = None):
         self._objects: dict[str, np.ndarray] = {}
@@ -179,6 +233,10 @@ class FakeBackend:
         # Observability for tests: how many opens/reads/faults happened.
         self.open_count = 0
         self.injected_errors = 0
+        # Resumable-upload sessions (upload_id -> _UploadSession).
+        self._uploads: dict[str, _UploadSession] = {}
+        self._upload_seq = 0
+        self.upload_parts = 0  # committed part appends (tests)
 
     # ------------------------------------------------------------- setup --
     @classmethod
@@ -245,6 +303,161 @@ class FakeBackend:
             generation=gen,
         )
 
+    def _check_generation(self, name: str, want: Optional[int]) -> None:
+        """Precondition check under self._lock: ``want`` = 0 means the
+        object must not exist; N means the current generation must be N.
+        Mismatch is the GCS 412 — non-transient, so an idempotent retry
+        layer never hammers a lost precondition."""
+        if want is None:
+            return
+        current = self._generation.get(name, 0)
+        if current != want:
+            raise StorageError(
+                f"ifGenerationMatch={want} does not match current "
+                f"generation {current} of {name!r}",
+                transient=False, code=412,
+            )
+
+    def write(self, name: str, data: bytes,
+              if_generation_match: Optional[int] = None) -> ObjectMeta:
+        arr = np.frombuffer(bytes(data), dtype=np.uint8).copy()
+        with self._lock:
+            self._check_generation(name, if_generation_match)
+            self._objects[name] = arr
+            self._generation[name] = self._generation.get(name, 0) + 1
+            return ObjectMeta(name, len(arr), self._generation[name])
+
+    # -------------------------------------------------- resumable uploads --
+    def open_write(self, name: str,
+                   if_generation_match: Optional[int] = None) -> _FakeWriter:
+        return _FakeWriter(self, self.begin_upload(name, if_generation_match))
+
+    def begin_upload(self, name: str,
+                     if_generation_match: Optional[int] = None) -> str:
+        with self._lock:
+            self._upload_seq += 1
+            uid = f"upload-{self._upload_seq}"
+            self._uploads[uid] = _UploadSession(uid, name, if_generation_match)
+            return uid
+
+    def _session(self, uid: str) -> _UploadSession:
+        s = self._uploads.get(uid)
+        if s is None:
+            raise StorageError(
+                f"unknown upload session {uid!r}", transient=False, code=404
+            )
+        return s
+
+    def upload_committed(self, uid: str) -> int:
+        with self._lock:
+            return len(self._session(uid).buf)
+
+    def upload_append(self, uid: str, offset: int, data) -> int:
+        """Append one content-range part at ``offset``; returns the new
+        committed offset. Offsets BEHIND the watermark are an idempotent
+        resend (the already-committed prefix is skipped); offsets ahead
+        of it are a client bug (400). Upload-side faults (503s, one
+        mid-upload stall, the commit-a-prefix-then-reset shape) fire
+        here so the in-process backend and both wire servers share one
+        fault surface."""
+        mv = memoryview(data).cast("B") if not isinstance(
+            data, memoryview
+        ) else data.cast("B")
+        plan = self.fault.at()
+        with self._lock:
+            s = self._session(uid)
+            if s.final_meta is not None:
+                raise StorageError(
+                    f"upload {uid} already finalized", transient=False,
+                    code=400,
+                )
+            committed = len(s.buf)
+            stall = 0.0
+            if (plan.upload_stall_s > 0 and not s.stall_rolled):
+                s.stall_rolled = True
+                with self._rng_lock:
+                    roll = self._rng.random()
+                if plan.upload_stall_rate >= 1.0 or roll < plan.upload_stall_rate:
+                    stall = plan.upload_stall_s
+        if stall:
+            time.sleep(stall)
+        if plan.upload_error_rate:
+            with self._rng_lock:
+                r = self._rng.random()
+            if r < plan.upload_error_rate:
+                self.injected_errors += 1
+                raise StorageError(
+                    "injected upload part failure", transient=True, code=503
+                )
+        with self._lock:
+            s = self._session(uid)
+            committed = len(s.buf)
+            if offset > committed:
+                raise StorageError(
+                    f"upload {uid}: part offset {offset} ahead of "
+                    f"committed {committed}", transient=False, code=400,
+                )
+            part = mv[committed - offset:] if offset < committed else mv
+            if len(part) == 0:
+                return committed
+            if (
+                plan.upload_reset_after_bytes and not s.reset_done
+                and committed + len(part) > plan.upload_reset_after_bytes
+            ):
+                # Truncate-then-reset: commit only the prefix up to the
+                # threshold, then die — the partially-committed part a
+                # resume must re-probe (308 Range) and finish. One-shot
+                # per session so the resumed upload makes progress.
+                s.reset_done = True
+                keep = max(0, plan.upload_reset_after_bytes - committed)
+                s.buf += part[:keep]
+                self.injected_errors += 1
+                raise StorageError(
+                    "injected upload reset mid-part", transient=True,
+                    code=104,
+                )
+            s.buf += part
+            self.upload_parts += 1
+            return len(s.buf)
+
+    def finalize_upload(self, uid: str,
+                        total: Optional[int] = None) -> ObjectMeta:
+        """Complete the session (idempotent: a finalize retried after a
+        lost response returns the cached meta). The ``ifGenerationMatch``
+        precondition is checked HERE — at commit time, like GCS — and a
+        mismatch is the non-transient 412."""
+        with self._lock:
+            s = self._session(uid)
+            if s.final_meta is not None:
+                return s.final_meta
+            if total is not None and total != len(s.buf):
+                raise StorageError(
+                    f"upload {uid}: declared total {total} != committed "
+                    f"{len(s.buf)}", transient=False, code=400,
+                )
+            self._check_generation(s.name, s.if_generation_match)
+            arr = np.frombuffer(bytes(s.buf), dtype=np.uint8).copy() \
+                if s.buf else np.empty(0, dtype=np.uint8)
+            self._objects[s.name] = arr
+            self._generation[s.name] = self._generation.get(s.name, 0) + 1
+            s.final_meta = ObjectMeta(
+                s.name, len(arr), self._generation[s.name]
+            )
+            s.buf = bytearray()  # the store owns the bytes now
+            return s.final_meta
+
+    def upload_status(self, uid: str):
+        """(committed_bytes, final_meta_or_None) — the resume probe's
+        view, and the idempotency check the servers make before
+        replaying a part against a finalized session."""
+        with self._lock:
+            s = self._session(uid)
+            return len(s.buf), s.final_meta
+
+    def abort_upload(self, uid: str) -> None:
+        with self._lock:
+            self._uploads.pop(uid, None)
+
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         # page_size is a wire concept (maxResults/pageToken): the fake
         # servers slice pages; the store serves one listing.
@@ -264,6 +477,12 @@ class FakeBackend:
             if obj is None:
                 raise StorageError(f"object not found: {name}", transient=False, code=404)
             return ObjectMeta(name, len(obj), self._generation.get(name, 1))
+
+    def delete(self, name: str) -> None:
+        with self._lock:
+            if name not in self._objects:
+                raise StorageError(f"object not found: {name}", transient=False, code=404)
+            del self._objects[name]
 
     def close(self) -> None:
         pass

@@ -1,22 +1,26 @@
 """Hermetic storage-v2 gRPC server speaking raw HTTP/2 frames — no grpcio.
-The read plane of ``tpubench/storage/fake_grpc_wire_server.py``.
+A copy of ``tpubench/storage/fake_grpc_wire_server.py``.
 
 ``endpoint`` is ``insecure://host:port`` (h2c) by default; ``tls=True``
 serves TLS with ALPN h2 and an ephemeral self-signed certificate
 (``host:port``, ``cafile`` the PEM to trust). It serves ReadObject
 (content in messages of at most 2 MiB, as the real service chunks it),
-GetObject and ListObjects from the same :class:`FakeBackend` the HTTP
-fakes use, so one FaultPlan governs every transport in a run:
+GetObject, ListObjects, DeleteObject and the write plane
+(StartResumableWrite, WriteObject, BidiWriteObject, QueryWriteStatus)
+from the same :class:`FakeBackend` the HTTP fakes use, so one FaultPlan
+and one upload-session store govern every transport in a run:
 
 - open faults (latency, error_rate, 404/416) fire inside
   ``backend.open_read``/``stat`` and map to grpc-status trailers;
 - mid-stream read faults from the backend reader map to trailers, except
   the injected connection reset (StorageError code 104), which kills the
-  socket so the client exercises its EOF path.
+  socket so the client exercises its EOF path;
+- upload faults (503 rolls, the one-shot stall, commit-a-prefix-then-
+  reset) fire inside ``backend.upload_append``: the stall shows as a
+  delayed bidi ack, the reset as a dead socket mid-stream.
 
-The write plane (StartResumableWrite, WriteObject, BidiWriteObject,
-QueryWriteStatus, DeleteObject) comes with the store's write side
-(``ROADMAP.md`` A.6); until then those methods answer UNIMPLEMENTED.
+The frame loop routes DATA payloads into per-stream queues, so
+client-streaming and bidi methods consume messages as they arrive.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ _UNIMPLEMENTED = 12
 # Largest content per ReadObjectResponse (google.storage.v2 caps
 # ChecksummedData at 2 MiB).
 MAX_READ_CHUNK = 2 * 1024 * 1024
+
+
+class _Kill(Exception):
+    """Socket already aborted (injected reset); unwind silently."""
 
 
 class _Stream:
@@ -235,6 +243,8 @@ class _GrpcConn:
                 rsp.trailers(_UNIMPLEMENTED, f"unknown method {method!r}")
                 return
             handler(st, rsp)
+        except _Kill:
+            return
         except StorageError as e:
             if getattr(e, "code", None) == 104:
                 self.abort()
@@ -252,21 +262,25 @@ class _GrpcConn:
             except OSError:
                 pass
 
-    def _one_msg(self, st: _Stream) -> bytes:
-        """The single request message of a unary or server-streaming
-        call (raises WireCodecError on any other count)."""
+    def _iter_msgs(self, st: _Stream):
+        """The request messages of a call, as they arrive (raises
+        WireCodecError on a partial frame at END_STREAM)."""
         dec = FrameDecoder()
-        msgs = []
         while True:
             m = dec.next()
             if m is not None:
-                msgs.append(m)
+                yield m
                 continue
             item = st.q.get()
             if item is None:
-                dec.finish()  # partial frame at END_STREAM → WireCodecError
-                break
+                dec.finish()
+                return
             dec.feed(item)
+
+    def _one_msg(self, st: _Stream) -> bytes:
+        """The single request message of a unary or server-streaming
+        call (raises WireCodecError on any other count)."""
+        msgs = list(self._iter_msgs(st))
         if len(msgs) != 1:
             raise WireCodecError(f"unary call carried {len(msgs)} messages")
         return msgs[0]
@@ -340,6 +354,119 @@ class _GrpcConn:
                 objects=[self._obj(m) for m in page], next_page_token=nxt
             )
         )
+        rsp.trailers(OK)
+
+
+    def _rpc_DeleteObject(self, st: _Stream, rsp: _Rsp) -> None:
+        req = proto.DeleteObjectRequest.decode(self._one_msg(st))
+        self._gate()
+        self.backend.delete(req.object)
+        rsp.msg(proto.Msg())  # google.protobuf.Empty
+        rsp.trailers(OK)
+
+    # -------------------------------------------------------- write plane --
+    def _rpc_StartResumableWrite(self, st: _Stream, rsp: _Rsp) -> None:
+        req = proto.StartResumableWriteRequest.decode(self._one_msg(st))
+        spec = req.write_object_spec
+        if spec is None or spec.resource is None or not spec.resource.name:
+            raise WireCodecError("StartResumableWrite without object name")
+        uid = self.backend.begin_upload(
+            spec.resource.name, if_generation_match=spec.if_generation_match
+        )
+        rsp.msg(proto.StartResumableWriteResponse(upload_id=uid))
+        rsp.trailers(OK)
+
+    def _rpc_QueryWriteStatus(self, st: _Stream, rsp: _Rsp) -> None:
+        req = proto.QueryWriteStatusRequest.decode(self._one_msg(st))
+        committed, final = self.backend.upload_status(req.upload_id)
+        if final is not None:
+            rsp.msg(
+                proto.QueryWriteStatusResponse(
+                    persisted_size=final.size, resource=self._obj(final)
+                )
+            )
+        else:
+            rsp.msg(proto.QueryWriteStatusResponse(persisted_size=committed))
+        rsp.trailers(OK)
+
+    def _bidi_begin(self, msg) -> str:
+        if msg.upload_id:
+            return msg.upload_id
+        spec = msg.write_object_spec
+        if spec is not None and spec.resource is not None and spec.resource.name:
+            return self.backend.begin_upload(
+                spec.resource.name,
+                if_generation_match=spec.if_generation_match,
+            )
+        raise WireCodecError(
+            "first write message needs upload_id or write_object_spec"
+        )
+
+    def _append(self, uid: str, msg) -> int:
+        """One chunk through the shared fault point; code-104 resets
+        kill the socket (the client sees a dead conn, not trailers)."""
+        cd = msg.checksummed_data
+        if cd is None or not cd.content:
+            return self.backend.upload_committed(uid)
+        try:
+            return self.backend.upload_append(uid, msg.write_offset, cd.content)
+        except StorageError as e:
+            if getattr(e, "code", None) == 104:
+                self.abort()
+                raise _Kill() from e
+            raise
+
+    def _rpc_WriteObject(self, st: _Stream, rsp: _Rsp) -> None:
+        uid: Optional[str] = None
+        committed = 0
+        for raw in self._iter_msgs(st):
+            msg = proto.WriteObjectRequest.decode(raw)
+            if uid is None:
+                uid = self._bidi_begin(msg)
+            committed = self._append(uid, msg)
+            if msg.finish_write:
+                cd = msg.checksummed_data
+                total = msg.write_offset + (len(cd.content) if cd else 0)
+                meta = self.backend.finalize_upload(uid, total=total)
+                rsp.msg(
+                    proto.WriteObjectResponse(
+                        persisted_size=meta.size, resource=self._obj(meta)
+                    )
+                )
+                rsp.trailers(OK)
+                return
+        if uid is None:
+            raise WireCodecError("WriteObject stream carried no messages")
+        # Half-close without finish_write: report progress; the session
+        # stays open for QueryWriteStatus / a resumed stream.
+        rsp.msg(proto.WriteObjectResponse(persisted_size=committed))
+        rsp.trailers(OK)
+
+    def _rpc_BidiWriteObject(self, st: _Stream, rsp: _Rsp) -> None:
+        uid: Optional[str] = None
+        for raw in self._iter_msgs(st):
+            msg = proto.BidiWriteObjectRequest.decode(raw)
+            if uid is None:
+                uid = self._bidi_begin(msg)
+            committed = self._append(uid, msg)
+            if msg.finish_write:
+                cd = msg.checksummed_data
+                if cd is not None and cd.content:
+                    total = msg.write_offset + len(cd.content)
+                else:
+                    total = msg.write_offset or None
+                meta = self.backend.finalize_upload(uid, total=total)
+                rsp.msg(
+                    proto.BidiWriteObjectResponse(
+                        persisted_size=meta.size, resource=self._obj(meta)
+                    )
+                )
+                rsp.trailers(OK)
+                return
+            if msg.state_lookup:
+                rsp.msg(proto.BidiWriteObjectResponse(persisted_size=committed))
+        # Input ended without finish_write (client broke away to
+        # re-probe): close our side cleanly, session stays resumable.
         rsp.trailers(OK)
 
 

@@ -1,6 +1,5 @@
 """A minimal HTTP/2 fake-GCS server (h2c prior knowledge / TLS+ALPN) — a
-copy of ``tpubench/storage/fake_h2_server.py``'s read surface, the
-hermetic target of the native HTTP/2 client (the reference's
+copy of ``tpubench/storage/fake_h2_server.py``, the hermetic target of the native HTTP/2 client (the reference's
 ``ForceAttemptHTTP2`` branch, ``main.go:76-80``).
 
 Python's stdlib has no h2 server, so this implements the slice the
@@ -17,8 +16,9 @@ clients need:
   metadata and list over h2 (the whole-client h2 mode sends them too);
 * concurrent streams: each request is served on its own thread as its
   END_STREAM arrives;
-* an HTTP/1.1 side on the same port (metadata, media, list), as real GCS
-  serves both protocols on one port.
+* an HTTP/1.1 side on the same port (metadata, media, list, and the
+  media and resumable uploads), as real GCS serves both protocols on one
+  port.
 
 The frame helpers (:data:`_PREFACE`, :func:`decode_request_headers`,
 :func:`_hp_literal`) are shared with the gRPC wire client and server.
@@ -37,6 +37,8 @@ from typing import Optional
 from tpubench_torch.storage.base import StorageError, object_meta_dict
 from tpubench_torch.storage.fake import FakeBackend
 from tpubench_torch.storage.fake_server import (
+    RESET_CONNECTION,
+    handle_upload_request,
     inject_open_fault,
     make_self_signed_cert,
     paginate_listing,
@@ -227,8 +229,12 @@ class _Conn:
         ).start()
 
     def _serve_h11(self, initial: bytes) -> None:
-        """Keep-alive HTTP/1.1 side: object metadata, media (with Range)
-        and list."""
+        """Keep-alive HTTP/1.1 side: object metadata, media (with Range),
+        list — and the upload surface (media + resumable sessions), since
+        an ``http2=True`` client's writes ride the HTTP/1.1 pool (the
+        native h2 client is GET-only). Upload semantics are the h1.1
+        fake's :func:`handle_upload_request`: one definition, two
+        framings."""
         buf = initial
         while True:
             while b"\r\n\r\n" not in buf:
@@ -264,12 +270,35 @@ class _Conn:
             query = urllib.parse.parse_qs(parsed.query)
             parts = parsed.path.split("/")
             clen = int(hdrs.get("content-length", "0") or 0)
-            while len(buf) < clen:
-                chunk = self.sock.recv(65536)
-                if not chunk:
+            if len(buf) < clen:
+                # bytearray: a part is MiBs, and bytes += would copy the
+                # whole prefix on every recv.
+                buf = bytearray(buf)
+                while len(buf) < clen:
+                    chunk = self.sock.recv(1 << 20)
+                    if not chunk:
+                        return
+                    buf += chunk
+            req_body, buf = bytes(buf[:clen]), bytes(buf[clen:])
+            if len(parts) >= 2 and parts[1] == "upload":
+                resp = handle_upload_request(
+                    self.backend, method, parts, query,
+                    {"Content-Range": hdrs.get("content-range", "")},
+                    req_body, host=hdrs.get("host", "127.0.0.1"),
+                )
+                if resp == RESET_CONNECTION:
+                    try:
+                        self.sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
                     return
-                buf += chunk
-            buf = buf[clen:]  # request bodies are not served here
+                status, extra_headers, body_doc = resp
+                extra = "".join(
+                    f"{k}: {v}\r\n" for k, v in extra_headers.items()
+                )
+                send(status, json.dumps(body_doc).encode(),
+                     "application/json", extra)
+                continue
             if (
                 method == "GET"
                 and len(parts) >= 6

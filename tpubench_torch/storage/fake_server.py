@@ -1,17 +1,21 @@
 """A real HTTP/1.1 server speaking the GCS JSON-API object surface — the
-read surface of ``tpubench/storage/fake_server.py``, the hermetic target
-of the port's http clients.
+surface of ``tpubench/storage/fake_server.py``, the hermetic target of the
+port's http clients.
 
 * ``GET /storage/v1/b/<bucket>/o/<object>?alt=media`` — media download,
   honoring ``Range: bytes=a-b``;
 * ``GET /storage/v1/b/<bucket>/o/<object>`` — metadata;
 * ``GET /storage/v1/b/<bucket>/o?prefix=`` — list (``maxResults`` /
-  ``pageToken`` pages).
+  ``pageToken`` pages);
+* ``POST /upload/storage/v1/b/<bucket>/o?uploadType=media|resumable&name=``
+  — one-shot upload or resumable session open;
+* ``PUT /upload/storage/v1/b/<bucket>/o?uploadType=resumable&upload_id=``
+  — a content-range part, the finalize, or the ``bytes */*`` probe;
+* ``DELETE /storage/v1/b/<bucket>/o/<object>``.
 
-Fault injection (503s, latency, mid-body resets) comes from the backing
+Fault injection (503s, latency, mid-body resets, the upload-side faults)
+comes from the backing
 :class:`~tpubench_torch.storage.fake.FakeBackend`'s :class:`FaultPlan`.
-The upload and delete routes come with the store's write side
-(``ROADMAP.md`` A.6); until then the server answers them 501.
 
 ``tls=True`` serves https with an ephemeral self-signed certificate made
 by the ``openssl`` command-line tool (:func:`make_self_signed_cert`).
@@ -32,6 +36,26 @@ from typing import Optional
 
 from tpubench_torch.storage.base import StorageError, object_meta_dict
 from tpubench_torch.storage.fake import FakeBackend
+
+
+# Sentinel returned by handle_upload_request: the injected fault killed
+# the connection mid-part — the server must abort the socket, not answer.
+RESET_CONNECTION = ("reset",)
+
+
+def parse_content_range(hdr: str):
+    """``Content-Range: bytes a-b/T`` → (start, total) with ``None`` for
+    ``*`` on either side (``bytes */T`` is the resume probe / finalize
+    form; ``bytes */*`` the pure probe). Malformed → ValueError."""
+    spec = hdr.strip()
+    if not spec.startswith("bytes "):
+        raise ValueError(f"bad Content-Range: {hdr!r}")
+    rng, _, total_s = spec[len("bytes "):].partition("/")
+    total = None if total_s.strip() in ("", "*") else int(total_s)
+    if rng.strip() == "*":
+        return None, total
+    start_s, _, _end_s = rng.partition("-")
+    return int(start_s), total
 
 
 def paginate_listing(items, query: dict) -> dict:
@@ -69,6 +93,102 @@ def inject_open_fault(backend: FakeBackend) -> bool:
     return False
 
 
+def handle_upload_request(
+    backend: FakeBackend, method: str, parts, query: dict,
+    headers, body: bytes, host: str,
+):
+    """Wire-agnostic upload routing shared by the h1.1 handler and the h2
+    server's HTTP/1.1 side — one resumable-upload semantics, two framings. Returns ``(status, extra_headers, body_dict)``
+    or :data:`RESET_CONNECTION` when an injected mid-part fault must kill
+    the socket.
+
+    Routes (the GCS JSON upload surface):
+
+    * ``POST …?uploadType=media&name=N[&ifGenerationMatch=G]`` — one-shot
+      media upload, precondition honored (412 on mismatch);
+    * ``POST …?uploadType=resumable&name=N[&ifGenerationMatch=G]`` —
+      session open; the session URL rides the ``Location`` header;
+    * ``PUT …?uploadType=resumable&upload_id=U`` + ``Content-Range`` —
+      one part (``bytes a-b/*``), the finalize form (``bytes a-b/T`` /
+      ``bytes */T``) or the resume probe (``bytes */*``): partial commits
+      answer **308 with the committed ``Range``**, completion answers the
+      object metadata, precondition mismatch 412.
+    """
+    if len(parts) < 6 or parts[1] != "upload":
+        return 404, {}, {"error": {"code": 404, "message": "no route"}}
+    bucket = parts[4]
+    upload_type = query.get("uploadType", [""])[0]
+    igm_raw = query.get("ifGenerationMatch", [""])[0]
+    igm = int(igm_raw) if igm_raw else None
+
+    def err(e: StorageError):
+        return (e.code or 500), {}, {
+            "error": {"code": e.code or 500, "message": str(e)}
+        }
+
+    if method == "POST" and upload_type == "media":
+        name = query.get("name", [""])[0]
+        if not name:
+            return 400, {}, {"error": {"code": 400, "message": "missing name"}}
+        try:
+            meta = backend.write(name, body, if_generation_match=igm)
+        except StorageError as e:
+            return err(e)
+        return 200, {}, object_meta_dict(meta)
+    if method == "POST" and upload_type == "resumable":
+        name = query.get("name", [""])[0]
+        if not name:
+            return 400, {}, {"error": {"code": 400, "message": "missing name"}}
+        uid = backend.begin_upload(name, if_generation_match=igm)
+        session = (
+            f"http://{host}/upload/storage/v1/b/{bucket}/o"
+            f"?uploadType=resumable&upload_id={uid}"
+        )
+        return 200, {
+            "Location": session, "X-GUploader-UploadID": uid,
+        }, {}
+    if method == "PUT" and upload_type == "resumable":
+        uid = query.get("upload_id", [""])[0]
+        try:
+            start, total = parse_content_range(
+                headers.get("Content-Range", "") or
+                headers.get("content-range", "")
+            )
+        except ValueError as e:
+            return 400, {}, {"error": {"code": 400, "message": str(e)}}
+        try:
+            committed, final = backend.upload_status(uid)
+            if final is not None:
+                # Idempotent replay of a part/finalize whose response was
+                # lost: the object is already committed — answer its meta.
+                return 200, {}, object_meta_dict(final)
+            if body:
+                if start is None:
+                    return 400, {}, {"error": {
+                        "code": 400,
+                        "message": "data part needs an explicit range",
+                    }}
+                if start > committed:
+                    # Client ran ahead of the server's watermark: resync
+                    # via 308 + Range, the resume contract.
+                    return _resume_308(committed)
+                committed = backend.upload_append(uid, start, body)
+            if total is not None and committed == total:
+                meta = backend.finalize_upload(uid, total=total)
+                return 200, {}, object_meta_dict(meta)
+        except StorageError as e:
+            if e.code == 104:
+                return RESET_CONNECTION
+            return err(e)
+        return _resume_308(committed)
+    return 404, {}, {"error": {"code": 404, "message": "no upload route"}}
+
+
+def _resume_308(committed: int):
+    hdrs = {"Range": f"bytes=0-{committed - 1}"} if committed > 0 else {}
+    return 308, hdrs, {}
+
+
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"  # keep-alive (main.go:31-32)
     server_version = "fake-gcs/0.1"
@@ -80,11 +200,14 @@ class _Handler(BaseHTTPRequestHandler):
     def backend(self) -> FakeBackend:
         return self.server.backend  # type: ignore[attr-defined]
 
-    def _send_json(self, code: int, obj: dict) -> None:
+    def _send_json(self, code: int, obj: dict,
+                   extra_headers: Optional[dict] = None) -> None:
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json; charset=UTF-8")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
@@ -154,17 +277,58 @@ class _Handler(BaseHTTPRequestHandler):
                     # Mid-body fault: the headers are on the wire, so a
                     # JSON error would be read as body bytes. Kill the
                     # connection instead (the reset shape).
-                    self.close_connection = True
-                    try:
-                        self.connection.shutdown(socket.SHUT_RDWR)
-                    except OSError:
-                        pass
-                    return
+                    return self._reset()
                 if n <= 0:
                     break
                 self.wfile.write(mv[:n])
         finally:
             reader.close()
+
+    def _reset(self) -> None:
+        self.close_connection = True
+        try:
+            self.connection.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
+    def _upload(self, method: str) -> None:
+        """POST/PUT upload surface: media + resumable sessions, shared
+        with the h2 server's HTTP/1.1 side via handle_upload_request."""
+        parsed = urllib.parse.urlsplit(self.path)
+        query = urllib.parse.parse_qs(parsed.query)
+        if inject_open_fault(self.backend):
+            return self._send_error_json(503, "injected unavailability")
+        n = int(self.headers.get("Content-Length", "0"))
+        data = self.rfile.read(n) if n else b""
+        resp = handle_upload_request(
+            self.backend, method, parsed.path.split("/"), query,
+            self.headers, data, host=self.headers.get("Host", "127.0.0.1"),
+        )
+        if resp == RESET_CONNECTION:
+            # Injected mid-part fault: kill the socket, the shape the
+            # media path takes mid-body.
+            return self._reset()
+        status, extra_headers, body = resp
+        self._send_json(status, body, extra_headers)
+
+    def do_POST(self):  # noqa: N802
+        self._upload("POST")
+
+    def do_PUT(self):  # noqa: N802
+        self._upload("PUT")
+
+    def do_DELETE(self):  # noqa: N802
+        parts = urllib.parse.urlsplit(self.path).path.split("/")
+        name = self._object_name(parts)
+        if not name:
+            return self._send_error_json(404, "no route")
+        try:
+            self.backend.delete(name)
+        except StorageError as e:
+            return self._send_error_json(e.code or 500, str(e))
+        self.send_response(204)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
 
 
 class _Server(ThreadingHTTPServer):

@@ -24,10 +24,15 @@ client on every machine.
 The native client sends ``authorization`` metadata from the token source
 (:mod:`tpubench_torch.storage.auth`; none for a test server's endpoint).
 
+Writes ride the wire stack too: ``write`` is one client-streaming
+WriteObject, ``open_write`` the resumable session (StartResumableWrite →
+BidiWriteObject with lockstep persisted-size acks → QueryWriteStatus
+re-probe), ``delete`` the unary DeleteObject.
+
 Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` item: an
 explicit ``channel=`` and Google endpoints (gRPC library mode, A.2: the
-wire stack is hermetic-only, as in ``tpubench``), and the write side
-(A.6).
+wire stack is hermetic-only, as in ``tpubench``; its ``_LibBidiWriter``
+goes with it).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from tpubench_torch.native.engine import (
     TB_ETOOBIG,
     NativeError,
 )
+from tpubench_torch.obs.flight import annotate
 from tpubench_torch.obs.flight import note_phase as flight_note
 from tpubench_torch.obs.tracing import NoopTracer, SpanCarrier
 from tpubench_torch.storage.base import ObjectMeta, StorageError
@@ -410,6 +416,78 @@ class GcsGrpcBackend:
                 answered=lambda e: getattr(e, "grpc_status", -1) >= 0,
             )
 
+    def _wire_write(self, name: str, data, if_generation_match) -> ObjectMeta:
+        """One-shot WriteObject as a client-streaming wire call."""
+        spec = wp.WriteObjectSpec(
+            resource=wp.Object(name=name, bucket=self._bucket_path),
+            if_generation_match=(
+                int(if_generation_match)
+                if if_generation_match is not None
+                else None
+            ),
+        )
+        mv = memoryview(data) if not isinstance(data, memoryview) else data
+        call = self._wire_chan().bidi(f"{_SVC}/WriteObject")
+        try:
+            if not len(mv):
+                call.send_message(
+                    wp.WriteObjectRequest(
+                        write_object_spec=spec, finish_write=True
+                    ).encode(),
+                    end=True,
+                )
+            else:
+                off = 0
+                first = True
+                while off < len(mv):
+                    chunk = mv[off : off + MAX_READ_CHUNK]
+                    last = off + len(chunk) >= len(mv)
+                    content = bytes(chunk)
+                    call.send_message(
+                        wp.WriteObjectRequest(
+                            write_object_spec=spec if first else None,
+                            write_offset=off,
+                            checksummed_data=wp.ChecksummedData(
+                                content=content,
+                                crc32c=wp.crc32c_of(content),
+                            ),
+                            finish_write=last,
+                        ).encode(),
+                        end=last,
+                    )
+                    first = False
+                    off += len(chunk)
+            raw = call.recv_message()
+            if raw is None:
+                raise StorageError(
+                    f"WriteObject {name}: no response message", transient=True
+                )
+            resp = wp.WriteObjectResponse.decode(raw)
+            while call.recv_message() is not None:
+                pass
+        except BaseException:
+            call.cancel()
+            raise
+        finally:
+            call.close()
+        res = resp.resource
+        size = res.size if res is not None else resp.persisted_size
+        with self._stat_cache_lock:
+            self._stat_cache[name] = size
+        return ObjectMeta(res.name if res is not None else name, size)
+
+    def write(self, name: str, data: bytes,
+              if_generation_match=None) -> ObjectMeta:
+        return self._wire_write(name, data, if_generation_match)
+
+    def open_write(self, name: str, if_generation_match=None):
+        """Resumable session: StartResumableWrite → BidiWriteObject
+        chunks with lockstep persisted-size acks → QueryWriteStatus
+        re-probe on break → idempotent finalize (412 non-transient).
+        The RetryingBackend wraps this in ``_ResumingWriter``, which
+        drives the re-probe + tail-resend choreography."""
+        return _WireBidiWriter(self, name, if_generation_match)
+
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         wreq = wp.ListObjectsRequest(
             parent=self._bucket_path, prefix=prefix, page_size=max(0, page_size),
@@ -429,8 +507,155 @@ class GcsGrpcBackend:
             self._stat_cache[name] = o.size
         return ObjectMeta(o.name, o.size, o.generation)
 
+    def delete(self, name: str) -> None:
+        self._wire_unary(
+            f"{_SVC}/DeleteObject",
+            wp.DeleteObjectRequest(bucket=self._bucket_path, object=name),
+        )
+        with self._stat_cache_lock:
+            self._stat_cache.pop(name, None)
+
     def close(self) -> None:
         for ch in self._channels:
             ch.close()
         if self._native_pool_obj is not None:
             self._native_pool_obj.close()  # also drains its BufferPool
+
+
+class _WireBidiWriter:
+    """Wire-mode resumable gRPC write (the ObjectWriter contract).
+
+    StartResumableWrite issues the session; each ``write`` chunk rides
+    a BidiWriteObject message with ``flush`` + ``state_lookup`` set and
+    waits for the persisted-size ack in lockstep — ``offset`` is always
+    the server's committed watermark, never an optimistic local count.
+    A transient break tears the stream down and re-raises; the
+    ``_ResumingWriter`` above re-probes ``committed()`` (QueryWriteStatus)
+    and resends the tail on a fresh stream (first message re-carries the
+    upload id). ``finalize`` sends ``finish_write`` and half-closes; a
+    412 precondition verdict arrives non-transient."""
+
+    def __init__(self, backend: GcsGrpcBackend, name: str,
+                 if_generation_match=None):
+        self._b = backend
+        self.name = name
+        spec = wp.WriteObjectSpec(
+            resource=wp.Object(name=name, bucket=backend._bucket_path),
+            if_generation_match=(
+                int(if_generation_match)
+                if if_generation_match is not None
+                else None
+            ),
+        )
+        raw = backend._wire_unary(
+            f"{_SVC}/StartResumableWrite",
+            wp.StartResumableWriteRequest(write_object_spec=spec),
+        )
+        self._uid = wp.StartResumableWriteResponse.decode(raw).upload_id
+        self.offset = 0
+        self._call = None
+        self._fresh = True
+        self._final: Optional[ObjectMeta] = None
+
+    # ----------------------------------------------------------- stream --
+    def _send(self, msg: "wp.BidiWriteObjectRequest", end: bool = False):
+        if self._call is None:
+            self._call = self._b._wire_chan().bidi(f"{_SVC}/BidiWriteObject")
+            self._fresh = True
+        if self._fresh:
+            # The upload id rides only the FIRST message of each stream
+            # (the storage-v2 first_message contract).
+            msg.upload_id = self._uid
+            self._fresh = False
+        self._call.send_message(msg.encode(), end=end)
+        return self._call
+
+    def _break_stream(self) -> None:
+        call, self._call = self._call, None
+        if call is not None:
+            call.cancel()
+
+    # --------------------------------------------------------- contract --
+    def write(self, data) -> int:
+        mv = memoryview(data) if not isinstance(data, memoryview) else data
+        off = 0
+        try:
+            while off < len(mv):
+                chunk = mv[off : off + MAX_READ_CHUNK]
+                content = bytes(chunk)
+                call = self._send(
+                    wp.BidiWriteObjectRequest(
+                        write_offset=self.offset,
+                        checksummed_data=wp.ChecksummedData(
+                            content=content, crc32c=wp.crc32c_of(content)
+                        ),
+                        flush=True,
+                        state_lookup=True,
+                    )
+                )
+                raw = call.recv_message()
+                if raw is None:
+                    raise StorageError(
+                        f"BidiWriteObject {self.name}: stream closed "
+                        "before persisted-size ack",
+                        transient=True,
+                    )
+                ack = wp.BidiWriteObjectResponse.decode(raw)
+                annotate(
+                    "bidi_ack", persisted=ack.persisted_size, object=self.name
+                )
+                self.offset = ack.persisted_size
+                off += len(chunk)
+        except StorageError:
+            self._break_stream()
+            raise
+        return self.offset
+
+    def committed(self) -> int:
+        raw = self._b._wire_unary(
+            f"{_SVC}/QueryWriteStatus",
+            wp.QueryWriteStatusRequest(upload_id=self._uid),
+        )
+        resp = wp.QueryWriteStatusResponse.decode(raw)
+        self.offset = resp.persisted_size
+        return self.offset
+
+    def finalize(self) -> ObjectMeta:
+        if self._final is not None:
+            return self._final
+        try:
+            call = self._send(
+                wp.BidiWriteObjectRequest(
+                    write_offset=self.offset, finish_write=True
+                ),
+                end=True,
+            )
+            raw = call.recv_message()
+            if raw is None:
+                raise StorageError(
+                    f"BidiWriteObject {self.name}: no finalize response",
+                    transient=True,
+                )
+            resp = wp.BidiWriteObjectResponse.decode(raw)
+            while call.recv_message() is not None:
+                pass
+            call.close()
+            self._call = None
+        except StorageError:
+            self._break_stream()
+            raise
+        res = resp.resource
+        if res is not None:
+            meta = ObjectMeta(res.name or self.name, res.size, res.generation)
+        else:
+            meta = ObjectMeta(self.name, resp.persisted_size)
+        with self._b._stat_cache_lock:
+            self._b._stat_cache[meta.name] = meta.size
+        self._final = meta
+        return meta
+
+    def abort(self) -> None:
+        try:
+            self._break_stream()
+        except Exception:
+            pass

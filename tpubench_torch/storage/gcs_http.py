@@ -1,4 +1,4 @@
-"""GCS JSON-API backend over pooled HTTP/1.1 connections — the read side of
+"""GCS JSON-API backend over pooled HTTP/1.1 connections — a copy of
 ``tpubench/storage/gcs_http.py``.
 
 Reference parity (``CreateHttpClient``, main.go:62-104):
@@ -29,8 +29,10 @@ Reference parity (``CreateHttpClient``, main.go:62-104):
   Google's endpoint; an endpoint that is not Google's is anonymous, as in
   ``tpubench``.
 
-Still refused, with ``NotImplementedError`` naming the ``ROADMAP.md``
-item: the write side (``write``/``open_write``/``delete``, A.6).
+* **Writes** — ``write`` is the one-shot media upload, ``open_write`` the
+  resumable session (:class:`_ResumableHttpWriter`), ``delete`` the
+  object DELETE. All three ride the HTTP/1.1 pool, under ``http2`` too
+  (the native h2 client is GET-only), and drop the h2 stat cache's entry.
 """
 
 from __future__ import annotations
@@ -306,6 +308,155 @@ class _NativeBufReader:
             self._buf = None
 
 
+def _body(data):
+    """A request body without a copy: ``http.client`` sends any
+    bytes-like object and sizes it by ``memoryview(body).nbytes``."""
+    mv = memoryview(data)
+    return mv if mv.ndim == 1 and mv.itemsize == 1 else mv.cast("B")
+
+
+def _committed_from_range(range_hdr: Optional[str]) -> int:
+    """``Range: bytes=0-N`` on a 308 → N+1 committed bytes; absent = 0
+    (nothing persisted yet — the empty-session probe's answer)."""
+    if not range_hdr or not range_hdr.startswith("bytes=0-"):
+        return 0
+    try:
+        return int(range_hdr[len("bytes=0-"):]) + 1
+    except ValueError:
+        return 0
+
+
+class _ResumableHttpWriter:
+    """One resumable-upload session over the JSON API (``uploadType=
+    resumable``): POST opens the session (the URL rides ``Location``),
+    parts PUT with ``Content-Range: bytes a-b/*`` and are acknowledged
+    with **308 + the committed ``Range``**, ``committed()`` is the
+    ``bytes */*`` resume probe, ``finalize()`` the ``bytes */total``
+    completion. Raises classified :class:`StorageError`s and nothing
+    more — resume/retry composes above (RetryingBackend's writer), the
+    module contract the read path already follows."""
+
+    def __init__(self, backend: "GcsHttpBackend", name: str,
+                 if_generation_match: Optional[int]):
+        self._b = backend
+        self.name = name
+        path = (
+            f"/upload/storage/v1/b/"
+            f"{urllib.parse.quote(backend.bucket, safe='')}/o"
+            f"?uploadType=resumable&name={urllib.parse.quote(name, safe='')}"
+        )
+        if if_generation_match is not None:
+            path += f"&ifGenerationMatch={if_generation_match}"
+        conn, resp = backend._checked(
+            "POST", path,
+            headers={"Content-Type": "application/octet-stream"},
+            ok=(200, 201),
+        )
+        try:
+            loc = resp.headers.get("Location", "")
+            resp.read()
+        finally:
+            backend._pool.release(conn, reusable=True)
+        if not loc:
+            raise StorageError(
+                f"resumable open {name}: server sent no session Location",
+                transient=False,
+            )
+        u = urllib.parse.urlsplit(loc)
+        self._session = u.path + (f"?{u.query}" if u.query else "")
+        self.offset = 0
+        self._final: Optional[ObjectMeta] = None
+
+    def _put(self, content_range: str, body=b"", ok=(200, 201, 308)):
+        conn, resp = self._b._request(
+            "PUT", self._session,
+            {"Content-Range": content_range,
+             "Content-Type": "application/octet-stream"},
+            body,
+        )
+        status = resp.status
+        try:
+            payload = resp.read()
+        except (http.client.HTTPException, OSError) as e:
+            self._b._pool.release(conn, reusable=False)
+            raise StorageError(
+                f"upload {self.name}: response died: {e}", transient=True
+            ) from e
+        self._b._pool.release(conn, reusable=True)
+        if status not in ok:
+            raise StorageError(
+                f"upload {self.name} -> {status}: "
+                f"{payload[:200].decode('utf-8', 'replace')}",
+                transient=status in _TRANSIENT,
+                code=status,
+            )
+        return status, resp.headers, payload
+
+    def _finish(self, payload: bytes) -> ObjectMeta:
+        # A finalized session changed the object's size, as a media
+        # write does: drop the h2 stat cache's entry.
+        with self._b._h2_pool_lock:
+            self._b._h2_stat_cache.pop(self.name, None)
+        meta = json.loads(payload)
+        self._final = ObjectMeta(
+            meta["name"], int(meta["size"]), int(meta.get("generation", 0))
+        )
+        self.offset = self._final.size
+        return self._final
+
+    def write(self, data) -> int:
+        n = len(data)
+        if n == 0:
+            return self.offset
+        start = self.offset
+        status, headers, payload = self._put(
+            f"bytes {start}-{start + n - 1}/*", _body(data)
+        )
+        if status != 308:
+            # Server finalized (an idempotent replay against a completed
+            # session answers the object meta).
+            self._finish(payload)
+            return self.offset
+        committed = _committed_from_range(headers.get("Range"))
+        self.offset = committed
+        if committed < start + n:
+            # The server persisted a prefix: transient — the resuming
+            # layer re-probes and resends the tail.
+            raise StorageError(
+                f"upload {self.name}: committed {committed} < sent "
+                f"{start + n}", transient=True,
+            )
+        return committed
+
+    def committed(self) -> int:
+        if self._final is not None:
+            return self.offset
+        status, headers, payload = self._put("bytes */*")
+        if status != 308:
+            self._finish(payload)
+        else:
+            self.offset = _committed_from_range(headers.get("Range"))
+        return self.offset
+
+    def finalize(self) -> ObjectMeta:
+        if self._final is not None:
+            return self._final
+        _status, _headers, payload = self._put(
+            f"bytes */{self.offset}", ok=(200, 201)
+        )
+        return self._finish(payload)
+
+    def abort(self) -> None:
+        try:
+            conn, resp = self._b._request("DELETE", self._session)
+            try:
+                resp.read()
+            finally:
+                self._b._pool.release(conn, reusable=True)
+        except Exception:  # noqa: BLE001 — best-effort by contract
+            pass
+
+
 class GcsHttpBackend:
     """Thread-safe JSON-API client; one instance shared by all workers
     (the reference shares one ``*storage.Client``, main.go:200-203)."""
@@ -390,7 +541,8 @@ class GcsHttpBackend:
             h["Authorization"] = f"Bearer {tok}"
         return h
 
-    def _request(self, method: str, path: str, headers: Optional[dict] = None):
+    def _request(self, method: str, path: str, headers: Optional[dict] = None,
+                 body=b""):
         """One attempt: acquire a connection, send, return (conn, resp).
         The caller releases the connection."""
         conn = self._pool.acquire()
@@ -398,14 +550,15 @@ class GcsHttpBackend:
             h = self._headers()
             if headers:
                 h.update(headers)
-            conn.request(method, path, headers=h)
+            conn.request(method, path, body=body or None, headers=h)
             return conn, conn.getresponse()
         except (http.client.HTTPException, OSError) as e:
             self._pool.release(conn, reusable=False)
             raise StorageError(f"{method} {path}: {e}", transient=True) from e
 
-    def _checked(self, method: str, path: str, headers=None, ok=(200, 206)):
-        conn, resp = self._request(method, path, headers)
+    def _checked(self, method: str, path: str, headers=None, body=b"",
+                 ok=(200, 206)):
+        conn, resp = self._request(method, path, headers, body)
         if resp.status in ok:
             return conn, resp
         try:
@@ -819,6 +972,41 @@ class GcsHttpBackend:
                 pool, n, done, errs, submit, classify, name
             )
 
+    def write(self, name: str, data: bytes,
+              if_generation_match: Optional[int] = None) -> ObjectMeta:
+        with self._h2_pool_lock:
+            self._h2_stat_cache.pop(name, None)  # size changes on write
+        path = (
+            f"/upload/storage/v1/b/{urllib.parse.quote(self.bucket, safe='')}/o"
+            f"?uploadType=media&name={urllib.parse.quote(name, safe='')}"
+        )
+        if if_generation_match is not None:
+            path += f"&ifGenerationMatch={if_generation_match}"
+        conn, resp = self._checked(
+            "POST",
+            path,
+            headers={"Content-Type": "application/octet-stream"},
+            body=_body(data),
+        )
+        try:
+            meta = json.loads(resp.read())
+        finally:
+            self._pool.release(conn, reusable=True)
+        return ObjectMeta(
+            meta["name"], int(meta["size"]), int(meta.get("generation", 0))
+        )
+
+    def open_write(self, name: str,
+                   if_generation_match: Optional[int] = None):
+        """Resumable multi-part upload session (the GCS
+        ``uploadType=resumable`` protocol): POST opens the session, each
+        part PUTs with ``Content-Range: bytes a-b/*`` and a 308-with-
+        ``Range`` acknowledgement, ``finalize`` PUTs the ``bytes */total``
+        completion form. Part-level retry/resume is NOT here — the
+        uniform equivalent is :class:`RetryingBackend.open_write`'s
+        resuming wrapper (the read path's resume discipline, mirrored)."""
+        return _ResumableHttpWriter(self, name, if_generation_match)
+
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         """Full listing under ``prefix``, following ``nextPageToken``;
         ``page_size`` > 0 rides as ``maxResults``."""
@@ -848,6 +1036,15 @@ class GcsHttpBackend:
         return ObjectMeta(
             meta["name"], int(meta["size"]), int(meta.get("generation", 0))
         )
+
+    def delete(self, name: str) -> None:
+        with self._h2_pool_lock:
+            self._h2_stat_cache.pop(name, None)
+        conn, resp = self._checked("DELETE", self._opath(name), ok=(200, 204))
+        try:
+            resp.read()
+        finally:
+            self._pool.release(conn, reusable=True)
 
     def close(self) -> None:
         self._pool.close()

@@ -1,7 +1,6 @@
 """gRPC-over-HTTP/2 client connection — no grpcio, no h2 package. A copy
-of ``tpubench/storage/grpc_wire/client.py`` (unary and server-streaming
-calls; the bidi write stream comes with the write side, ``ROADMAP.md``
-A.6).
+of ``tpubench/storage/grpc_wire/client.py`` (unary, server-streaming and
+bidi calls).
 
 Speaks exactly the frame subset the RPC shapes need: client preface +
 SETTINGS, HEADERS with literal-never-indexed HPACK (the same encoding
@@ -238,6 +237,16 @@ class WireCall:
             self._conn.broken = True
             raise _transient(f"{self.method}: send failed: {e}") from e
         annotate("grpc_frame", dir="send", bytes=len(msg))
+
+    def half_close(self) -> None:
+        """END_STREAM with an empty DATA frame (no trailing message)."""
+        try:
+            self._conn.send_frame(
+                _DATA, _FLAG_END_STREAM, self.stream_id, b""
+            )
+        except OSError as e:
+            self._conn.broken = True
+            raise _transient(f"{self.method}: half-close failed: {e}") from e
 
     # -------------------------------------------------------------- recv --
     def recv_message(self) -> Optional[bytes]:
@@ -477,6 +486,10 @@ class GrpcWireChannel:
             call.cancel()
             raise
         return call
+
+    def bidi(self, method: str) -> WireCall:
+        """Open a bidi stream; caller interleaves send/recv."""
+        return self.start_call(method)
 
     def close(self) -> None:
         with self._lock:

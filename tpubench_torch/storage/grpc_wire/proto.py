@@ -1,6 +1,6 @@
 """Hand-rolled protobuf wire codec for the storage-v2 messages — a copy of
-``tpubench/storage/grpc_wire/proto.py`` holding the read side's messages
-(the write messages come with the write side, ``ROADMAP.md`` A.6).
+``tpubench/storage/grpc_wire/proto.py``: the read and the write
+messages.
 
 Proto3 wire format, the slice tpubench needs (no dependency on
 ``protobuf``): varints, length-delimited fields, fixed32 — declared per
@@ -234,6 +234,12 @@ class ChecksummedData(Msg):
     }
 
 
+class ObjectChecksums(Msg):
+    FIELDS = {
+        1: ("crc32c", "fixed32"),
+    }
+
+
 class ReadObjectRequest(Msg):
     FIELDS = {
         1: ("bucket", "str"),
@@ -272,6 +278,85 @@ class ListObjectsResponse(Msg):
     FIELDS = {
         1: ("objects", ("rep", Object)),
         3: ("next_page_token", "str"),
+    }
+
+
+class DeleteObjectRequest(Msg):
+    FIELDS = {
+        1: ("bucket", "str"),
+        2: ("object", "str"),
+    }
+
+
+class WriteObjectSpec(Msg):
+    # if_generation_match has EXPLICIT presence in the real proto
+    # (optional int64): 0 means "must not exist" and must hit the wire.
+    FIELDS = {
+        1: ("resource", ("msg", Object)),
+        3: ("if_generation_match", "ovarint"),
+    }
+
+
+class WriteObjectRequest(Msg):
+    FIELDS = {
+        1: ("upload_id", "str"),
+        2: ("write_object_spec", ("msg", WriteObjectSpec)),
+        3: ("write_offset", "varint"),
+        4: ("checksummed_data", ("msg", ChecksummedData)),
+        6: ("object_checksums", ("msg", ObjectChecksums)),
+        7: ("finish_write", "bool"),
+    }
+
+
+class WriteObjectResponse(Msg):
+    FIELDS = {
+        1: ("persisted_size", "varint"),
+        2: ("resource", ("msg", Object)),
+    }
+
+
+class StartResumableWriteRequest(Msg):
+    FIELDS = {
+        1: ("write_object_spec", ("msg", WriteObjectSpec)),
+    }
+
+
+class StartResumableWriteResponse(Msg):
+    FIELDS = {
+        1: ("upload_id", "str"),
+    }
+
+
+class QueryWriteStatusRequest(Msg):
+    FIELDS = {
+        1: ("upload_id", "str"),
+    }
+
+
+class QueryWriteStatusResponse(Msg):
+    FIELDS = {
+        1: ("persisted_size", "varint"),
+        2: ("resource", ("msg", Object)),
+    }
+
+
+class BidiWriteObjectRequest(Msg):
+    FIELDS = {
+        1: ("upload_id", "str"),
+        2: ("write_object_spec", ("msg", WriteObjectSpec)),
+        3: ("write_offset", "varint"),
+        4: ("checksummed_data", ("msg", ChecksummedData)),
+        6: ("object_checksums", ("msg", ObjectChecksums)),
+        7: ("state_lookup", "bool"),
+        8: ("flush", "bool"),
+        9: ("finish_write", "bool"),
+    }
+
+
+class BidiWriteObjectResponse(Msg):
+    FIELDS = {
+        1: ("persisted_size", "varint"),
+        2: ("resource", ("msg", Object)),
     }
 
 

@@ -1,10 +1,10 @@
 """Local/FUSE filesystem backend (reference ``benchmark-script/`` L0
-path) — the read side of ``tpubench/storage/local_fs.py``.
+path) — a copy of ``tpubench/storage/local_fs.py``.
 
 Objects are relative file paths under a directory root, read with
 ``pread`` straight into the caller's buffer (a granule buffer or a staging
-slot). The write side (``_FsWriter``, ``write``/``open_write``/``delete``)
-comes with the write workloads (``ROADMAP.md`` A.6).
+slot). Writes are one-shot (``write``) or resumable (``open_write``: parts
+append to a hidden ``.part`` sibling, renamed into place at finalize).
 """
 
 from __future__ import annotations
@@ -44,6 +44,81 @@ class _FileReader:
             self._fd = -1
 
 
+class _FsWriter:
+    """ObjectWriter over a hidden ``.part`` staging file (see
+    LocalFsBackend.open_write). ``offset`` tracks the fsynced size —
+    the durable committed watermark a crashed-and-resumed session can
+    re-probe with ``committed()``."""
+
+    def __init__(self, backend: "LocalFsBackend", name: str,
+                 if_generation_match):
+        self._backend = backend
+        self.name = name
+        self._igm = if_generation_match
+        self._final_path = backend._path(name)
+        self._part_path = self._final_path + ".part"
+        os.makedirs(os.path.dirname(self._part_path), exist_ok=True)
+        # Resume an interrupted session when a part file already exists
+        # (the FS twin of re-probing a live session URL).
+        self.offset = (
+            os.path.getsize(self._part_path)
+            if os.path.exists(self._part_path) else 0
+        )
+        self._done = False
+
+    def write(self, data) -> int:
+        if self._done:
+            raise StorageError(
+                f"writer for {self.name!r} already finalized",
+                transient=False, code=400,
+            )
+        payload = memoryview(data).cast("B")
+        try:
+            fd = os.open(self._part_path, os.O_WRONLY | os.O_CREAT)
+            try:
+                os.lseek(fd, self.offset, os.SEEK_SET)
+                written = 0
+                while written < len(payload):
+                    # os.write may write SHORT (near-full fs, signals);
+                    # an unchecked return would advance the watermark
+                    # past bytes that never landed.
+                    n = os.write(fd, payload[written:])
+                    if n <= 0:
+                        raise OSError("zero-byte write")
+                    written += n
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        except OSError as e:
+            raise StorageError(f"part write failed: {e}", transient=False) from e
+        self.offset += len(payload)
+        return self.offset
+
+    def committed(self) -> int:
+        self.offset = (
+            os.path.getsize(self._part_path)
+            if os.path.exists(self._part_path) else self.offset
+        )
+        return self.offset
+
+    def finalize(self) -> ObjectMeta:
+        if self._done:
+            return ObjectMeta(self.name, self.offset, 1)
+        self._backend._check_generation(self.name, self._igm)
+        try:
+            os.replace(self._part_path, self._final_path)
+        except OSError as e:
+            raise StorageError(f"finalize failed: {e}", transient=False) from e
+        self._done = True
+        return ObjectMeta(self.name, self.offset, 1)
+
+    def abort(self) -> None:
+        try:
+            os.remove(self._part_path)
+        except OSError:
+            pass
+
+
 class LocalFsBackend:
     def __init__(self, root: str):
         if not root:
@@ -69,6 +144,40 @@ class LocalFsBackend:
         end = size if length is None else min(start + length, size)
         return _FileReader(fd, start, max(0, end - start))
 
+    def _check_generation(self, name: str, want) -> None:
+        """FS generation model (the one a filesystem can honestly offer):
+        an existing file is generation 1, an absent one 0 — so
+        ``if_generation_match=0`` is the create-only precondition and 1
+        the overwrite-only one. Mismatch is the same non-transient 412
+        the object stores raise."""
+        if want is None:
+            return
+        current = 1 if os.path.exists(self._path(name)) else 0
+        if current != want:
+            raise StorageError(
+                f"if_generation_match={want} does not match FS state "
+                f"{current} of {name!r}", transient=False, code=412,
+            )
+
+    def write(self, name: str, data: bytes,
+              if_generation_match=None) -> ObjectMeta:
+        self._check_generation(name, if_generation_match)
+        path = self._path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        return ObjectMeta(name, len(data), 1)
+
+    def open_write(self, name: str, if_generation_match=None):
+        """Resumable session, FS edition: parts append to a hidden
+        ``.part`` sibling (committed offset = its size, durable via
+        fsync per part — the write_operations fsync discipline), finalize
+        fsyncs and atomically renames into place. The precondition is
+        checked at finalize, commit-time like the object stores."""
+        return _FsWriter(self, name, if_generation_match)
+
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         # page_size is a wire concept; a directory walk has no pages.
         out = []
@@ -86,6 +195,12 @@ class LocalFsBackend:
         path = self._path(name)
         try:
             return ObjectMeta(name, os.path.getsize(path), 1)
+        except FileNotFoundError:
+            raise StorageError(f"object not found: {name}", transient=False, code=404)
+
+    def delete(self, name: str) -> None:
+        try:
+            os.remove(self._path(name))
         except FileNotFoundError:
             raise StorageError(f"object not found: {name}", transient=False, code=404)
 

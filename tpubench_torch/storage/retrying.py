@@ -1,4 +1,4 @@
-"""Client-level retry decorator for any backend — the read side of
+"""Client-level retry decorator for any backend — a copy of
 ``tpubench/storage/retrying.py``.
 
 The reference attaches retry at the *client* (``client.SetRetry``,
@@ -20,8 +20,8 @@ stream with sporadic-but-recovering transient faults never exhausts
 does. ``rng``/``sleep``/``clock`` are injectable so tests run
 deterministically without real sleeps.
 
-The write side (``_ResumingWriter``, ``write``/``open_write``/``delete``)
-comes with the write workloads (``ROADMAP.md`` A.6).
+Writes ride the same policy through ``_ResumingWriter``: a transient
+mid-part failure re-probes the committed offset and resends only the tail.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import Callable, Optional
 
 from tpubench_torch.config import RetryConfig
 from tpubench_torch.obs.flight import annotate as _flight_annotate
-from tpubench_torch.storage.base import ObjectMeta, StorageBackend
+from tpubench_torch.storage.base import ObjectMeta, StorageBackend, StorageError
 from tpubench_torch.storage.retry import Backoff, _is_retryable, retry_call
 
 
@@ -133,8 +133,130 @@ class _ResumingReader:
         self._inner.close()
 
 
+class _ResumingWriter:
+    """The write-path twin of :class:`_ResumingReader`: a resumable
+    upload whose part sends ride the gax policy. A transient mid-part
+    failure re-probes the server's committed offset (the 308-with-Range
+    resume query) and resends only the tail; the consecutive-failure
+    budget resets whenever committed bytes ADVANCE, so a long upload
+    with sporadic-but-recovering faults never exhausts ``max_attempts``
+    — only a fault the resume cannot make progress past does.
+    ``resumed_parts`` counts parts that needed at least one resume (the
+    ckpt-save scorecard's resumed-part count)."""
+
+    def __init__(
+        self,
+        backend: StorageBackend,
+        name: str,
+        if_generation_match,
+        retry: RetryConfig,
+        *,
+        rng: Optional[random.Random] = None,
+        sleep: Callable[[float], None] = time.sleep,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        # ``retry`` arrives already pinned to transient-only
+        # classification by RetryingBackend._write_retry (the one
+        # definition of the write-path policy pin).
+        self._retry = retry
+        self._rng = rng
+        self._sleep = sleep
+        self._clock = clock
+        self._inner = retry_call(
+            lambda: backend.open_write(
+                name, if_generation_match=if_generation_match
+            ),
+            retry, sleep=sleep, clock=clock, rng=rng,
+        )
+        self.name = name
+        self.resumed_parts = 0
+
+    @property
+    def offset(self) -> int:
+        return self._inner.offset
+
+    def write(self, data) -> int:
+        mv = memoryview(data)
+        if mv.ndim != 1 or mv.itemsize != 1:
+            mv = mv.cast("B")
+        base = self._inner.offset
+        end = base + len(mv)
+        attempts = 0
+        backoff: Optional[Backoff] = None
+        window_start: Optional[float] = None
+        best = base  # highest committed offset observed (progress marker)
+        resumed = False
+        while True:
+            try:
+                off = self._inner.offset
+                if off < base:
+                    # The server's watermark regressed past this part's
+                    # start: the missing bytes belong to an EARLIER part
+                    # this call no longer holds — unrecoverable here.
+                    raise StorageError(
+                        f"upload {self.name}: committed {off} regressed "
+                        f"past part start {base}", transient=False,
+                    )
+                if off < end:
+                    self._inner.write(mv[off - base:])
+                if resumed:
+                    self.resumed_parts += 1
+                return self._inner.offset
+            except BaseException as exc:  # noqa: BLE001 — classified below
+                attempts += 1
+                if not _is_retryable(exc, self._retry.policy):
+                    raise
+                if self._retry.max_attempts and (
+                    attempts >= self._retry.max_attempts
+                ):
+                    raise
+                if backoff is None:
+                    backoff = Backoff(self._retry, rng=self._rng)
+                    window_start = self._clock()
+                pause = backoff.pause()
+                if self._retry.deadline_s and (
+                    self._clock() - window_start
+                ) + pause > self._retry.deadline_s:
+                    raise
+                _flight_annotate(
+                    "retry", attempt=attempts, reason="upload_resume",
+                    error=type(exc).__name__, backoff_s=round(pause, 6),
+                )
+                self._sleep(pause)
+                resumed = True
+                try:
+                    committed = self._inner.committed()
+                except Exception:  # noqa: BLE001 — probe failure: the
+                    committed = None  # next loop iteration burns budget
+                if committed is not None and committed > best:
+                    # Bytes landed since the last look: the fault
+                    # recovered, so the NEXT one gets the full allowance.
+                    best = committed
+                    attempts = 0
+                    backoff = None
+                    window_start = None
+
+    def committed(self) -> int:
+        return retry_call(
+            self._inner.committed, self._retry,
+            sleep=self._sleep, clock=self._clock, rng=self._rng,
+        )
+
+    def finalize(self) -> ObjectMeta:
+        # Safe under retry: every backend's finalize is idempotent by
+        # contract (a completed session replays its stored meta), and a
+        # 412 precondition mismatch is non-transient — never retried.
+        return retry_call(
+            self._inner.finalize, self._retry,
+            sleep=self._sleep, clock=self._clock, rng=self._rng,
+        )
+
+    def abort(self) -> None:
+        self._inner.abort()
+
+
 class RetryingBackend:
-    """Wraps any read backend with the reference's client-level retry.
+    """Wraps any backend with the reference's client-level retry.
 
     ``rng``/``sleep``/``clock`` flow through to every retry loop (open
     retries and mid-stream resumes) for deterministic tests. ``inner`` is
@@ -161,9 +283,39 @@ class RetryingBackend:
             fn, self.retry, sleep=self._sleep, clock=self._clock, rng=self._rng
         )
 
+    def _write_retry(self) -> RetryConfig:
+        """The ONE write-path policy pin (write + open_write): the
+        reference's RetryAlways (main.go:182) is its READ policy — "any
+        storage failure retries" is safe when the remedy is re-reading.
+        On the write path a non-transient 412 precondition mismatch (or
+        a 400 offset bug) reproduces on every replay, so retrying it
+        forever would turn the idempotency anchor into a livelock —
+        transient-only classification is the only correct behavior."""
+        if self.retry.policy != "always":
+            return self.retry
+        import dataclasses
+
+        return dataclasses.replace(self.retry, policy="idempotent")
+
     def open_read(self, name: str, start: int = 0, length: Optional[int] = None):
         return _ResumingReader(
             self.inner, name, start, length, self.retry,
+            rng=self._rng, sleep=self._sleep, clock=self._clock,
+        )
+
+    def write(self, name: str, data: bytes,
+              if_generation_match=None) -> ObjectMeta:
+        return retry_call(
+            lambda: self.inner.write(
+                name, data, if_generation_match=if_generation_match
+            ),
+            self._write_retry(),
+            sleep=self._sleep, clock=self._clock, rng=self._rng,
+        )
+
+    def open_write(self, name: str, if_generation_match=None):
+        return _ResumingWriter(
+            self.inner, name, if_generation_match, self._write_retry(),
             rng=self._rng, sleep=self._sleep, clock=self._clock,
         )
 
@@ -172,6 +324,9 @@ class RetryingBackend:
 
     def stat(self, name: str) -> ObjectMeta:
         return self._call(lambda: self.inner.stat(name))
+
+    def delete(self, name: str) -> None:
+        return self._call(lambda: self.inner.delete(name))
 
     def close(self) -> None:
         self.inner.close()

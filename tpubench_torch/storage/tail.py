@@ -1,5 +1,5 @@
 """Tail-tolerance layer: stall watchdog, hedged reads, circuit breaker
-(a copy of ``tpubench/storage/tail.py``, read side).
+(a copy of ``tpubench/storage/tail.py``; writes pass straight through).
 
 The paper's north star makes the POD the unit under test, so one silently
 slow stream sets the p99 for every chip. The reference can only
@@ -76,17 +76,32 @@ class CircuitOpenError(StorageError):
 class _WrapperBackend:
     """Delegating base for the tail wrappers: everything but open_read
     passes straight through; ``inner`` is public so stats collectors and
-    diagnostics can walk the chain. Read side only, as every backend of
-    the port (the write side comes with ``ROADMAP.md`` A.6)."""
+    diagnostics can walk the chain."""
 
     def __init__(self, inner: StorageBackend):
         self.inner = inner
+
+    def write(self, name: str, data: bytes, if_generation_match=None):
+        return self.inner.write(
+            name, data, if_generation_match=if_generation_match
+        )
+
+    def open_write(self, name: str, if_generation_match=None):
+        # The tail layers shape READS (hedge/watchdog race byte streams);
+        # the write path passes through and composes with the retry
+        # decorator's resuming writer above this stack.
+        return self.inner.open_write(
+            name, if_generation_match=if_generation_match
+        )
 
     def list(self, prefix: str = "", page_size: int = 0):
         return self.inner.list(prefix, page_size=page_size)
 
     def stat(self, name: str):
         return self.inner.stat(name)
+
+    def delete(self, name: str) -> None:
+        return self.inner.delete(name)
 
     def close(self) -> None:
         self.inner.close()

@@ -1,11 +1,15 @@
-"""Hermetic servers for tuning sessions (``tpubench/workloads/chaos.py``).
+"""Hermetic servers (``tpubench/workloads/chaos.py``).
 
-Only :func:`spawn_hermetic_server` is ported so far: ``tune --protocol
-http`` (or ``grpc``) with no endpoint runs against it. The ``chaos``
-entry point itself comes with ``ROADMAP.md`` A.6.
+Ported so far: :func:`spawn_hermetic_server` (``tune --protocol http`` or
+``grpc`` with no endpoint runs against it) and :func:`hermetic_target`,
+the guard ``ckpt-save``/``ckpt-restore`` run under. The ``chaos`` entry
+point itself comes with ``ROADMAP.md`` A.6.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 from tpubench_torch.config import BenchConfig
 
@@ -52,3 +56,34 @@ def spawn_hermetic_server(cfg: BenchConfig, fault_plan=None, store=None):
 
         get_engine()
     return server
+
+
+@contextlib.contextmanager
+def hermetic_target(cfg: BenchConfig):
+    """Hermetic-target guard for the lifecycle CLI paths: under
+    ``--protocol http``/``--protocol grpc`` with no endpoint, spawn the
+    matching in-process fake server (carrying ``transport.fault`` when
+    active, so upload faults are injected ON THE WIRE) and restore the
+    touched transport fields on exit. Yields the server, or ``None`` when
+    the run already has a target (an explicit endpoint, or a protocol like
+    ``fake``/``local`` that needs no server).
+
+    The server's store starts empty: ``tpubench``'s is prepopulated with
+    the read workload's objects (``workers`` × ``object_size``, 4.8 GB
+    at the defaults), which no lifecycle command reads."""
+    t = cfg.transport
+    if t.protocol not in ("http", "grpc") or t.endpoint:
+        yield None
+        return
+    from tpubench_torch.storage.fake import FakeBackend, FaultPlan
+
+    plan = (
+        FaultPlan(**dataclasses.asdict(t.fault)) if t.fault.active else None
+    )
+    restore = (t.endpoint, t.directpath)
+    server = spawn_hermetic_server(cfg, store=FakeBackend(fault=plan))
+    try:
+        yield server
+    finally:
+        server.stop()
+        t.endpoint, t.directpath = restore

@@ -12,7 +12,7 @@ given two or more runs — pairwise deltas grouped by config axis
 (transport bit, staging mode, fetch executor).
 
 A document carrying the block of a workload the port does not have yet
-(chaos, serve, drill, fleet, replay, lifecycle) is refused
+(chaos, serve, drill, fleet, replay) is refused
 with ``NotImplementedError`` naming its ``ROADMAP.md`` item, never
 rendered without that block. ``bench.py`` lines and multichip-sweep
 artifacts are plain dicts and render as in ``tpubench``.
@@ -151,7 +151,6 @@ UNPORTED_BLOCKS = {
     "drill_sweep": "A.7: drill",
     "fleet": "A.7: fleet",
     "replay": "A.7: replay",
-    "lifecycle": "A.7: lifecycle",
 }
 
 
@@ -209,6 +208,13 @@ def summarize_run(run: dict, label: str = "") -> str:
                 f"not ported to tpubench_torch yet: the report block "
                 f"extra[{key!r}] (ROADMAP {item})"
             )
+    lc = extra.get("lifecycle")
+    if lc:
+        # Storage-lifecycle scorecard: same body the CLI printed live
+        # (save goodput/parts/resume counts, time-to-restore).
+        from tpubench_torch.lifecycle import format_lifecycle_scorecard
+
+        lines.append(format_lifecycle_scorecard(lc))
     tel = extra.get("telemetry")
     if tel:
         # Live-telemetry stamp: where the run was scrapeable and what
