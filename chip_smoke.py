@@ -197,7 +197,44 @@ before the last line:
    bytes. Then results_upload: ``read --protocol http --results-bucket``
    at phase read's deployment through the validating ring behind the
    HTTP/1.1 fake (one ``tb_checksum`` per transfer): the stored
-   ``results/<file>`` equals the result file byte for byte.
+   ``results/<file>`` equals the result file byte for byte;
+22. serve — ``serve`` through ``cli.execute`` over phase read's store
+   (2 MiB chunks) at ``tpubench``'s ServeConfig defaults (100 tenants in
+   gold/silver/best_effort, Poisson 200/s, 8 workers, Zipf 1.2, QoS on):
+   serve_default (4 s), serve_qos and serve_fifo (the QoS A/B at the
+   reference acceptance's ratio and request size: 64 KiB requests at
+   4 ms a read, cache off, 8 workers = 2,000/s of capacity, 3,200/s
+   offered, 2 s), serve_bursty (MMPP: burst 4x, fraction 0.25, 1 s
+   cycles; it must end), serve_sweep (``--serve-sweep``, the 5 default
+   points of 800/s at 2 s each, 64 KiB at 4 ms: a knee must be found),
+   serve_reactor (behind the HTTP/1.1 fake with ``--fetch-executor
+   native``: every fetch one completion of the engine's pool, the
+   reactor engaged, no Python read) and serve_elastic (4 hosts, host 1
+   killed at 1.2 s and rejoined at 2.4 s: both events applied, epoch 2,
+   no slab leaked, unpinned pools). Every mode: zero errors, every
+   arrival completed, shed or an error, Jain reported, no kernel
+   launched. Then the A/B's verdict: gold SLO with QoS >= 0.9 and above
+   FIFO's, best-effort sheds, gold sheds nothing, goodput retention
+   >= 0.6;
+23. chaos — ``chaos`` through ``cli.execute``, a fault window inside
+   each run, over the arrays of phase read's and phase pod's stores
+   (``SharedStore``: ``run_chaos`` opens its own backend, whose
+   ``FakeBackend.prepopulated`` then hands back those arrays under the
+   armed fault plan): chaos_read_validate and chaos_read_pallas (read's
+   deployment, 3 reads a worker, a 0.4 s stall in half the readers:
+   ``checksum_ok`` and one ``tb_checksum`` / ``tb_land`` launch a
+   transfer), chaos_pod (the 1 GiB object on the one-rank NCCL group, a
+   0.2 s stall at the first byte, which the shard's fetch must show:
+   verified, a ``tb_checksum`` a collective call),
+   chaos_train (train's deployment at 20 steps through the validating
+   ring, every read opened in [0.1, 0.6] s blackholed, hedged reads and
+   the watchdog on: data-stall time and watchdog stalls, never a hang,
+   one ``tb_checksum`` a slot) and chaos_serve (the elastic pod of 4
+   hosts, host 2 killed at 1 s beside a 50 ms stall in half the readers:
+   the kill applied, no slab leaked, every arrival accounted for, no
+   kernel launched). Every mode prints its resilience scorecard, has
+   zero errors and failed reads, and leaves the caller's config as it
+   was.
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB),
 at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128), at
@@ -313,7 +350,7 @@ KERNELS = {
                  paths=("read/pallas", "protocols/http_pallas",
                         "obs/obs_pallas", "tail/tail_pallas",
                         "tune/sweep_pallas", "sweep/pallas",
-                        "train/train_pallas")),
+                        "train/train_pallas", "chaos/read_pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
@@ -330,7 +367,8 @@ KERNELS = {
                             "multichip/size1", "train/train_validate",
                             "train/train_pod", "coop/coop_validate",
                             "coop/coop_ici", "coop/channel",
-                            "ckpt/results_upload")),
+                            "ckpt/results_upload", "chaos/read_validate",
+                            "chaos/pod", "chaos/train")),
 }
 
 
@@ -385,6 +423,8 @@ def main() -> int:
     counts.update(train_counts)
     counts.update(phase_coop(store, smi, train_lines))
     counts.update(phase_ckpt(store, smi))
+    counts.update(phase_serve(store, smi))
+    counts.update(phase_chaos(store, pod_store, smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -3610,6 +3650,437 @@ def phase_ckpt(store, smi) -> dict:
                       "object (several ranks run only as gloo groups on "
                       "the CPU)"]})
     return {"ckpt/results_upload": counts}
+
+
+# ------------------------------------------------------------- phase 22 --
+# Phase serve: the open-loop serve plane over phase read's store (48 x
+# 100 MiB, 2 MiB chunks) at tpubench's ServeConfig defaults (100 tenants
+# in gold/silver/best_effort, Poisson 200/s, 8 workers, Zipf 1.2, QoS on).
+# The QoS A/B and the sweep run at the reference acceptance's overload
+# ratio and request size (tests/test_serve.py:446-533): 64 KiB requests,
+# 4 ms a read with the cache off, so the 4 ms, not the host's copies of
+# a 2 MiB request, set the capacity: 8 workers give 2,000/s; the A/B
+# offers 3,200/s, the sweep steps 0.25x-4x of 800/s across it.
+SERVE_SVC_S, SERVE_SVC_CHUNK = 0.004, 64 * 1024
+SERVE_MODES = {
+    "serve_default": dict(argv=[], seconds=4.0),
+    "serve_qos": dict(argv=["--cache-bytes", "0", "--serve-rate", "3200"],
+                      seconds=2.0, svc=True),
+    "serve_fifo": dict(argv=["--cache-bytes", "0", "--serve-rate", "3200",
+                             "--no-serve-qos"], seconds=2.0, svc=True),
+    "serve_bursty": dict(argv=["--serve-arrival", "bursty",
+                               "--serve-burst-factor", "4",
+                               "--serve-burst-fraction", "0.25"],
+                         seconds=4.0),
+    "serve_sweep": dict(argv=["--serve-sweep", "--cache-bytes", "0",
+                              "--serve-rate", "800"], seconds=2.0, svc=True),
+    "serve_reactor": dict(argv=["--fetch-executor", "native"], seconds=2.0),
+    "serve_elastic": dict(argv=["--serve-hosts", "4", "--membership-timeline",
+                                json.dumps([[1.2, 1.2, {"kill_host": 1}],
+                                            [2.4, 2.4, {"rejoin_host": 1}]])],
+                          seconds=4.0),
+}
+SERVE_REDUCED = [
+    "serve_qos, serve_fifo: 2 s of schedule (default 4 s)",
+    "serve_sweep: 2 s a point (default 4 s)",
+    "serve_reactor: 2 s of schedule (default 4 s)",
+]
+# Phase chaos: each arm at its phase's deployment, with a fault window
+# inside the run. Read: 3 reads a worker (phase read runs 1), a 0.4 s stall
+# in half the readers past 32 MiB during [2.4, 3.6] s. Pod: phase pod's
+# 1 GiB object, a 0.2 s stall at the first byte during [0, 1] s (the
+# shard's fetch reads it into its buffer in one call, so a stall set past
+# a byte count never fires). Train: phase
+# train's deployment at 20 of 75 steps through the validating ring, every
+# read opened in [0.1, 0.6] s blackholed (an hour's stall) under hedged
+# reads and the watchdog. Serve: a 4-host elastic pod at the serve
+# defaults (3 s), host 2 killed at 1.0 s while half the readers stall
+# 50 ms in [0.5, 2.0] s.
+CHAOS_READS = 3
+CHAOS_TRAIN_STEPS = 20
+CHAOS_MODES = {
+    "chaos_read_validate": dict(
+        workload="read", argv=["--staging", "device_put", "--validate"],
+        timeline=[[2.4, 3.6, {"stall_s": 0.4, "stall_rate": 0.5,
+                              "stall_after_bytes": 32 * MIB}]]),
+    "chaos_read_pallas": dict(
+        workload="read", argv=["--staging", "pallas"],
+        timeline=[[2.4, 3.6, {"stall_s": 0.4, "stall_rate": 0.5,
+                              "stall_after_bytes": 32 * MIB}]]),
+    "chaos_pod": dict(
+        workload="pod-ingest", argv=[],
+        timeline=[[0.0, 1.0, {"stall_s": 0.2, "stall_rate": 1.0,
+                              "stall_after_bytes": 0}]]),
+    "chaos_train": dict(
+        workload="train-ingest", argv=["--validate"], blackhole=(0.1, 0.5),
+        timeline=None),
+    "chaos_serve": dict(
+        workload="serve", argv=["--serve-hosts", "4",
+                                "--serve-duration", "3"],
+        timeline=[[1.0, 1.0, {"kill_host": 2}],
+                  [0.5, 2.0, {"stall_s": 0.05, "stall_rate": 0.5}]]),
+}
+CHAOS_REDUCED = [
+    f"chaos_read_*: {CHAOS_READS} reads a worker",
+    f"chaos_train: {CHAOS_TRAIN_STEPS} of {TRAIN_STEPS} steps",
+    "chaos_serve: 3 s of schedule (default 4 s)",
+    "chaos_pod: one rank (the machine has one H100)",
+]
+
+
+class SharedStore:
+    """Makes ``FakeBackend.prepopulated`` (which ``open_backend`` and
+    ``chaos``'s own backend call) hand back a store over the arrays of a
+    store this script already holds when the objects asked for are among
+    them: the same names, sizes and bytes (``deterministic_bytes``), under
+    the fault plan the caller gives — regenerating 4.8 GB for every chaos
+    mode would cost 10 s a mode. Any other population is built as
+    before."""
+
+    def __init__(self, *stores):
+        self.stores = stores
+
+    def __enter__(self):
+        from tpubench_torch.storage.fake import FakeBackend
+
+        self.cls, self.real = FakeBackend, FakeBackend.__dict__["prepopulated"]
+        stores, real = self.stores, self.real.__func__
+
+        def shared(cls, prefix, count, size, fault=None):
+            names = [f"{prefix}{i}" for i in range(count)]
+            for st in stores:
+                if all(len(st._objects.get(n, ())) == size for n in names):
+                    be = cls(fault=fault)
+                    for n in names:
+                        be._objects[n] = st._objects[n]
+                        be._generation[n] = st._generation[n]
+                    return be
+            return real(cls, prefix, count, size, fault)
+
+        FakeBackend.prepopulated = classmethod(shared)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.prepopulated = self.real
+
+
+def _launch_counts() -> dict:
+    from tpubench_torch.kernels import landing
+
+    return {"land": landing.land.launches,
+            "checksum": landing.checksum.launches}
+
+
+def _serve_run(mode: str, store, smi) -> dict:
+    """One mode of phase serve through ``cli.execute`` (the scorecards
+    printed), checked; returns the mode's line."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.storage import open_backend
+    from tpubench_torch.storage.fake import FaultPlan
+    from tpubench_torch.storage.fake_server import FakeGcsServer
+
+    spec = SERVE_MODES[mode]
+    argv = ["serve", "--protocol", "fake", "--workers", str(WORKERS),
+            "--object-size", str(OBJECT_SIZE), "--granule-bytes",
+            str(GRANULE), *spec["argv"]]
+    argv += ["--serve-duration", str(spec["seconds"])]
+    reactor = None
+    with contextlib.ExitStack() as stack:
+        if spec.get("svc"):
+            store.fault = FaultPlan(per_read_latency_s=SERVE_SVC_S, seed=7)
+            store._rng = store.fault.rng()
+
+            def plain():
+                store.fault = FaultPlan()
+                store._rng = store.fault.rng()
+
+            stack.callback(plain)
+        backend = store
+        if mode == "serve_reactor":
+            srv = stack.enter_context(FakeGcsServer(store))
+            argv[2] = "http"
+            argv += ["--endpoint", srv.endpoint, "--bucket", "testbucket",
+                     "--object-name-prefix", "tpubench/file_"]
+        args, cfg = _cli(argv)
+        if spec.get("svc"):
+            cfg.serve.chunk_bytes = SERVE_SVC_CHUNK
+        if mode == "serve_reactor":
+            from tpubench_torch.native.engine import get_engine
+            from tpubench_torch.storage.reactor_backend import (
+                ReactorFetchBackend,
+            )
+
+            backend = stack.enter_context(contextlib.closing(
+                open_backend(cfg)))
+            reactor = backend
+            while not isinstance(reactor, ReactorFetchBackend):
+                reactor = reactor.inner
+            python_reads = []
+            inner = reactor.inner
+            real_open = inner.open_read
+            inner.open_read = lambda *a, **kw: (
+                python_reads.append(a), real_open(*a, **kw))[1]
+            engine = get_engine()
+            done0 = engine.stats()["pool_completions"]
+        buf = io.StringIO()
+        landing.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.execute("serve", cfg, device="cuda", backend=backend,
+                              args=args)
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+    out = buf.getvalue()
+    sv = res.extra["serve"]
+    check(counts == {"land": 0, "checksum": 0},
+          f"serve/{mode}: the serve plane launched {counts}")
+    check(res.errors == 0, f"serve/{mode}: {res.errors} errors")
+    line = {"phase": "serve", "mode": mode, "launches": counts,
+            "chunk_bytes": cfg.serve.chunk_bytes or GRANULE,
+            "seconds": seconds, "card": smi, "reduced": SERVE_REDUCED}
+    if mode == "serve_sweep":
+        check("== serve load sweep ==" in out,
+              f"serve/{mode}: no sweep printed")
+        sweep = sv["sweep"]
+        check(len(sweep["points"]) == 5 and sweep["knee"] is not None,
+              f"serve/{mode}: {len(sweep['points'])} points, knee "
+              f"{sweep['knee']}")
+        line.update(knee=sweep["knee"], points=[
+            {k: p[k] for k in ("multiplier", "offered_rps", "achieved_rps",
+                               "goodput_gbps", "p99_ms", "gold_p99_ms",
+                               "gold_slo_attainment", "shed")}
+            for p in sweep["points"]], base_rate_rps=sweep["base_rate_rps"],
+            svc_ms=SERVE_SVC_S * 1e3, wall_s=res.wall_seconds)
+        return line
+    check("== serve scorecard ==" in out, f"serve/{mode}: no scorecard")
+    errors = sum(c["errors"] for c in sv["classes"].values())
+    check(sv["arrivals"] == sv["completed"] + sv["shed"] + errors,
+          f"serve/{mode}: arrivals {sv['arrivals']} != completed "
+          f"{sv['completed']} + shed {sv['shed']} + errors {errors}")
+    check(sv["jain_fairness"] is not None, f"serve/{mode}: no Jain index")
+    req = res.summaries.get("request")
+    line.update({
+        "arrivals": sv["arrivals"], "completed": sv["completed"],
+        "shed": sv["shed"], "shed_by_reason": sv["shed_by_reason"],
+        "offered_rps": sv["offered_rps"], "achieved_rps": sv["achieved_rps"],
+        "goodput_gbps": sv["goodput_gbps"], "jain": sv["jain_fairness"],
+        "p50_ms": req.p50_ms if req else None,
+        "p99_ms": req.p99_ms if req else None,
+        "classes": {c: {k: v[k] for k in ("arrivals", "completed", "shed",
+                                          "slo_attainment", "p99_ms")}
+                    for c, v in sv["classes"].items()},
+        "wall_s": res.wall_seconds,
+    })
+    if spec.get("svc"):
+        line["svc_ms"] = SERVE_SVC_S * 1e3
+    if mode == "serve_reactor":
+        fetches = sv["cache"]["misses"]
+        done = engine.stats()["pool_completions"] - done0
+        check(reactor.pool_mode == "reactor" and not reactor.fell_back,
+              f"serve/{mode}: pool {reactor.pool_mode}, fell back "
+              f"{reactor.fell_back}")
+        check(done == fetches > 0 and python_reads == [],
+              f"serve/{mode}: {done} pool completions for {fetches} "
+              f"fetches, {len(python_reads)} Python reads")
+        line.update(pool_mode=reactor.pool_mode, pool_completions=done,
+                    fetches=fetches, python_reads=len(python_reads))
+    if mode == "serve_elastic":
+        mb = res.extra["membership"]
+        check("== membership resize scorecard ==" in out,
+              f"serve/{mode}: no resize scorecard")
+        acts = [(e["action"], e["host"], e["applied"]) for e in mb["events"]]
+        check(acts == [("kill_host", 1, True), ("rejoin_host", 1, True)]
+              and mb["epoch"] == 2,
+              f"serve/{mode}: events {acts}, epoch {mb['epoch']}")
+        check(mb["pool_leaked_slabs"] == 0,
+              f"serve/{mode}: {mb['pool_leaked_slabs']} slabs leaked")
+        check(all(h["pool"]["native"] is False for h in mb["per_host"]),
+              f"serve/{mode}: a host's pool was page-locked")
+        line["membership"] = {
+            "events": [{k: e.get(k) for k in (
+                "t_s", "action", "host", "epoch", "remap_fraction",
+                "time_to_rewarm_s")} for e in mb["events"]],
+            "slo": mb["slo"], "failovers": mb["failovers"],
+            "peer_hit_ratio": mb["peer_hit_ratio"],
+            "origin_bytes": mb["origin_bytes"],
+            "pool_leaked_slabs": mb["pool_leaked_slabs"]}
+    return line
+
+
+def phase_serve(store, smi) -> dict:
+    """Each mode of SERVE_MODES over phase read's store; then the QoS A/B's
+    verdict (gold SLO with QoS >= 0.9 and above FIFO's, best-effort sheds,
+    gold sheds nothing, goodput retention >= 0.6). The serve plane must
+    launch no kernel. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    lines = {}
+    for mode in SERVE_MODES:
+        lines[mode] = _serve_run(mode, store, smi)
+        emit(lines[mode])
+    on, off = lines["serve_qos"], lines["serve_fifo"]
+    g_on = on["classes"]["gold"]["slo_attainment"]
+    g_off = off["classes"]["gold"]["slo_attainment"]
+    retention = on["goodput_gbps"] / off["goodput_gbps"]
+    check(g_on is not None and g_off is not None and g_on >= 0.9
+          and g_on > g_off, f"serve/qos_ab: gold SLO {g_on} vs FIFO {g_off}")
+    check(on["classes"]["best_effort"]["shed"] > 0
+          and on["classes"]["gold"]["shed"] == 0,
+          f"serve/qos_ab: sheds {on['classes']}")
+    check(retention >= 0.6, f"serve/qos_ab: goodput retention {retention}")
+    emit({"phase": "serve_total", "seconds": time.perf_counter() - t_phase,
+          "qos_ab": {"gold_slo": [g_on, g_off],
+                     "gold_p99_ms": [on["classes"]["gold"]["p99_ms"],
+                                     off["classes"]["gold"]["p99_ms"]],
+                     "goodput_retention": retention},
+          "card": smi, "reduced": SERVE_REDUCED})
+    return {f"serve/{m}": lines[m]["launches"] for m in SERVE_MODES}
+
+
+def _chaos_argv(mode: str) -> list:
+    spec = CHAOS_MODES[mode]
+    wl = spec["workload"]
+    argv = ["chaos", "--chaos-workload", wl, "--protocol", "fake"]
+    if wl == "pod-ingest":
+        return argv + ["--workers", "1", "--object-size", str(POD_OBJECT),
+                       "--chaos-timeline", json.dumps(spec["timeline"])]
+    if wl == "train-ingest":
+        t0, t1 = spec["blackhole"]
+        return argv + _train_argv(spec["argv"], CHAOS_TRAIN_STEPS)[2:] + [
+            "--chaos-fault", "blackhole", "--chaos-start", str(t0),
+            "--chaos-duration", str(t1 - t0), "--hedge", "--hedge-delay",
+            "0.05", "--watchdog", "--stall-window", "0.2"]
+    argv += ["--workers", str(WORKERS), "--object-size", str(OBJECT_SIZE),
+             "--granule-bytes", str(GRANULE), *spec["argv"]]
+    if wl == "read":
+        argv += ["--read-call-per-worker", str(CHAOS_READS)]
+    return argv + ["--chaos-timeline", json.dumps(spec["timeline"])]
+
+
+def _chaos_run(mode: str, stores, smi) -> tuple[dict, dict]:
+    """One mode of phase chaos through ``cli.execute`` (the resilience
+    scorecard printed), checked; returns its launch counts and line."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    wl = CHAOS_MODES[mode]["workload"]
+    args, cfg = _cli(_chaos_argv(mode))
+    before = cfg.to_dict()
+    buf = io.StringIO()
+    with SharedStore(*stores), PodObserved() as pod_obs, \
+            contextlib.redirect_stdout(buf):
+        landing.reset_launches()
+        t0 = time.perf_counter()
+        res = cli.execute("chaos", cfg, device="cuda", args=args)
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+    out = buf.getvalue()
+    ch = res.extra["chaos"]
+    sc = ch["scorecard"]
+    check(f"== resilience scorecard ({wl};" in out,
+          f"chaos/{mode}: no scorecard printed")
+    check(res.errors == 0 and sc["failed_reads"] == 0,
+          f"chaos/{mode}: errors {res.errors}, failed reads "
+          f"{sc['failed_reads']}")
+    check(ch["workload"] == wl and ch["sleep_scale"] == 1.0,
+          f"chaos/{mode}: {ch['workload']} at scale {ch['sleep_scale']}")
+    ex = res.extra
+    want = {"land": 0, "checksum": 0}
+    line = {"phase": "chaos", "mode": mode, "workload": wl,
+            "timeline": ch["timeline"], "member_timeline":
+            ch["member_timeline"], "launches": counts, "seconds": seconds,
+            "wall_s": res.wall_seconds, "gbps": res.gbps,
+            "scorecard": {k: sc[k] for k in (
+                "fault_window_s", "goodput_retention", "p99_inflation",
+                "time_to_recover_s", "failed_reads", "timeline_covered",
+                "stalls", "hedge")}
+            | {seg: {k: sc[seg][k] for k in ("reads", "goodput_gbps",
+                                             "p50_ms", "p99_ms")}
+               for seg in ("baseline", "fault", "recovery")},
+            "card": smi, "reduced": CHAOS_REDUCED}
+    if wl == "read":
+        transfers = WORKERS * expected_transfers(
+            OBJECT_SIZE, GRANULE, _slot(cfg), reads=CHAOS_READS)
+        stats = ex.get("staging") or {}
+        check(stats.get("transfers", transfers) == transfers,
+              f"chaos/{mode}: {stats.get('transfers')} transfers, want "
+              f"{transfers}")
+        check(ex["checksum_ok"] is True
+              and ex["staged_bytes"] == WORKERS * CHAOS_READS * OBJECT_SIZE,
+              f"chaos/{mode}: checksum_ok {ex.get('checksum_ok')}, staged "
+              f"{ex.get('staged_bytes')}")
+        reads = sum(sc[s]["reads"] for s in ("baseline", "fault", "recovery"))
+        check(reads == WORKERS * CHAOS_READS,
+              f"chaos/{mode}: {reads} reads in the scorecard")
+        want["land" if "pallas" in mode else "checksum"] = transfers
+        line.update(transfers=transfers, checksum_ok=ex["checksum_ok"],
+                    staged_gbps_per_chip=ex["staged_gbps_per_chip"])
+    elif wl == "pod-ingest":
+        stall_ms = CHAOS_MODES[mode]["timeline"][0][2]["stall_s"] * 1e3
+        check(sc["fault"]["reads"] == 1 and sc["fault"]["p99_ms"] >= stall_ms,
+              f"chaos/{mode}: the shard's fetch did not stall: "
+              f"{sc['fault']}")
+        check(ex["verified"] is True and pod_obs.calls
+              and all(b == "nccl" and d == "cuda"
+                      for b, d, _ in pod_obs.calls),
+              f"chaos/{mode}: verified {ex.get('verified')}, calls "
+              f"{pod_obs.calls}")
+        want["checksum"] = len(pod_obs.calls)
+        line.update(verified=ex["verified"], collective_calls=len(
+            pod_obs.calls), fetch_gbps=ex.get("fetch_gbps"))
+    elif wl == "train-ingest":
+        pipe = ex["pipeline"]
+        stall = pipe["stall"]
+        check(stall["steps"] == CHAOS_TRAIN_STEPS
+              and stall["total_stall_ms"] > 0 and stall["stalled_steps"] >= 1
+              and sc["stalls"] > 0 and ex["checksum_ok"] is True,
+              f"chaos/{mode}: stall {stall}, watchdog stalls {sc['stalls']}, "
+              f"checksum_ok {ex.get('checksum_ok')}")
+        check(res.bytes_total == CHAOS_TRAIN_STEPS * TRAIN_BATCH * GRANULE,
+              f"chaos/{mode}: {res.bytes_total} B delivered")
+        want["checksum"] = res.summaries["stage"].count
+        line.update(stall=stall, checksum_ok=ex["checksum_ok"],
+                    tail=ex.get("tail"),
+                    leaked_slabs=pipe["copies"]["pool"]["leaked_slabs"])
+    else:  # serve
+        mb, sv = ex["membership"], ex["serve"]
+        errors = sum(c["errors"] for c in sv["classes"].values())
+        acts = [(e["action"], e["applied"]) for e in mb["events"]]
+        check(acts == [("kill_host", True)] and mb["pool_leaked_slabs"] == 0
+              and sv["arrivals"] == sv["completed"] + sv["shed"] + errors,
+              f"chaos/{mode}: events {acts}, leaked "
+              f"{mb['pool_leaked_slabs']}, serve {sv['arrivals']} / "
+              f"{sv['completed']} / {sv['shed']} / {errors}")
+        check("== membership resize scorecard ==" in out,
+              f"chaos/{mode}: no resize scorecard")
+        line.update(arrivals=sv["arrivals"], completed=sv["completed"],
+                    shed=sv["shed"], membership_slo=mb["slo"])
+    check(counts == want, f"chaos/{mode}: launches {counts}, want {want}")
+    after = cfg.to_dict()  # the timeline stays, as run_chaos was given it
+    after["transport"]["fault"]["phases"] = []
+    check(after == before, f"chaos/{mode}: the caller's config changed")
+    return counts, line
+
+
+def phase_chaos(store, pod_store, smi) -> dict:
+    """Each mode of CHAOS_MODES through ``cli.execute`` over the arrays
+    of phase read's and phase pod's stores; every mode prints and checks
+    its resilience scorecard. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for mode in CHAOS_MODES:
+        counts, line = _chaos_run(mode, (store, pod_store), smi)
+        emit(line)
+        launches[f"chaos/{mode.removeprefix('chaos_')}"] = counts
+    emit({"phase": "chaos_total", "seconds": time.perf_counter() - t_phase,
+          "card": smi, "reduced": CHAOS_REDUCED})
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""Some of ``chip_smoke.py``'s phases alone, on one GPU.
+
+    python3 scripts/smoke_phases.py --phases serve,chaos
+
+Builds the kernels (phase build), makes phase read's store (48 x 100 MiB)
+and phase pod's (one 1 GiB object), then runs the phases named, in the
+order given, with every check ``chip_smoke.py`` makes; each prints its
+JSON lines as there. A phase that needs another phase's state is not
+offered. The last lines are the launch counts by path, the seconds taken
+and the card's name and power limit. A quick way to try a phase on the
+card before the whole script runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+PHASES = ("serve", "chaos")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list of {','.join(PHASES)}")
+    names = ap.parse_args().phases.split(",")
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phase(s) {unknown}; have {','.join(PHASES)}")
+
+    import chip_smoke as cs
+    import torch
+
+    if not torch.cuda.is_available():
+        print("smoke_phases: CUDA is not available", file=sys.stderr)
+        return 1
+    from tpubench_torch.device import nvidia_smi_line
+    from tpubench_torch.storage.fake import FakeBackend
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cs.phase_build()
+    store = cs.populate()
+    pod_store = FakeBackend.prepopulated("tpubench/file_", 1, cs.POD_OBJECT)
+    counts = {}
+    for name in names:
+        if name == "serve":
+            counts.update(cs.phase_serve(store, smi))
+        else:
+            counts.update(cs.phase_chaos(store, pod_store, smi))
+    cs.emit({"launches": counts, "seconds": time.perf_counter() - t0})
+    print(smi or "nvidia-smi: not available", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

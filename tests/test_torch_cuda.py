@@ -606,3 +606,98 @@ def test_ckpt_restore_onto_the_card(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="injected copy failure"):
         cli.execute("ckpt-restore", cfg, device="cuda", backend=store)
     assert not dist.is_initialized()
+
+
+def _chaos_read_cfg(mode: str):
+    from tpubench_torch.config import BenchConfig
+
+    cfg = BenchConfig()
+    cfg.transport.protocol = "fake"
+    cfg.workload.workers = 2
+    cfg.workload.read_calls_per_worker = 8
+    cfg.workload.object_size = 3_000_001
+    cfg.workload.granule_bytes = GRANULE
+    cfg.transport.fault.per_read_latency_s = 0.001
+    cfg.staging.mode = mode
+    cfg.staging.validate_checksum = mode == "device_put"
+    cfg.staging.slot_bytes = 256 * 1024
+    cfg.obs.export = "none"
+    return cfg
+
+
+@pytest.mark.parametrize("mode", ["device_put", "pallas"])
+def test_chaos_read_on_the_card_lands_every_transfer(cuda, mode):
+    """``chaos`` over ``read`` stages onto the card: with ``--validate``
+    one ``tb_checksum`` a transfer, with ``pallas`` one ``tb_land`` a
+    transfer; the verdicts and transfers are the CPU run's."""
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.workloads.chaos import run_chaos
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        landing.reset_launches()
+        out[dev] = run_chaos(
+            _chaos_read_cfg(mode),
+            timeline=[[0.0, 0.05, {"stall_s": 0.02, "stall_rate": 0.5}]],
+            device=dev)
+    gpu, cpu = out["cuda"].extra, out["cpu"].extra
+    # 256 KiB slots of 64 KiB granules (a whole number of landing blocks):
+    # a worker's 8 reads of 3,000,001 B ship as the aggregator packs them.
+    transfers = 2 * _slots_shipped(3_000_001, GRANULE, 256 * 1024, 8)
+    launched = (landing.checksum.launches if mode == "device_put"
+                else landing.land.launches)
+    assert launched == transfers
+    assert gpu["checksum_ok"] is True
+    for key in ("staged_bytes", "checksum_ok", "checksum_host",
+                "checksum_device"):
+        assert gpu.get(key) == cpu.get(key), key
+    if mode == "device_put":
+        assert gpu["staging"]["transfers"] == transfers
+        assert cpu["staging"]["transfers"] == transfers
+    assert out["cuda"].extra["chaos"]["scorecard"]["failed_reads"] == 0
+
+
+def _slots_shipped(object_size: int, granule: int, slot: int,
+                   reads: int) -> int:
+    """Slots one worker ships for ``reads`` zero-copy reads: a slot ships
+    when full, or when less than a granule is left at the next acquire,
+    or at the final flush; the fill carries over to the next read."""
+    transfers = fill = 0
+    for _ in range(reads):
+        remaining = object_size
+        while True:
+            if slot - fill < granule and fill > 0:
+                transfers, fill = transfers + 1, 0
+            n = min(granule, slot - fill, remaining)
+            if n <= 0:
+                break
+            remaining -= n
+            fill += n
+            if fill >= slot:
+                transfers, fill = transfers + 1, 0
+    return transfers + (fill > 0)
+
+
+def test_serve_on_the_card_launches_nothing(cuda):
+    """The serve plane does no device work: a single-host run and a
+    4-host elastic run on ``device="cuda"`` launch no kernel."""
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.workloads.serve import run_serve
+
+    for hosts in (1, 4):
+        cfg = BenchConfig()
+        cfg.transport.protocol = "fake"
+        cfg.workload.workers = 4
+        cfg.workload.object_size = 1 << 20
+        cfg.workload.granule_bytes = GRANULE
+        cfg.obs.export = "none"
+        cfg.serve.duration_s = 0.5
+        cfg.serve.hosts = hosts
+        if hosts > 1:
+            cfg.serve.membership_timeline = [[0.2, 0.2, {"kill_host": 1}]]
+        landing.reset_launches()
+        res = run_serve(cfg, device="cuda")
+        sv = res.extra["serve"]
+        assert res.errors == 0 and sv["completed"] > 0
+        assert landing.land.launches == landing.checksum.launches == 0

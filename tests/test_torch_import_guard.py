@@ -73,6 +73,10 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.workloads.arrivals",
         "tpubench_torch.lifecycle", "tpubench_torch.lifecycle.manifest",
         "tpubench_torch.lifecycle.upload", "tpubench_torch.workloads.ckpt",
+        "tpubench_torch.serve", "tpubench_torch.serve.qos",
+        "tpubench_torch.replay.bundle", "tpubench_torch.dist.membership",
+        "tpubench_torch.storage.reactor_backend",
+        "tpubench_torch.workloads.serve",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -202,7 +206,8 @@ def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe",
-                                 "sweep", "list", "stream", "train-ingest"])
+                                 "sweep", "list", "stream", "train-ingest",
+                                 "serve", "chaos"])
 def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
     argv = [cmd, "--protocol", "fake", "--workers", "1", "--object-size",
             "70001", "--dir", str(tmp_path), "--results-dir", str(tmp_path)]
@@ -261,6 +266,37 @@ def test_ckpt_commands_never_import_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert "verified=True" in proc.stdout
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if m in ("jax", "tpubench")
+            or m.startswith(("jax.", "jaxlib", "tpubench."))] == []
+
+
+def test_serve_and_chaos_commands_never_import_jax(tmp_path):
+    """``serve`` (single host and a 4-host elastic pod with a kill) and
+    ``chaos`` over read and serve through the CLI on the CPU run without
+    loading ``jax`` or ``tpubench``."""
+    common = ["--protocol", "fake", "--workers", "2", "--object-size",
+              "262144", "--granule-bytes", "65536", "--device", "cpu",
+              "--results-dir", str(tmp_path)]
+    serve = ["serve", "--serve-duration", "0.3", "--serve-rate", "100"]
+    proc = _run(
+        "import json, sys\n"
+        "from tpubench_torch.cli import main\n"
+        f"assert main({serve + common!r}) == 0\n"
+        f"assert main({serve + common!r} + ['--serve-hosts', '4', "
+        "'--membership-timeline', '[[0.1, 0.1, {\"kill_host\": 1}]]']) == 0\n"
+        f"assert main(['chaos'] + {common!r} + ['--read-call-per-worker', "
+        "'8', '--chaos-start', '0.01', '--chaos-duration', '0.05']) == 0\n"
+        f"assert main(['chaos', '--chaos-workload', 'serve'] + {common!r} + "
+        "['--serve-duration', '0.3', '--chaos-start', '0.1', "
+        "'--chaos-duration', '0.1']) == 0\n"
+        "print(json.dumps(sorted(sys.modules)))\n",
+        TPUBENCH_BENCH_SLEEP_SCALE="0.5",
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "== serve scorecard ==" in proc.stdout
+    assert "== membership resize scorecard ==" in proc.stdout
+    assert proc.stdout.count("== resilience scorecard") == 2
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert [m for m in loaded if m in ("jax", "tpubench")
             or m.startswith(("jax.", "jaxlib", "tpubench."))] == []

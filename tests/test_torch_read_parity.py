@@ -211,10 +211,12 @@ def test_saved_reference_config_loads_and_round_trips():
     ref.workload.workers = 7
     ref.staging.mode = "pallas"
     ref.serve.rate_rps = 123.0
+    ref.fleet.hosts = 5
     ref.coop.hosts = 3
     cfg = BenchConfig.from_json(ref.to_json())
     assert cfg.workload.workers == 7 and cfg.staging.mode == "pallas"
-    assert cfg.raw["serve"]["rate_rps"] == 123.0 and cfg.coop.hosts == 3
+    assert cfg.serve.rate_rps == 123.0 and cfg.coop.hosts == 3
+    assert cfg.raw["fleet"]["hosts"] == 5
     assert cfg.to_dict() == ref.to_dict()
     assert BenchConfig.from_json(cfg.to_json()).to_dict() == ref.to_dict()
 
@@ -222,7 +224,7 @@ def test_saved_reference_config_loads_and_round_trips():
 def test_ported_defaults_match_reference():
     ref, port = JaxBenchConfig().to_dict(), BenchConfig().to_dict()
     for section in ("workload", "transport", "staging", "dist", "obs",
-                    "telemetry", "lifecycle"):
+                    "telemetry", "lifecycle", "serve"):
         assert port[section] == ref[section], section
 
 

@@ -185,8 +185,7 @@ def test_train_ingest_report_prints_the_reference_scorecard(tmp_path):
 
 
 @pytest.mark.parametrize("block, item", [
-    ("chaos", "A.6"), ("serve", "A.7"),
-    ("membership", "A.7"), ("drill", "A.7"), ("drill_sweep", "A.7"),
+    ("drill", "A.7"), ("drill_sweep", "A.7"),
     ("fleet", "A.7"), ("replay", "A.7"),
 ])
 def test_unported_block_is_refused(docs, block, item, tmp_path):

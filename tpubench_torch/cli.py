@@ -1,6 +1,6 @@
 """tpubench_torch CLI: ``tpubench``'s ``read``, ``train-ingest``, ``sweep``,
-``pod-ingest``, ``stream``, ``gather-bench``, ``multichip-sweep``, ``probe``
-and ``tune`` on PyTorch and CUDA, its
+``pod-ingest``, ``stream``, ``gather-bench``, ``multichip-sweep``, ``probe``,
+``tune``, ``serve`` and ``chaos`` on PyTorch and CUDA, its
 filesystem workloads (``prepare``, ``read-fs``, ``write``, ``list``,
 ``open``, ``ssd``), ``report`` and ``top`` over the results and journals
 they write, ``preflight`` (what a run needs, checked without a device),
@@ -54,6 +54,21 @@ http|grpc`` with no ``--endpoint`` both run against an in-process fake
 server. ``--results-bucket B`` (``--protocol http|grpc``) also uploads
 each result file as ``results/<file>`` to bucket B.
 
+``serve`` replays a seeded open-loop arrival schedule from many tenants
+in priority classes (``--serve-rate``, ``--serve-duration``,
+``--serve-arrival``, ``--serve-tenants``, ``--serve-classes``) into a
+priority admission queue with deadline-aware shedding
+(``--no-serve-qos``: FIFO); ``--serve-workers`` serve the requests
+through the chunk cache and the backend stack, and it prints the
+per-class scorecard. ``--serve-sweep`` steps the offered load to the
+knee; ``--serve-hosts N`` with ``--membership-timeline`` runs an elastic
+pod whose hosts are killed, paused, leave or rejoin under load. It stages
+nothing onto the card. ``chaos`` runs ``--chaos-workload`` read,
+pod-ingest, train-ingest or serve against the fake store or an
+in-process fake server under a fault timeline (``--chaos-timeline``, or
+``--chaos-fault`` / ``--chaos-start`` / ``--chaos-duration`` with the
+``--fault-*`` values) and prints the resilience scorecard.
+
 ``sweep`` runs ``read`` over protocols × the reference's four object
 sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
 prints the rows; ``--protocol http --http2`` and ``--protocol grpc
@@ -98,6 +113,7 @@ from tpubench_torch.config import (
     validate_coop_config,
     validate_lifecycle_config,
     validate_pipeline_config,
+    validate_serve_config,
     validate_telemetry_config,
     validate_tune_config,
 )
@@ -197,6 +213,60 @@ def build_parser() -> argparse.ArgumentParser:
         add(name, help_)
     for name, help_ in CKPT_CMDS.items():
         _add_lifecycle_flags(add(name, help_))
+    chaos = add("chaos", "scripted fault timeline + resilience scorecard "
+                         "(hermetic: fake backend or in-process fake "
+                         "server; see --chaos-*)")
+    chaos.add_argument("--chaos-workload",
+                       choices=("read", "pod-ingest", "train-ingest",
+                                "serve"),
+                       default="read",
+                       help="workload the fault timeline runs against "
+                            "(train-ingest: the fault schedule exercises "
+                            "the prefetcher — a blackhole shows up as "
+                            "data-stall time, never a hang; serve: the "
+                            "open-loop plane — with --serve-hosts >= 2 "
+                            "the timeline may also carry host-level "
+                            "kill_host/leave_host/pause_host/rejoin_host "
+                            "entries that resize the pod under load)")
+    chaos.add_argument("--chaos-timeline",
+                       help="JSON [[t0,t1,{fault fields}],...] (seconds "
+                            "from run start), or @path to a JSON file; "
+                            "overrides the --chaos-fault trio")
+    chaos.add_argument("--chaos-fault",
+                       choices=("stall", "blackhole", "drip", "truncate",
+                                "reset", "error", "latency"),
+                       default="stall",
+                       help="single-phase shorthand: which fault the "
+                            "window injects (parameters from --fault-*)")
+    chaos.add_argument("--chaos-start", type=float, default=2.0,
+                       help="fault window start, seconds from run start")
+    chaos.add_argument("--chaos-duration", type=float, default=2.0,
+                       help="fault window length in seconds")
+    # Elastic-pod knobs for chaos serve runs (--chaos-workload serve):
+    # the host-level kill/leave/pause/rejoin entries ride
+    # --chaos-timeline; these size the pod they act on.
+    for flag, kw in (
+        ("--serve-hosts", dict(type=int, dest="serve_hosts")),
+        ("--serve-duration", dict(type=float, dest="serve_duration")),
+        ("--serve-rate", dict(type=float, dest="serve_rate")),
+        ("--serve-workers", dict(type=int, dest="serve_workers")),
+        ("--resize-window", dict(type=float, dest="resize_window")),
+    ):
+        chaos.add_argument(flag, help=argparse.SUPPRESS, **kw)
+    serve = add("serve", "open-loop multi-tenant traffic plane: arrival "
+                         "processes (poisson/bursty/diurnal/trace) drive "
+                         "thousands of Zipf-hot tenants with per-class "
+                         "QoS — priority admission, weighted cache/"
+                         "prefetch budgets, deadline-aware shedding — "
+                         "through the full backend/cache stack; "
+                         "--serve-sweep steps offered load to the "
+                         "saturation knee")
+    serve.add_argument("--serve-sweep", action="store_true",
+                       help="step offered load through the configured "
+                            "multipliers of --serve-rate and emit the "
+                            "latency-vs-load curve with the knee "
+                            "identified (p99 inflection)")
+    _add_serve_flags(serve)
     prep = add("prepare", "generate worker-indexed data files")
     prep.add_argument("--layout", choices=("flat", "ssd"), default="flat")
     sweep = add("sweep", "protocol A/B × size sweep (execute_pb.sh)")
@@ -308,6 +378,187 @@ def _add_lifecycle_flags(p) -> None:
     p.add_argument("--no-restore-device", action="store_true",
                    help="ckpt-restore: host-RAM restore only — skip "
                         "staging the shards onto the card")
+
+
+def _add_serve_flags(p: argparse.ArgumentParser) -> None:
+    """The serve-plane flag surface (``tpubench``'s, the same defaults;
+    ``tpubench`` shares it with its ``drill`` subcommand)."""
+    p.add_argument("--serve-duration", type=float,
+                   help="virtual schedule length in seconds "
+                        "(default 4; wall time scales with "
+                        "TPUBENCH_BENCH_SLEEP_SCALE)")
+    p.add_argument("--serve-rate", type=float,
+                   help="aggregate offered load, requests/second "
+                        "(default 200)")
+    p.add_argument("--serve-arrival",
+                   choices=("poisson", "bursty", "diurnal", "trace"),
+                   help="arrival process (default poisson; bursty = "
+                        "two-state MMPP, diurnal = sinusoidal-rate "
+                        "Poisson, trace = replayed timestamps from "
+                        "--serve-trace)")
+    p.add_argument("--serve-trace",
+                   help="replayed-trace arrivals: JSON list of "
+                        "arrival seconds (implies "
+                        "--serve-arrival trace)")
+    p.add_argument("--serve-tenants", type=int,
+                   help="synthetic tenant population (default 100), "
+                        "expanded over the class shares")
+    p.add_argument("--serve-classes",
+                   help="priority-class spec: JSON list of {name, "
+                        "share, weight, deadline_ms, priority} "
+                        "dicts, inline or @path (default "
+                        "gold/silver/best_effort)")
+    p.add_argument("--serve-workers", type=int,
+                   help="service worker threads (default 8)")
+    p.add_argument("--no-serve-qos", action="store_true",
+                   help="QoS off: FIFO admission, no shedding, no "
+                        "weighted budgets — the baseline arm of "
+                        "the QoS A/B")
+    p.add_argument("--serve-admission-cap", type=int,
+                   help="requests in service at once (default = "
+                        "--serve-workers; live-tunable via the "
+                        "workers tune knob)")
+    p.add_argument("--serve-queue-limit", type=int,
+                   help="queued requests before overload shedding "
+                        "(QoS mode; default 8x workers)")
+    p.add_argument("--serve-readahead", type=int,
+                   help="readahead depth in chunks over the arrival "
+                        "schedule (0 = demand-only, the default)")
+    p.add_argument("--serve-burst-factor", type=float,
+                   help="bursty: burst-to-quiet rate ratio "
+                        "(default 4)")
+    p.add_argument("--serve-burst-fraction", type=float,
+                   help="bursty: fraction of each cycle bursting "
+                        "(default 0.25)")
+    p.add_argument("--serve-seed", type=int,
+                   help="arrival/popularity seed (identical seeds "
+                        "replay identical schedules)")
+    p.add_argument("--serve-sweep-points",
+                   help="comma list of offered-load multipliers for "
+                        "--serve-sweep (default 0.25,0.5,1,2,4)")
+    p.add_argument("--serve-hosts", type=int,
+                   help="elastic pod: fan the serve plane across N "
+                        "hermetic threaded hosts whose misses route "
+                        "through coop-cache consistent-hash "
+                        "ownership (default 1 = single-host plane)")
+    p.add_argument("--membership-timeline",
+                   help="elastic membership events: JSON list of "
+                        "[t0, t1, {action: host}] entries (inline "
+                        "or @path) in virtual schedule seconds — "
+                        "actions kill_host / leave_host (warm "
+                        "handoff) / pause_host (resumes at t1) / "
+                        "rejoin_host")
+    p.add_argument("--resize-window", type=float,
+                   help="virtual seconds of resize window the "
+                        "scorecard brackets each membership event "
+                        "with (default 1.0)")
+
+
+def _apply_serve_args(cfg: BenchConfig, args) -> None:
+    """Fold the serve flags (on the ``serve`` and ``chaos`` parsers only)
+    into ``cfg.serve`` and validate the section, as ``tpubench`` does for
+    every command."""
+    sv = cfg.serve
+    for attr, dest in (
+        ("serve_duration", "duration_s"), ("serve_rate", "rate_rps"),
+        ("serve_tenants", "tenants"), ("serve_workers", "workers"),
+        ("serve_admission_cap", "admission_cap"),
+        ("serve_queue_limit", "queue_limit"),
+        ("serve_readahead", "readahead"),
+        ("serve_burst_factor", "burst_factor"),
+        ("serve_burst_fraction", "burst_fraction"),
+        ("serve_seed", "seed"),
+        ("serve_hosts", "hosts"),
+        ("resize_window", "resize_window_s"),
+    ):
+        v = getattr(args, attr, None)
+        if v is not None:
+            setattr(sv, dest, v)
+    if getattr(args, "membership_timeline", None):
+        sv.membership_timeline = _json_arg(
+            "--membership-timeline", args.membership_timeline)
+    if getattr(args, "serve_arrival", None):
+        sv.arrival = args.serve_arrival
+    if getattr(args, "serve_trace", None):
+        sv.trace_path = args.serve_trace
+        sv.arrival = "trace"
+    if getattr(args, "no_serve_qos", False):
+        sv.qos = False
+    if getattr(args, "serve_classes", None):
+        sv.classes = _json_arg("--serve-classes", args.serve_classes)
+    if getattr(args, "serve_sweep_points", None):
+        try:
+            sv.sweep_points = [
+                float(x) for x in args.serve_sweep_points.split(",") if x
+            ]
+        except ValueError:
+            raise SystemExit(
+                f"--serve-sweep-points "
+                f"{args.serve_sweep_points!r}: expected a comma list "
+                "of positive numbers"
+            ) from None
+    validate_serve_config(sv)
+
+
+def _json_arg(flag: str, raw: str):
+    """A JSON flag value, inline or ``@path``; bad JSON is a one-line
+    ``SystemExit`` naming the flag."""
+    if raw.startswith("@"):
+        with open(raw[1:]) as f:
+            raw = f.read()
+    try:
+        return json.loads(raw)
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"{flag}: invalid JSON: {e}") from None
+
+
+def chaos_timeline_from_args(args) -> list:
+    """The ``chaos`` fault timeline: explicit JSON (``--chaos-timeline``,
+    inline or ``@file``), or the single-phase shorthand built from
+    ``--chaos-fault``/``--chaos-start``/``--chaos-duration`` with fault
+    parameters from the ``--fault-*`` flags (defaults per kind)."""
+    if args.chaos_timeline:
+        timeline = _json_arg("--chaos-timeline", args.chaos_timeline)
+        if not isinstance(timeline, list):
+            raise SystemExit(
+                "--chaos-timeline: expected a JSON list of "
+                "[t0, t1, {fault fields}] entries"
+            )
+        return timeline
+    t0 = args.chaos_start
+    t1 = t0 + args.chaos_duration
+
+    def pick(attr, default):
+        v = getattr(args, attr, None)
+        return default if v is None else v
+
+    kind = args.chaos_fault
+    if kind == "stall":
+        plan = {
+            "stall_s": pick("fault_stall_s", 0.4),
+            "stall_rate": pick("fault_stall_rate", 1.0),
+            "stall_after_bytes": pick("fault_stall_after_bytes", 0),
+        }
+    elif kind == "blackhole":
+        # Bytes stop and never resume within any sane window; hedges and
+        # the watchdog are the only way out.
+        plan = {
+            "stall_s": 3600.0,
+            "stall_rate": pick("fault_stall_rate", 1.0),
+            "stall_after_bytes": pick("fault_stall_after_bytes", 0),
+        }
+    elif kind == "drip":
+        plan = {"drip_bps": pick("fault_drip_bps", 64 * 1024)}
+    elif kind == "truncate":
+        plan = {"truncate_after_bytes":
+                pick("fault_truncate_after_bytes", 64 * 1024)}
+    elif kind == "reset":
+        plan = {"reset_after_bytes": pick("fault_reset_after_bytes", 64 * 1024)}
+    elif kind == "error":
+        plan = {"error_rate": pick("fault_error_rate", 0.5)}
+    else:  # latency
+        plan = {"latency_s": pick("fault_latency_s", 0.2)}
+    return [[t0, t1, plan]]
 
 
 def _apply_lifecycle_args(cfg: BenchConfig, args) -> None:
@@ -778,6 +1029,7 @@ def build_config(args) -> BenchConfig:
     _apply_pipeline_args(cfg, args)
     _apply_tune_args(cfg, args)
     _apply_lifecycle_args(cfg, args)
+    _apply_serve_args(cfg, args)
     if cfg.obs.results_bucket and t.protocol not in ("http", "grpc"):
         # Fail at parse time, not after an hour-long run: upload_result
         # needs an object-store protocol ('local' roots at workload.dir,
@@ -928,15 +1180,25 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
     if args is None:
         args = build_parser().parse_args([cmd])
     # A single process's pod commands get a one-rank group, and so do
-    # train-ingest's pod path (also under tune) and a restore onto the
-    # card. ckpt-save and a host-RAM restore touch no device: their
-    # group (several processes only) is gloo.
+    # train-ingest's pod path (also under tune and chaos), chaos over
+    # pod-ingest and a restore onto the card. ckpt-save, a host-RAM
+    # restore and serve touch no device: their group (several processes
+    # only) is gloo. serve still resolves its device, as every entry
+    # point does.
+    chaos_wl = getattr(args, "chaos_workload", "") if cmd == "chaos" else ""
     one_rank = cmd in POD_COLLECTIVE_CMDS or (
-        cfg.pipeline.pod and cmd in ("train-ingest", "tune")) or (
+        cfg.pipeline.pod and (
+            cmd in ("train-ingest", "tune") or chaos_wl == "train-ingest"
+        )) or chaos_wl == "pod-ingest" or (
         cmd == "ckpt-restore" and cfg.lifecycle.restore_device)
     group_device = device
-    if cmd in CKPT_CMDS and not one_rank:
+    if (cmd in CKPT_CMDS or cmd == "serve" or chaos_wl == "serve") \
+            and not one_rank:
         group_device = "cpu"
+    if cmd == "serve" or chaos_wl == "serve":
+        from tpubench_torch.device import resolve_device
+
+        resolve_device(device)
     # train-ingest owns its capture (StepProfiler: the step window, the
     # extra["profile"] stamp); the whole-run wrap steps aside for it.
     outer_profile = "" if cmd == "train-ingest" else cfg.obs.profile_dir
@@ -1027,12 +1289,63 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
                         res = run_ckpt_restore(cfg, backend=backend,
                                                device=device)
                 print(format_lifecycle_scorecard(res.extra["lifecycle"]))
+            elif cmd == "chaos":
+                res = _chaos(cfg, args, device)
+            elif cmd == "serve":
+                from tpubench_torch.obs.tracing import tracer_session
+                from tpubench_torch.workloads.serve import (
+                    format_membership_scorecard,
+                    format_serve_scorecard,
+                    run_serve,
+                    run_serve_sweep,
+                )
+
+                with tracer_session(cfg) as tracer:
+                    if args.serve_sweep:
+                        res = run_serve_sweep(cfg, tracer=tracer,
+                                              backend=backend, device=device)
+                    else:
+                        res = run_serve(cfg, backend=backend, tracer=tracer,
+                                        device=device)
+                print(format_serve_scorecard(res.extra["serve"]))
+                if res.extra.get("membership"):
+                    print(format_membership_scorecard(
+                        res.extra["membership"]))
             else:
                 raise SystemExit(f"unknown command {cmd!r}")
         if cfg.obs.profile_dir:
             print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
         if topo["process_count"] > 1:
             res.extra["topology"] = topo
+    return res
+
+
+def _chaos(cfg: BenchConfig, args, device) -> RunResult:
+    """The ``chaos`` command: the timeline from the flags, the run under
+    the tracer, the resilience scorecard (and the resize scorecard of an
+    elastic serve pod) printed."""
+    from tpubench_torch.config import FaultConfig
+    from tpubench_torch.obs.tracing import tracer_session
+    from tpubench_torch.workloads.chaos import format_scorecard, run_chaos
+
+    timeline = chaos_timeline_from_args(args)
+    if not args.chaos_timeline:
+        # Shorthand mode: the --fault-* values parameterized the PHASE —
+        # reset them on the base plan, or the "fault" would run every
+        # second of the timeline and the baseline/recovery segments would
+        # measure nothing.
+        defaults = FaultConfig()
+        for fname in timeline[0][2]:
+            setattr(cfg.transport.fault, fname, getattr(defaults, fname))
+    with tracer_session(cfg) as tracer:
+        res = run_chaos(cfg, timeline=timeline,
+                        chaos_workload=args.chaos_workload, tracer=tracer,
+                        device=device)
+    print(format_scorecard(res.extra["chaos"]))
+    if res.extra.get("membership"):
+        from tpubench_torch.workloads.serve import format_membership_scorecard
+
+        print(format_membership_scorecard(res.extra["membership"]))
     return res
 
 

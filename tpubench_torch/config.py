@@ -3,8 +3,8 @@
 
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (serve, drill,
-fleet, …) are kept as the raw dicts they were loaded as, so they
+unchanged. The sections the port has no code for yet (drill, fleet,
+…) are kept as the raw dicts they were loaded as, so they
 round-trip without a dataclass.
 
 A command of ``tpubench`` the port does not have yet is not in its parser,
@@ -17,11 +17,36 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
 KB = 1024
 MB = 1024 * 1024
+
+
+def parse_sleep_scale(purpose: str = "refill sleeps") -> float:
+    """Validated ``TPUBENCH_BENCH_SLEEP_SCALE``: one definition shared by
+    the chaos workload (timeline durations) and the serve plane (arrival
+    gaps), so the two surfaces can never drift on what the env var
+    accepts. A clear one-line rejection for non-numeric/negative/NaN values instead
+    of a ValueError traceback; empty/unset = 1.0."""
+    raw = os.environ.get("TPUBENCH_BENCH_SLEEP_SCALE", "")
+    if not raw:
+        return 1.0
+    try:
+        v = float(raw)
+    except ValueError:
+        raise SystemExit(
+            f"TPUBENCH_BENCH_SLEEP_SCALE={raw!r}: expected a non-negative "
+            f"number (0 disables {purpose}; 1 keeps them full-length)"
+        ) from None
+    if v < 0 or v != v:  # reject negatives and NaN alike
+        raise SystemExit(
+            f"TPUBENCH_BENCH_SLEEP_SCALE={raw!r}: must be >= 0 "
+            f"(0 disables {purpose}; got a negative/NaN value)"
+        )
+    return v
 
 
 @dataclass
@@ -84,6 +109,83 @@ class FaultConfig:
             or self.upload_reset_after_bytes
             or self.phases
         )
+
+
+# Fields a fault phase dict may set (everything but the schedule itself:
+# nested phases would have no defined epoch).
+_FAULT_PHASE_FIELDS = (
+    "error_rate", "read_error_rate", "latency_s", "per_read_latency_s",
+    "seed", "stall_after_bytes", "stall_s", "stall_rate", "drip_bps",
+    "truncate_after_bytes", "reset_after_bytes",
+    "upload_error_rate", "upload_stall_s", "upload_stall_rate",
+    "upload_reset_after_bytes",
+)
+
+
+def validate_fault_config(fc: "FaultConfig", where: str = "fault") -> None:
+    """Reject malformed fault configs with a clear one-line ``SystemExit``
+    (the ``parse_sleep_scale`` style): probabilities
+    outside [0, 1], negative latencies/durations/byte counts, and
+    malformed or negative phase windows all fail at config-load time, not
+    an hour into a run."""
+
+    def _num(label: str, name: str, v):
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            raise SystemExit(
+                f"{label}.{name}={v!r}: must be a number"
+            ) from None
+
+    def _check_fields(d: dict, label: str) -> None:
+        for name in ("error_rate", "read_error_rate", "stall_rate",
+                     "upload_error_rate", "upload_stall_rate"):
+            v = d.get(name)
+            if v is not None and not (0.0 <= _num(label, name, v) <= 1.0):
+                raise SystemExit(
+                    f"{label}.{name}={v!r}: must be a probability in [0, 1]"
+                )
+        for name in (
+            "latency_s", "per_read_latency_s", "stall_s", "drip_bps",
+            "stall_after_bytes", "truncate_after_bytes", "reset_after_bytes",
+            "upload_stall_s", "upload_reset_after_bytes",
+        ):
+            v = d.get(name)
+            if v is not None and _num(label, name, v) < 0:
+                raise SystemExit(f"{label}.{name}={v!r}: must be >= 0")
+
+    base = {f: getattr(fc, f) for f in _FAULT_PHASE_FIELDS}
+    _check_fields(base, where)
+    for i, ph in enumerate(fc.phases or ()):
+        label = f"{where}.phases[{i}]"
+        if not isinstance(ph, (list, tuple)) or len(ph) != 3:
+            raise SystemExit(
+                f"{label}: expected [t0, t1, {{fault fields}}], got {ph!r}"
+            )
+        t0, t1, plan = ph
+        try:
+            t0, t1 = float(t0), float(t1)
+        except (TypeError, ValueError):
+            raise SystemExit(
+                f"{label}: phase window [{ph[0]!r}, {ph[1]!r}] must be numeric"
+            ) from None
+        if t0 < 0 or t1 < t0:
+            raise SystemExit(
+                f"{label}: phase window [{t0}, {t1}] must satisfy "
+                "0 <= t0 <= t1"
+            )
+        if not isinstance(plan, dict):
+            raise SystemExit(
+                f"{label}: third element must be a fault-field dict, "
+                f"got {plan!r}"
+            )
+        unknown = sorted(set(plan) - set(_FAULT_PHASE_FIELDS))
+        if unknown:
+            raise SystemExit(
+                f"{label}: unknown fault field(s) {unknown}; "
+                f"valid: {sorted(_FAULT_PHASE_FIELDS)}"
+            )
+        _check_fields(plan, label)
 
 
 @dataclass
@@ -542,6 +644,256 @@ def validate_coop_config(cc: "CoopConfig", where: str = "coop") -> None:
 
 
 @dataclass
+class ServeConfig:
+    """Open-loop multi-tenant traffic plane (``serve``,
+    tpubench_torch/serve/ + workloads/serve.py).
+
+    Every other workload is closed-loop — a fixed pool pulls as fast as
+    it can. ``serve`` drives OPEN-LOOP arrivals (requests land on their
+    own schedule whether or not the system keeps up) from many synthetic
+    tenants in weighted priority classes, through the full
+    open_backend → chunk cache → prefetcher → staging stack, with QoS
+    enforced at the choke points: priority admission with a live cap
+    (the runnable-queue admission hook), weighted per-class cache/
+    prefetch byte budgets, and deadline-aware shedding under overload.
+    ``serve-sweep`` steps offered load and emits the latency-vs-load
+    curve to the saturation knee (the Pulsar-study methodology)."""
+
+    # Run length (seconds of VIRTUAL schedule; wall time scales with
+    # TPUBENCH_BENCH_SLEEP_SCALE via the shared parse_sleep_scale).
+    duration_s: float = 4.0
+    # Aggregate offered load, requests/second across all tenants.
+    rate_rps: float = 200.0
+    # Arrival process: poisson | bursty (two-state MMPP) | diurnal
+    # (sinusoidal-rate thinned Poisson) | trace (replayed timestamps).
+    arrival: str = "poisson"
+    burst_factor: float = 4.0  # bursty: burst-to-quiet rate ratio
+    burst_fraction: float = 0.25  # bursty: fraction of each cycle bursting
+    burst_cycle_s: float = 1.0  # bursty: quiet+burst cycle length
+    diurnal_period_s: float = 4.0  # diurnal: one "day" in seconds
+    trace_path: str = ""  # trace: JSON list of arrival seconds
+    # Tenant population: expanded over `classes` by share; each tenant
+    # draws its objects from a Zipf(alpha) popularity law over the
+    # shared object set (workloads/arrivals.zipf_plan).
+    tenants: int = 100
+    alpha: float = 1.2
+    # Priority classes: list of {"name", "share" (of tenants/traffic),
+    # "weight" (cache/prefetch budget split), "deadline_ms" (per-request
+    # SLO), "priority" (lower = served first)} dicts. Validated by
+    # validate_serve_config; malformed specs are a one-line SystemExit.
+    classes: list = field(default_factory=lambda: [
+        {"name": "gold", "share": 0.1, "weight": 4.0,
+         "deadline_ms": 80.0, "priority": 0},
+        {"name": "silver", "share": 0.3, "weight": 2.0,
+         "deadline_ms": 250.0, "priority": 1},
+        {"name": "best_effort", "share": 0.6, "weight": 1.0,
+         "deadline_ms": 1500.0, "priority": 2},
+    ])
+    # Request size: one chunk per request (0 = workload.granule_bytes).
+    chunk_bytes: int = 0
+    # Service worker threads (the concurrency ceiling admission caps).
+    workers: int = 8
+    # QoS master switch: False = FIFO queue, no shedding, no weighted
+    # budgets — the baseline arm of the QoS A/B.
+    qos: bool = True
+    # Admission cap: requests in service at once (0 = workers). Live:
+    # the tune controller actuates it through the "workers" knob.
+    admission_cap: int = 0
+    # Queued-request bound before overload shedding (QoS mode; 0 = a
+    # default of 8x workers). The baseline arm queues unboundedly.
+    queue_limit: int = 0
+    # Readahead over the arrival schedule (serve knows its replayed
+    # trace ahead of time the way train-ingest knows its plan): depth in
+    # chunks; 0 = demand-only.
+    readahead: int = 0
+    # serve-sweep: offered-load multipliers of rate_rps, stepped in
+    # order; per-point run length (0 = duration_s).
+    sweep_points: list = field(default_factory=lambda: [
+        0.25, 0.5, 1.0, 2.0, 4.0,
+    ])
+    sweep_duration_s: float = 0.0
+    seed: int = 0
+    # Elastic pod membership (tpubench_torch/dist/membership.py): hosts > 1
+    # fans the serve plane across an N-host hermetic threaded pod whose
+    # misses route through coop-cache consistent-hash ownership, and
+    # membership_timeline changes the pod's shape UNDER load —
+    # ``[t0, t1, {action: host}]`` entries in virtual schedule seconds
+    # (the arrival clock), actions kill_host (die, no handoff),
+    # leave_host (cooperative warm handoff), pause_host (unresponsive
+    # during [t0, t1], resumes at t1) and rejoin_host (clean re-entry).
+    # The resize scorecard brackets each event with resize_window_s of
+    # virtual time (SLO-during-resize vs steady state).
+    hosts: int = 1
+    membership_timeline: list = field(default_factory=list)
+    resize_window_s: float = 1.0
+
+
+def validate_serve_config(sc: "ServeConfig", where: str = "serve") -> None:
+    """Parse-time sanity for the serve plane (one-line SystemExit at
+    config load — the validate_fault_config style): malformed tenant
+    class specs and arrival parameters fail before a single arrival."""
+    if not (sc.duration_s > 0):  # also rejects NaN
+        raise SystemExit(f"{where}.duration_s={sc.duration_s!r}: must be > 0")
+    if not (sc.rate_rps > 0):
+        raise SystemExit(f"{where}.rate_rps={sc.rate_rps!r}: must be > 0")
+    if sc.arrival not in ("poisson", "bursty", "diurnal", "trace"):
+        raise SystemExit(
+            f"{where}.arrival={sc.arrival!r}: must be "
+            "poisson|bursty|diurnal|trace"
+        )
+    if sc.arrival == "trace" and not sc.trace_path:
+        raise SystemExit(
+            f"{where}.arrival=trace requires {where}.trace_path "
+            "(a JSON list of arrival seconds)"
+        )
+    if not (sc.burst_factor >= 1.0):
+        raise SystemExit(
+            f"{where}.burst_factor={sc.burst_factor!r}: must be >= 1"
+        )
+    if not (0.0 < sc.burst_fraction < 1.0):
+        raise SystemExit(
+            f"{where}.burst_fraction={sc.burst_fraction!r}: must be in (0, 1)"
+        )
+    for name in ("burst_cycle_s", "diurnal_period_s", "alpha"):
+        v = getattr(sc, name)
+        if not (v > 0):
+            raise SystemExit(f"{where}.{name}={v!r}: must be > 0")
+    for name, lo in (("tenants", 1), ("workers", 1), ("chunk_bytes", 0),
+                     ("admission_cap", 0), ("queue_limit", 0),
+                     ("readahead", 0)):
+        v = getattr(sc, name)
+        if v < lo:
+            raise SystemExit(f"{where}.{name}={v!r}: must be >= {lo}")
+    if not (sc.sweep_duration_s >= 0):
+        raise SystemExit(
+            f"{where}.sweep_duration_s={sc.sweep_duration_s!r}: must be >= 0"
+        )
+    if not sc.sweep_points or not all(
+        isinstance(p, (int, float)) and p > 0 for p in sc.sweep_points
+    ):
+        raise SystemExit(
+            f"{where}.sweep_points={sc.sweep_points!r}: must be a non-empty "
+            "list of positive load multipliers"
+        )
+    if not sc.classes or not isinstance(sc.classes, list):
+        raise SystemExit(
+            f"{where}.classes: must be a non-empty list of class dicts"
+        )
+    allowed = {"name", "share", "weight", "deadline_ms", "priority"}
+    seen = set()
+    for i, c in enumerate(sc.classes):
+        label = f"{where}.classes[{i}]"
+        if not isinstance(c, dict):
+            raise SystemExit(f"{label}: expected a dict, got {c!r}")
+        unknown = sorted(set(c) - allowed)
+        if unknown:
+            raise SystemExit(
+                f"{label}: unknown field(s) {unknown}; valid: "
+                f"{sorted(allowed)}"
+            )
+        name = c.get("name")
+        if not name or not isinstance(name, str):
+            raise SystemExit(f"{label}: 'name' must be a non-empty string")
+        if name in seen:
+            raise SystemExit(f"{label}: duplicate class name {name!r}")
+        seen.add(name)
+        for fname, pred, what in (
+            ("share", lambda v: v > 0, "> 0"),
+            ("deadline_ms", lambda v: v > 0, "> 0"),
+            ("weight", lambda v: v > 0, "> 0"),
+        ):
+            v = c.get(fname, 1.0 if fname == "weight" else None)
+            try:
+                ok = v is not None and pred(float(v))
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise SystemExit(f"{label}.{fname}={v!r}: must be {what}")
+        pr = c.get("priority", i)
+        if not isinstance(pr, int) or pr < 0:
+            raise SystemExit(
+                f"{label}.priority={pr!r}: must be an int >= 0"
+            )
+    if sc.hosts < 1:
+        raise SystemExit(f"{where}.hosts={sc.hosts!r}: must be >= 1")
+    if not (sc.resize_window_s > 0):  # also rejects NaN
+        raise SystemExit(
+            f"{where}.resize_window_s={sc.resize_window_s!r}: must be > 0"
+        )
+    if sc.hosts > 1 and sc.readahead > 0:
+        # The elastic pod is demand-path only: schedule readahead is a
+        # single-host plane feature, and silently no-opping the knob
+        # would hand an A/B user bit-identical arms.
+        raise SystemExit(
+            f"{where}.readahead={sc.readahead} is a single-host plane "
+            f"feature — the elastic pod ({where}.hosts={sc.hosts}) "
+            "resolves misses through coop ownership only; set "
+            f"{where}.readahead=0"
+        )
+    validate_membership_timeline(sc, where)
+
+
+def validate_membership_timeline(sc: "ServeConfig",
+                                 where: str = "serve") -> None:
+    """Parse-time sanity for the elastic-membership timeline (the
+    validate_fault_config phase style): entry shape, numeric windows,
+    exactly one known host action per entry, host ids inside the pod.
+    A timeline over a single-host pod is refused loudly — there is no
+    membership to change."""
+    tl = sc.membership_timeline
+    if not tl:
+        return
+    if sc.hosts < 2:
+        raise SystemExit(
+            f"{where}.membership_timeline needs {where}.hosts >= 2 "
+            f"(got {sc.hosts}): a pod of one has no membership to change"
+        )
+    for i, ph in enumerate(tl):
+        label = f"{where}.membership_timeline[{i}]"
+        if not isinstance(ph, (list, tuple)) or len(ph) != 3:
+            raise SystemExit(
+                f"{label}: expected [t0, t1, {{action: host}}], got {ph!r}"
+            )
+        t0, t1, spec = ph
+        try:
+            t0, t1 = float(t0), float(t1)
+        except (TypeError, ValueError):
+            raise SystemExit(
+                f"{label}: window [{ph[0]!r}, {ph[1]!r}] must be numeric"
+            ) from None
+        if t0 < 0 or t1 < t0:
+            raise SystemExit(
+                f"{label}: window [{t0}, {t1}] must satisfy 0 <= t0 <= t1"
+            )
+        if not isinstance(spec, dict) or len(spec) != 1:
+            raise SystemExit(
+                f"{label}: third element must be one {{action: host}} "
+                f"dict, got {spec!r}"
+            )
+        (action, host), = spec.items()
+        if action not in MEMBER_TIMELINE_ACTIONS:
+            raise SystemExit(
+                f"{label}: unknown membership action {action!r}; valid: "
+                f"{sorted(MEMBER_TIMELINE_ACTIONS)}"
+            )
+        if not isinstance(host, int) or not (0 <= host < sc.hosts):
+            raise SystemExit(
+                f"{label}.{action}={host!r}: host must be an int in "
+                f"[0, {sc.hosts})"
+            )
+
+
+# Host-level membership actions a chaos/serve timeline may carry (the
+# single source dist/membership.py, the chaos splitter and the timeline
+# validator all read). pause_host resumes at its window's t1; the
+# others fire at t0.
+MEMBER_TIMELINE_ACTIONS = (
+    "kill_host", "leave_host", "pause_host", "rejoin_host",
+)
+
+
+
+@dataclass
 class LifecycleConfig:
     """Storage-lifecycle plane (``lifecycle/`` + the ``ckpt-save``/
     ``ckpt-restore`` workloads; the ``meta_*`` fields are
@@ -668,7 +1020,7 @@ def parse_meta_mix(spec: str, where: str = "lifecycle") -> dict[str, float]:
 # loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
                    "telemetry", "tune", "pipeline", "coop",
-                   "lifecycle")
+                   "lifecycle", "serve")
 
 
 @dataclass
@@ -683,6 +1035,7 @@ class BenchConfig:
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     coop: CoopConfig = field(default_factory=CoopConfig)
     lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -731,6 +1084,7 @@ _SUBTYPES = {
     "pipeline": PipelineConfig,
     "coop": CoopConfig,
     "lifecycle": LifecycleConfig,
+    "serve": ServeConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,

@@ -1,3 +1,5 @@
-"""Replay plane (``tpubench/replay``): only the ``report --fail-on`` gate
-(:mod:`.gate`) is ported so far; recording and replaying bundles come
+"""Replay plane (``tpubench/replay``). Ported so far: the ``report
+--fail-on`` gate (:mod:`.gate`) and the replay stamp a serve run writes
+into its flight journal (:mod:`.bundle`: ``config_fingerprint``,
+``journal_replay_stamp``). Recording, loading and replaying bundles come
 with ``ROADMAP.md`` A.7."""

@@ -15,12 +15,13 @@ sides (``write``/``open_write``/``delete`` on every backend).
   resume, over every backend;
 * :mod:`.tail` — tail tolerance (hedged reads, stall watchdog, circuit
   breaker), inside the retry decorator;
+* :mod:`.reactor_backend` — the serve plane's reads through the native
+  executor's pool (``--fetch-executor native`` on ``http``);
 * the hermetic servers the clients are run against: :mod:`.fake_server`
   (HTTP/1.1), :mod:`.fake_h2_server` (HTTP/2), :mod:`.fake_grpc_wire_server`
   (gRPC).
 
-Still to come (``ROADMAP.md``): gRPC library mode (A.2), the
-reactor-fetch wrapper of the serve plane (A.7).
+Still to come (``ROADMAP.md``): gRPC library mode (A.2).
 """
 
 from tpubench_torch.storage.base import (  # noqa: F401
@@ -50,27 +51,37 @@ def fault_plan(cfg):
     return FaultPlan(**dataclasses.asdict(fc)) if fc.active else None
 
 
-def open_backend(cfg, tracer=None) -> StorageBackend:
+def open_backend(cfg, tracer=None, fault=None) -> StorageBackend:
     """Backend from a BenchConfig (reference: main.go:169-177 protocol
-    switch). ``fake`` holds one object per worker, as ``tpubench``'s does.
-    Every backend is wrapped in the tail layers the config switches on and
-    then in the client-level retry policy (main.go:179-184) unless
-    ``transport.retry.policy`` is ``never``. ``tracer`` gives the HTTP and
-    gRPC clients their request spans."""
+    switch). ``fake`` holds one object per worker, as ``tpubench``'s does,
+    under ``fault`` (a :class:`FaultPlan` the caller arms, as ``chaos``
+    does) or else the config's fault plan. Every backend is wrapped in the
+    tail layers the config switches on and then in the client-level retry
+    policy (main.go:179-184) unless ``transport.retry.policy`` is
+    ``never``. ``tracer`` gives the HTTP and gRPC clients their request
+    spans."""
     proto = cfg.transport.protocol
     if proto == "fake":
         inner = FakeBackend.prepopulated(
             prefix=cfg.workload.object_name_prefix,
             count=max(cfg.workload.workers, cfg.workload.threads),
             size=cfg.workload.object_size,
-            fault=fault_plan(cfg),
+            fault=fault if fault is not None else fault_plan(cfg),
         )
     elif proto == "http":
         from tpubench_torch.storage.gcs_http import GcsHttpBackend
+        from tpubench_torch.storage.reactor_backend import (
+            maybe_wrap_reactor_fetch,
+        )
 
         inner = GcsHttpBackend(
             cfg.workload.bucket, transport=cfg.transport, tracer=tracer
         )
+        # A native fetch executor routes backend reads (the serve plane's
+        # fetches) through the shared pool; the wrapper is lazy, so the
+        # read runners, which drive the pool themselves, never start a
+        # second one.
+        inner = maybe_wrap_reactor_fetch(inner, cfg)
     elif proto == "grpc":
         from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
 

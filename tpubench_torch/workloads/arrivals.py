@@ -22,8 +22,7 @@ serve and the coop simulation must agree on:
 
 Timelines are VIRTUAL: generation never sleeps. The dispatcher that
 replays one applies :func:`scaled_gaps` — the shared
-``TPUBENCH_BENCH_SLEEP_SCALE`` contract (``tpubench``'s
-``config.parse_sleep_scale``; the serve plane brings it to the port)
+``TPUBENCH_BENCH_SLEEP_SCALE`` contract (``config.parse_sleep_scale``)
 with a per-gap floor, so a scaled-down hermetic run still *paces* its
 bursts instead of collapsing every gap to zero and measuring a batch
 submit instead of an arrival process.
@@ -32,6 +31,7 @@ submit instead of an arrival process.
 from __future__ import annotations
 
 import json
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -132,7 +132,10 @@ def mmpp_arrivals(
     occupies ``burst_fraction`` of each ``cycle_s``); rates are scaled
     so the MEAN offered load stays ``rate_rps`` — the burst A/B varies
     shape, not volume. ``burst_factor`` is the burst-to-quiet rate
-    ratio."""
+    ratio. Where ``tpubench``'s loop ends, this one gives the same
+    timeline bit for bit; where a window edge falls below t's float
+    resolution, ``tpubench``'s never ends and this one steps past the
+    edge."""
     if rate_rps <= 0 or duration_s <= 0:
         return []
     rng = rng if rng is not None else _rng(seed)
@@ -153,7 +156,17 @@ def mmpp_arrivals(
         boundary = (frac * cycle_s - cycle_t) if in_burst \
             else (cycle_s - cycle_t)
         if g > boundary:
-            t += boundary
+            nt = t + boundary
+            if nt == t:
+                # ``t % cycle_s`` landed a rounding error short of the
+                # edge and the step is below t's resolution: ``tpubench``
+                # spins here for ever. Take the edge from the cycle's
+                # index instead, or the next float past t when that edge
+                # rounds to t itself (the state then flips).
+                k = round((t - cycle_t) / cycle_s)
+                edge = k * cycle_s + (frac * cycle_s if in_burst else cycle_s)
+                nt = edge if edge > t else math.nextafter(t, math.inf)
+            t = nt
             continue
         t += g
         if t < duration_s:

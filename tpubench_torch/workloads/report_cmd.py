@@ -12,7 +12,7 @@ given two or more runs — pairwise deltas grouped by config axis
 (transport bit, staging mode, fetch executor).
 
 A document carrying the block of a workload the port does not have yet
-(chaos, serve, drill, fleet, replay) is refused
+(drill, fleet, replay) is refused
 with ``NotImplementedError`` naming its ``ROADMAP.md`` item, never
 rendered without that block. ``bench.py`` lines and multichip-sweep
 artifacts are plain dicts and render as in ``tpubench``.
@@ -144,9 +144,6 @@ def _axis(run: dict) -> str:
 # Result blocks whose formatter belongs to a workload not ported yet ->
 # the ROADMAP item that brings it.
 UNPORTED_BLOCKS = {
-    "chaos": "A.6: the chaos entry point",
-    "serve": "A.7: serve",
-    "membership": "A.7: dist/membership.py",
     "drill": "A.7: drill",
     "drill_sweep": "A.7: drill",
     "fleet": "A.7: fleet",
@@ -190,6 +187,13 @@ def summarize_run(run: dict, label: str = "") -> str:
         lines.append(format_staging_block(staging))
     if "checksum_ok" in extra:
         lines.append(f"  checksum_ok={extra['checksum_ok']}")
+    chaos = extra.get("chaos")
+    if chaos:
+        # The resilience scorecard travels in the result file; render it
+        # with the same body `chaos` printed live.
+        from tpubench_torch.workloads.chaos import format_scorecard
+
+        lines.append(format_scorecard(chaos))
     pipe = extra.get("pipeline")
     if pipe:
         # Ingest-pipeline scorecard (train-ingest): the body the CLI
@@ -200,6 +204,24 @@ def summarize_run(run: dict, label: str = "") -> str:
         )
 
         lines.append(format_pipeline_scorecard(pipe))
+    sv = extra.get("serve")
+    if sv:
+        # Serve scorecard / load-sweep curve: the same body `serve`
+        # printed live — per-class SLO attainment, Jain fairness,
+        # shedding, and (sweep runs) the knee.
+        from tpubench_torch.workloads.serve import format_serve_scorecard
+
+        lines.append(format_serve_scorecard(sv))
+    mb = extra.get("membership")
+    if mb:
+        # Elastic-membership resize scorecard: events with remap/handoff
+        # accounting, SLO during resize windows vs steady state,
+        # origin-byte split, time-to-rewarm.
+        from tpubench_torch.workloads.serve import (
+            format_membership_scorecard,
+        )
+
+        lines.append(format_membership_scorecard(mb))
     for key, item in UNPORTED_BLOCKS.items():
         if extra.get(key):
             # The block's formatter lives in a workload not ported yet:
