@@ -119,8 +119,8 @@ before the last line:
    journal: exit 0, the controller's decisions counted;
 14. sweep — ``sweep`` as the CLI runs it: sweep/pallas, the fake store
    through the landing ring over the reference's four sizes and read
-   counts (256kb x 1000, 1mb x 100, 100mb x 10 at 48 workers; 1gb x 1 at
-   8), then sweep/validate, HTTP/1.1, HTTP/2 and gRPC (each with and
+   counts (256kb x 1000, 1mb x 100 at 48 workers; 100mb cut to 3 reads
+   at 48; 1gb x 1 at 8), then sweep/validate, HTTP/1.1, HTTP/2 and gRPC (each with and
    without native receive where there is one) through the validating
    copy ring against phase protocols' servers (100mb, 8 workers, one
    read each). Every cell ``checksum_ok``, zero errors, every byte
@@ -234,7 +234,26 @@ before the last line:
    the kill applied, no slab leaked, every arrival accounted for, no
    kernel launched). Every mode prints its resilience scorecard, has
    zero errors and failed reads, and leaves the caller's config as it
-   was.
+   was;
+24. drill — none of it launches a kernel. meta_http and meta_grpc:
+   ``meta-storm`` through ``cli.execute`` at ``tpubench``'s lifecycle
+   defaults (64 objects of 4 KiB, Poisson 200 ops/s for 2 s, mix
+   list:1,stat:2,open:2, pages of 16, 8 workers) behind the HTTP/1.1 and
+   the gRPC wire fakes: every op of the schedule completed, no error,
+   every list the folder's 64 names over 4 pages (the store's own list
+   counted once a page); meta_sweep: ``--meta-sweep`` at 3 points, its
+   points and knee printed. drill_default: ``drill`` at ``tpubench``'s
+   ServeConfig and DrillConfig defaults on a 4-host pod over phase
+   read's objects (a store sharing its arrays), a checkpoint of 16
+   objects of 48 MiB in 16 MiB parts: the restore verified, the serving
+   classes without error, no slab leaked, the pools unpinned, every
+   stored shard's crc32 the one its saver published for that generation
+   (0 corrupt finalizes); save dispositions and torn re-reads printed.
+   drill_meta: the same with a 200/s storm beside it. replay_gold: both
+   bundles under ``scenarios/`` validated and replayed under their
+   recording config (fingerprint and arrivals match, gold SLO within 5
+   points, the drill's restore verified), then drill_default's journal
+   recorded, replayed and re-recorded: the two bundles byte-identical.
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB),
 at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128), at
@@ -425,6 +444,7 @@ def main() -> int:
     counts.update(phase_ckpt(store, smi))
     counts.update(phase_serve(store, smi))
     counts.update(phase_chaos(store, pod_store, smi))
+    counts.update(phase_drill(store, smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -2315,6 +2335,9 @@ def phase_tune(store, smi) -> dict:
 # servers (phase read's 100 MiB objects) with fewer workers.
 SWEEP_1GB_WORKERS = 8
 SWEEP_SERVER_WORKERS = 8
+# The fake 100mb cell's reads a worker (the reference's launcher runs 10):
+# 48 x 3 x 100 MiB through the landing ring.
+SWEEP_100MB_READS = 3
 
 
 class SweepObserved:
@@ -2451,8 +2474,12 @@ def phase_sweep(store, smi) -> dict:
     argv = ["--protocol", "fake", "--sweep-protocols", "fake",
             "--staging", "pallas", "--granule-bytes", str(GRANULE)]
     pallas, _ = _sweep_cells("sweep/pallas", [
-        *argv, "--sweep-sizes", "256kb,1mb,100mb", "--workers", str(WORKERS)],
+        *argv, "--sweep-sizes", "256kb,1mb", "--workers", str(WORKERS)],
         smi)
+    # sweep caps each cell's reads at --read-call-per-worker.
+    mid, _ = _sweep_cells("sweep/pallas", [
+        *argv, "--sweep-sizes", "100mb", "--workers", str(WORKERS),
+        "--read-call-per-worker", str(SWEEP_100MB_READS)], smi)
     big, _ = _sweep_cells("sweep/pallas", [
         *argv, "--sweep-sizes", "1gb", "--workers", str(SWEEP_1GB_WORKERS)],
         smi)
@@ -2473,13 +2500,15 @@ def phase_sweep(store, smi) -> dict:
                 str(GRANULE), "--validate"], smi)
             validate = {k: validate[k] + n[k] for k in validate}
     emit({"phase": "sweep_reduced", "reduced": [
+        f"fake 100mb cell: {SWEEP_100MB_READS} reads a worker (the "
+        "reference's 10; the script's time on the card)",
         f"fake 1gb cell: {SWEEP_1GB_WORKERS} workers (48 x 1 GiB objects "
         "would be generated in host memory)",
         f"server cells: 100mb only, {SWEEP_SERVER_WORKERS} workers, 1 read "
         "each (the servers hold phase read's 100 MiB objects: sweep sets "
         "object_size, which only the fake store reads; h2 and gRPC run "
         "at 0.2-0.5 GB/s behind the Python servers)"]})
-    return {"sweep/pallas": {k: pallas[k] + big[k] for k in pallas},
+    return {"sweep/pallas": {k: pallas[k] + mid[k] + big[k] for k in pallas},
             "sweep/validate": validate}
 
 
@@ -3730,10 +3759,11 @@ CHAOS_REDUCED = [
 
 class SharedStore:
     """Makes ``FakeBackend.prepopulated`` (which ``open_backend`` and
-    ``chaos``'s own backend call) hand back a store over the arrays of a
-    store this script already holds when the objects asked for are among
-    them: the same names, sizes and bytes (``deterministic_bytes``), under
-    the fault plan the caller gives — regenerating 4.8 GB for every chaos
+    ``chaos``'s own backend call) and ``FakeBackend.from_population``
+    (which ``replay`` calls) hand back a store over the arrays of a store
+    this script already holds when the objects asked for are among them:
+    the same names, sizes and bytes (``deterministic_bytes``), under the
+    fault plan the caller gives — regenerating 4.8 GB for every chaos
     mode would cost 10 s a mode. Any other population is built as
     before."""
 
@@ -3741,27 +3771,48 @@ class SharedStore:
         self.stores = stores
 
     def __enter__(self):
+        from tpubench_torch.storage.base import ObjectMeta
         from tpubench_torch.storage.fake import FakeBackend
 
-        self.cls, self.real = FakeBackend, FakeBackend.__dict__["prepopulated"]
-        stores, real = self.stores, self.real.__func__
+        self.cls = FakeBackend
+        self.real = {k: FakeBackend.__dict__[k]
+                     for k in ("prepopulated", "from_population")}
+        stores = self.stores
+        real_pre = self.real["prepopulated"].__func__
+        real_pop = self.real["from_population"].__func__
+
+        def over(cls, triples, fault):
+            for st in stores:
+                if all(len(st._objects.get(n, ())) == size
+                       for n, size, _ in triples):
+                    be = cls(fault=fault)
+                    for n, _, gen in triples:
+                        be._objects[n] = st._objects[n]
+                        be._generation[n] = gen or st._generation[n]
+                    return be
+            return None
 
         def shared(cls, prefix, count, size, fault=None):
-            names = [f"{prefix}{i}" for i in range(count)]
-            for st in stores:
-                if all(len(st._objects.get(n, ())) == size for n in names):
-                    be = cls(fault=fault)
-                    for n in names:
-                        be._objects[n] = st._objects[n]
-                        be._generation[n] = st._generation[n]
-                    return be
-            return real(cls, prefix, count, size, fault)
+            be = over(cls, [(f"{prefix}{i}", size, 0) for i in range(count)],
+                      fault)
+            return be or real_pre(cls, prefix, count, size, fault)
+
+        def population(cls, objects, fault=None):
+            objects = list(objects)
+            triples = [(o.name, o.size, o.generation)
+                       if isinstance(o, ObjectMeta) else tuple(o)
+                       for o in objects]
+            be = over(cls, [(n, int(s), int(g)) for n, s, g in triples],
+                      fault)
+            return be or real_pop(cls, objects, fault)
 
         FakeBackend.prepopulated = classmethod(shared)
+        FakeBackend.from_population = classmethod(population)
         return self
 
     def __exit__(self, *exc):
-        self.cls.prepopulated = self.real
+        for k, v in self.real.items():
+            setattr(self.cls, k, v)
 
 
 def _launch_counts() -> dict:
@@ -4080,6 +4131,380 @@ def phase_chaos(store, pod_store, smi) -> dict:
         launches[f"chaos/{mode.removeprefix('chaos_')}"] = counts
     emit({"phase": "chaos_total", "seconds": time.perf_counter() - t_phase,
           "card": smi, "reduced": CHAOS_REDUCED})
+    return launches
+
+
+# ------------------------------------------------------------- phase 24 --
+# Phase drill. meta-storm at tpubench's lifecycle defaults (64 objects x
+# 4 KiB, Poisson 200 ops/s for 2 s, mix list:1,stat:2,open:2, pages of 16,
+# 8 workers) behind the HTTP/1.1 fake and the gRPC wire fake (every list
+# targets lifecycle.prefix's meta/ folder, so each must come back whole:
+# 64 names over 4 pages), then --meta-sweep at 3 points. The drill at
+# tpubench's ServeConfig and DrillConfig defaults on a 4-host pod (kill at
+# 1.0 s, join at 1.5 s, restore through coop, delta saves every 1.0 s at
+# dirty fraction 0.25) over phase read's objects, with a checkpoint of
+# phase ckpt's shape; the same with a 200/s storm sharing the pod. Then
+# both goldens under scenarios/ replayed under their recording config,
+# and drill_default's journal recorded, replayed and re-recorded.
+META_SWEEP_POINTS = "0.5,1,2"
+DRILL_HOSTS = 4
+# Phase ckpt's 16 objects, cut from its 128 MiB to 48 MiB (3 parts) an
+# object: at 128 MiB one drill took 31 s (the baseline save alone ~18 s),
+# and at 64 MiB the phase took 84 s of the 90 s it may (three drills:
+# default, storm, replayed).
+DRILL_CKPT_OBJECTS, DRILL_CKPT_BYTES = 16, 48 * MIB
+DRILL_META_RATE = 200.0
+GOLDEN_BUNDLES = ("chaos-serve-gold", "drill-restore-gold")
+# The goldens' recording config (scenarios/README.md): protocol fake,
+# 4 workers of 1 MiB objects, every system knob at its default.
+GOLDEN_ARGV = ["--protocol", "fake", "--workers", "4", "--object-size",
+               str(MIB)]
+DRILL_REDUCED = [
+    f"checkpoint {DRILL_CKPT_OBJECTS} x {DRILL_CKPT_BYTES // MIB} MiB "
+    "(phase ckpt's 16 x 128 MiB would not fit the phase's 90 s)",
+    "meta_sweep: 3 points (0.5x, 1x, 2x of 200/s; the default steps 4)",
+    "one rank: the pod's 4 hosts are threads of one process, as in "
+    "tpubench",
+]
+
+
+class TrackerObserved:
+    """Keeps each ``DeltaTracker`` a drill builds (the class looked up in
+    ``lifecycle.delta`` at each run, subclassed to note its instances), so
+    the stored checkpoint can be held against the crc32 the saver
+    published for each generation."""
+
+    def __enter__(self):
+        from tpubench_torch.lifecycle import delta
+
+        self.mod, self.real = delta, delta.DeltaTracker
+        made = self.made = []
+
+        class Noted(self.real):
+            def __init__(self, manifest):
+                super().__init__(manifest)
+                made.append(self)
+
+        delta.DeltaTracker = Noted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.DeltaTracker = self.real
+
+
+def _fresh_store(store):
+    """A fake store over phase read's arrays (no copy): what a drill writes
+    lands here and goes with it."""
+    from tpubench_torch.storage.fake import FakeBackend
+
+    be = FakeBackend()
+    be._objects.update(store._objects)
+    be._generation.update(store._generation)
+    return be
+
+
+def _meta_run(mode: str, smi) -> dict:
+    """One meta-storm mode through ``cli.execute``, checked; its line."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.lifecycle.storm import build_storm_schedule
+    from tpubench_torch.storage.fake import FakeBackend
+    from tpubench_torch.storage.fake_grpc_wire_server import (
+        FakeGrpcWireServer,
+    )
+    from tpubench_torch.storage.fake_server import FakeGcsServer
+
+    store, pages = FakeBackend(), []
+    real_list = store.list
+
+    def counted_list(prefix="", page_size=0):
+        pages.append(prefix)
+        return real_list(prefix, page_size)
+
+    store.list = counted_list
+    argv = ["meta-storm", "--workers", "1", "--object-size", "4096"]
+    with contextlib.ExitStack() as stack:
+        if mode == "meta_sweep":
+            argv += ["--protocol", "fake", "--meta-sweep",
+                     "--meta-sweep-points", META_SWEEP_POINTS]
+        else:
+            srv_cls = FakeGcsServer if mode == "meta_http" else \
+                FakeGrpcWireServer
+            srv = stack.enter_context(srv_cls(store))
+            argv += ["--protocol", "http" if mode == "meta_http" else "grpc",
+                     "--endpoint", srv.endpoint, "--bucket", "testbucket"]
+        args, cfg = _cli(argv)
+        buf = io.StringIO()
+        landing.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.execute("meta-storm", cfg, device="cuda", args=args)
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+    lc, life = res.extra["lifecycle"], cfg.lifecycle
+    check(counts == {"land": 0, "checksum": 0},
+          f"drill/{mode}: meta-storm launched {counts}")
+    check(f"lifecycle [meta_storm]" in buf.getvalue(),
+          f"drill/{mode}: no scorecard printed")
+    line = {"phase": "drill", "mode": mode, "launches": counts,
+            "seconds": seconds, "wall_s": res.wall_seconds,
+            "objects": life.meta_objects, "mix": life.meta_mix,
+            "page_size": life.meta_page_size, "card": smi,
+            "reduced": DRILL_REDUCED}
+    if mode == "meta_sweep":
+        sw = lc["sweep"]
+        check(len(sw["points"]) == 3
+              and all(p["errors"] == 0 for p in sw["points"]),
+              f"drill/{mode}: points {sw['points']}")
+        line.update(points=sw["points"], knee=sw["knee"],
+                    base_rate_rps=life.meta_rate_rps)
+        return line
+    names = [f"{life.prefix}meta/{i:05d}" for i in range(life.meta_objects)]
+    want = len(build_storm_schedule(
+        names, kind=life.meta_arrival, rate_rps=life.meta_rate_rps,
+        duration_s=life.meta_duration_s, mix=life.meta_mix,
+        prefix=f"{life.prefix}meta/", seed=life.seed,
+        burst_factor=cfg.serve.burst_factor,
+        burst_fraction=cfg.serve.burst_fraction,
+        burst_cycle_s=cfg.serve.burst_cycle_s,
+        diurnal_period_s=cfg.serve.diurnal_period_s))
+    lists = lc["by_kind_completed"].get("list", 0)
+    wire_pages = len(pages)
+    listed = len(real_list(f"{life.prefix}meta/"))
+    per_list = -(-listed // life.meta_page_size)
+    check(lc["errors"] == 0 and lc["completed"] == lc["ops"] == want,
+          f"drill/{mode}: {lc['completed']} of {lc['ops']} ops (schedule "
+          f"{want}), {lc['errors']} errors")
+    check(listed >= life.meta_objects and lists > 0
+          and lc["list_items"] == lists * listed,
+          f"drill/{mode}: {lc['list_items']} items in {lists} lists of a "
+          f"{listed}-object folder")
+    check(per_list > 1 and wire_pages == lists * per_list,
+          f"drill/{mode}: {wire_pages} pages for {lists} lists "
+          f"({per_list} a list)")
+    line.update(ops=lc["ops"], completed=lc["completed"],
+                by_kind_completed=lc["by_kind_completed"],
+                list_items=lc["list_items"], listed=listed,
+                pages_per_list=per_list, offered_rps=lc["offered_rps"],
+                achieved_rps=lc["achieved_rps"], p50_ms=lc["p50_ms"],
+                p99_ms=lc["p99_ms"], by_kind={
+                    k: {q: v[q] for q in ("count", "p50_ms", "p99_ms")}
+                    for k, v in lc["by_kind"].items()})
+    return line
+
+
+def _drill_run(mode: str, store, smi) -> tuple[dict, str]:
+    """One drill mode through ``cli.execute`` over a store sharing phase
+    read's arrays, checked; returns its line and its journal."""
+    import contextlib
+    import io
+    import zlib
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    journal = f"{BUILD}/drill/{mode}.json"
+    argv = ["drill", "--protocol", "fake", "--workers", str(WORKERS),
+            "--object-size", str(OBJECT_SIZE), "--granule-bytes",
+            str(GRANULE), "--serve-hosts", str(DRILL_HOSTS),
+            "--ckpt-objects", str(DRILL_CKPT_OBJECTS),
+            "--ckpt-object-bytes", str(DRILL_CKPT_BYTES),
+            "--ckpt-part-bytes", str(CKPT_PART_BYTES),
+            "--flight-journal", journal]
+    if mode == "drill_meta":
+        argv += ["--drill-meta-rate", str(DRILL_META_RATE)]
+    args, cfg = _cli(argv)
+    backend = _fresh_store(store)
+    buf = io.StringIO()
+    with TrackerObserved() as trackers, contextlib.redirect_stdout(buf):
+        landing.reset_launches()
+        t0 = time.perf_counter()
+        res = cli.execute("drill", cfg, device="cuda", backend=backend,
+                          args=args)
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+    out = buf.getvalue()
+    d, mb, sv = res.extra["drill"], res.extra["membership"], \
+        res.extra["serve"]
+    rst, saves = d["restore"], d["saves"]
+    (tracker,) = trackers.made
+    corrupt, unadopted = 0, 0
+    for spec in tracker.manifest.objects:
+        meta = backend.stat(spec.name)
+        want = tracker.crc_for(spec.name, meta.generation)
+        crc = zlib.crc32(backend._objects[spec.name]) & 0xFFFFFFFF
+        if want is None:
+            unadopted += 1
+        elif crc != want:
+            corrupt += 1
+    req = res.summaries.get("request")
+    line = {"phase": "drill", "mode": mode, "launches": counts,
+            "seconds": seconds, "wall_s": res.wall_seconds,
+            "hosts": DRILL_HOSTS, "checkpoint": {
+                "objects": DRILL_CKPT_OBJECTS, "object_bytes":
+                DRILL_CKPT_BYTES, "part_bytes": CKPT_PART_BYTES},
+            "restore": {k: rst[k] for k in (
+                "verified", "shards_restored", "bytes", "chunks",
+                "torn_rereads", "shed_repushes", "forced_direct",
+                "time_to_restore_s", "started_at_s", "finished_at_s")},
+            "time_to_rewarm_s": d["time_to_rewarm_s"],
+            "gold_slo": d["gold_slo"], "saves": saves,
+            "baseline_save": d["baseline_save"],
+            "corrupt_finalizes": corrupt, "unadopted_shards": unadopted,
+            "amplification": d["amplification"],
+            "save_part_latency": d["save_part_latency"], "meta": d["meta"],
+            "serve": {k: sv[k] for k in ("arrivals", "completed", "shed",
+                                         "offered_rps", "goodput_gbps")},
+            "p99_ms": req.p99_ms if req else None,
+            "errors_by_class": {c: v["errors"]
+                                for c, v in sv["classes"].items()},
+            "restore_class": {k: sv["classes"][cfg.drill.restore_class][k]
+                              for k in ("arrivals", "completed", "shed",
+                                        "slo_attainment", "p50_ms",
+                                        "p99_ms")},
+            "events": [{k: e.get(k) for k in ("t_s", "action", "host",
+                                               "remap_fraction")}
+                       for e in mb["events"]],
+            "card": smi, "reduced": DRILL_REDUCED}
+    emit(line)
+    check(counts == {"land": 0, "checksum": 0},
+          f"drill/{mode}: the drill launched {counts}")
+    check("incident drill scorecard" in out
+          and "== membership resize scorecard ==" in out,
+          f"drill/{mode}: scorecards not printed")
+    # A torn read errors the restore chunks in flight on its shard (the
+    # restore class's errors, re-read); the serving classes must see none.
+    served = {c: v["errors"] for c, v in sv["classes"].items()
+              if c != cfg.drill.restore_class}
+    check(not any(served.values()), f"drill/{mode}: errors {served}")
+    check(rst["verified"] and rst["completed"] and rst["errors"] == 0
+          and rst["shards_restored"] == DRILL_CKPT_OBJECTS,
+          f"drill/{mode}: restore {rst}")
+    check(mb["pool_leaked_slabs"] == 0
+          and all(h["pool"]["native"] is False for h in mb["per_host"]),
+          f"drill/{mode}: leaked {mb['pool_leaked_slabs']} slabs")
+    check(saves["errors"] == 0 and saves["passes"] >= 1 and corrupt == 0,
+          f"drill/{mode}: saves {saves}, {corrupt} corrupt shards")
+    if mode == "drill_meta":
+        meta = d["meta"] or {}
+        check(meta.get("completed", 0) > 0 and meta.get("errors") == 0,
+              f"drill/{mode}: storm {meta}")
+    return line, journal
+
+
+def _replay_run(tag: str, path: str, argv: list, smi,
+                gate_slo: bool = True) -> tuple[dict, object]:
+    """``replay`` of one bundle through ``cli.execute``, checked against
+    the gates of ``scenarios/README.md`` (the gold SLO's only where
+    ``gate_slo``: a golden's baseline was recorded quiet, a drill under
+    load moves by a few points from run to run); its line and result."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    args, cfg = _cli(["replay", path, *argv])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        landing.reset_launches()
+        t0 = time.perf_counter()
+        res = cli.execute("replay", cfg, device="cuda", args=args)
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+    rp = res.extra["replay"]
+    delta = rp["diff"]["gold_slo_delta_pts"]
+    check(counts == {"land": 0, "checksum": 0},
+          f"drill/{tag}: the replay launched {counts}")
+    check("== replay vs original" in buf.getvalue(),
+          f"drill/{tag}: no replay block printed")
+    check(rp["config_match"] and rp["arrivals_match"],
+          f"drill/{tag}: config_match {rp['config_match']} "
+          f"({rp['fingerprint']} vs {rp['original_fingerprint']}), "
+          f"arrivals_match {rp['arrivals_match']}")
+    check(not gate_slo or (delta is not None and abs(delta) <= 5.0),
+          f"drill/{tag}: gold SLO moved {delta} points")
+    line = {"bundle": rp["bundle"], "seconds": seconds,
+            "launches": counts, "gold_slo_delta_pts": delta,
+            "baseline": rp["baseline"], "replayed": rp["replayed"],
+            "diff": rp["diff"]}
+    if rp.get("drill"):
+        check(rp["drill"]["replayed"]["restore_verified"]
+              and rp["drill"]["diff"]["verified_match"],
+              f"drill/{tag}: drill replay {rp['drill']}")
+        line["drill"] = rp["drill"]
+    return line, res
+
+
+def _replay_gold(store, journal: str, smi) -> dict:
+    """Both goldens replayed under their recording config; then
+    drill_default's journal recorded, replayed (its population shared with
+    phase read's arrays) and re-recorded: the two bundles byte-identical."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from tpubench_torch import cli
+    from tpubench_torch.replay.bundle import load_bundle, validate_bundle
+
+    t0 = time.perf_counter()
+    gold = {}
+    for name in GOLDEN_BUNDLES:
+        path = f"scenarios/{name}.tpb.gz"
+        validate_bundle(load_bundle(path), path)
+        gold[name], _ = _replay_run(f"replay_gold/{name}", path,
+                                    GOLDEN_ARGV, smi)
+    first, second = f"{BUILD}/drill/b1.tpb.gz", f"{BUILD}/drill/b2.tpb.gz"
+    rejournal = f"{BUILD}/drill/replayed.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["record", journal, "--out", first]) == 0,
+              "drill/replay_gold: record failed")
+    name = load_bundle(first)["name"]
+    with SharedStore(store):
+        rerun, res = _replay_run("replay_gold/drill_default", first, [
+            "--protocol", "fake", "--workers", str(WORKERS),
+            "--object-size", str(OBJECT_SIZE), "--granule-bytes",
+            str(GRANULE), "--flight-journal", rejournal], smi,
+            gate_slo=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["record", rejournal, "--out", second, "--name",
+                        name]) == 0, "drill/replay_gold: re-record failed")
+    same = Path(first).read_bytes() == Path(second).read_bytes()
+    check(same, "drill/replay_gold: the re-recorded bundle differs")
+    return {"phase": "drill", "mode": "replay_gold", "goldens": gold,
+            "rerecord": {"bundle": name, "byte_identical": same,
+                         "bytes": Path(first).stat().st_size,
+                         "replay": rerun},
+            "launches": {"land": 0, "checksum": 0},
+            "seconds": time.perf_counter() - t0, "card": smi,
+            "reduced": DRILL_REDUCED}
+
+
+def phase_drill(store, smi) -> dict:
+    """meta_http, meta_grpc, meta_sweep, drill_default, drill_meta and
+    replay_gold; none launches a kernel. Returns the launch counts."""
+    import os
+
+    t_phase = time.perf_counter()
+    os.makedirs(f"{BUILD}/drill", exist_ok=True)
+    launches = {}
+    for mode in ("meta_http", "meta_grpc", "meta_sweep"):
+        line = _meta_run(mode, smi)
+        emit(line)
+        launches[f"drill/{mode}"] = line["launches"]
+    journal = None
+    for mode in ("drill_default", "drill_meta"):
+        line, j = _drill_run(mode, store, smi)
+        launches[f"drill/{mode}"] = line["launches"]
+        journal = journal or j
+    line = _replay_gold(store, journal, smi)
+    emit(line)
+    launches["drill/replay_gold"] = line["launches"]
+    emit({"phase": "drill_total", "seconds": time.perf_counter() - t_phase,
+          "card": smi, "reduced": DRILL_REDUCED})
     return launches
 
 

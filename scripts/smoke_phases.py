@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 scripts/smoke_phases.py --phases serve,chaos
+    python3 scripts/smoke_phases.py --phases serve,chaos,drill
 
 Builds the kernels (phase build), makes phase read's store (48 x 100 MiB)
 and phase pod's (one 1 GiB object), then runs the phases named, in the
@@ -21,7 +21,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PHASES = ("serve", "chaos")
+PHASES = ("serve", "chaos", "drill")
 
 
 def main() -> int:
@@ -46,11 +46,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cs.phase_build()
     store = cs.populate()
-    pod_store = FakeBackend.prepopulated("tpubench/file_", 1, cs.POD_OBJECT)
+    pod_store = (FakeBackend.prepopulated("tpubench/file_", 1, cs.POD_OBJECT)
+                 if "chaos" in names else None)
     counts = {}
     for name in names:
         if name == "serve":
             counts.update(cs.phase_serve(store, smi))
+        elif name == "drill":
+            counts.update(cs.phase_drill(store, smi))
         else:
             counts.update(cs.phase_chaos(store, pod_store, smi))
     cs.emit({"launches": counts, "seconds": time.perf_counter() - t0})

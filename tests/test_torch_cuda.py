@@ -701,3 +701,74 @@ def test_serve_on_the_card_launches_nothing(cuda):
         sv = res.extra["serve"]
         assert res.errors == 0 and sv["completed"] > 0
         assert landing.land.launches == landing.checksum.launches == 0
+
+
+def _lifecycle_cfg():
+    from tpubench_torch.config import BenchConfig
+
+    cfg = BenchConfig()
+    cfg.transport.protocol = "fake"
+    cfg.workload.workers = 4
+    cfg.workload.object_size = 1 << 20
+    cfg.obs.export = "none"
+    cfg.serve.duration_s, cfg.serve.rate_rps = 1.0, 60.0
+    cfg.serve.tenants, cfg.serve.workers, cfg.serve.hosts = 24, 4, 3
+    lc = cfg.lifecycle
+    lc.objects, lc.object_bytes, lc.part_bytes = 3, 256 * 1024, 64 * 1024
+    lc.meta_objects, lc.meta_duration_s = 16, 0.5
+    cfg.drill.kill_at_s, cfg.drill.join_at_s = 0.3, 0.5
+    cfg.drill.save_interval_s = 0.4
+    return cfg
+
+
+def test_meta_storm_on_the_card_launches_nothing(cuda, monkeypatch):
+    """``meta-storm`` on ``device="cuda"`` runs and launches no kernel."""
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.workloads.meta_storm import run_meta_storm
+
+    monkeypatch.setenv("TPUBENCH_BENCH_SLEEP_SCALE", "0")
+    landing.reset_launches()
+    res = run_meta_storm(_lifecycle_cfg(), device="cuda")
+    lc = res.extra["lifecycle"]
+    assert lc["errors"] == 0 and lc["completed"] == lc["ops"] > 0
+    assert landing.land.launches == landing.checksum.launches == 0
+
+
+def test_drill_on_the_card_launches_nothing(cuda, monkeypatch):
+    """The drill on ``device="cuda"``: the restore verified through the
+    pod's unpinned host pools, no slab leaked, no kernel launched."""
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.workloads.drill import run_drill
+
+    monkeypatch.setenv("TPUBENCH_BENCH_SLEEP_SCALE", "0")
+    landing.reset_launches()
+    res = run_drill(_lifecycle_cfg(), device="cuda")
+    assert res.errors == 0 and res.extra["drill"]["restore"]["verified"]
+    assert res.extra["membership"]["pool_leaked_slabs"] == 0
+    assert landing.land.launches == landing.checksum.launches == 0
+
+
+def test_replay_on_the_card_launches_nothing(cuda, monkeypatch):
+    """Both goldens replay on ``device="cuda"`` under their recording
+    config with no kernel launched."""
+    from pathlib import Path
+
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.replay.bundle import load_bundle
+    from tpubench_torch.replay.driver import run_replay
+
+    monkeypatch.setenv("TPUBENCH_BENCH_SLEEP_SCALE", "0")
+    root = Path(__file__).resolve().parents[1] / "scenarios"
+    for name in ("chaos-serve-gold", "drill-restore-gold"):
+        cfg = BenchConfig()
+        cfg.transport.protocol = "fake"
+        cfg.workload.workers = 4
+        cfg.workload.object_size = 1 << 20
+        cfg.obs.export = "none"
+        landing.reset_launches()
+        res = run_replay(cfg, load_bundle(str(root / f"{name}.tpb.gz")),
+                         device="cuda")
+        rp = res.extra["replay"]
+        assert rp["config_match"] and rp["arrivals_match"], rp
+        assert landing.land.launches == landing.checksum.launches == 0

@@ -77,6 +77,9 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.replay.bundle", "tpubench_torch.dist.membership",
         "tpubench_torch.storage.reactor_backend",
         "tpubench_torch.workloads.serve",
+        "tpubench_torch.lifecycle.storm", "tpubench_torch.lifecycle.delta",
+        "tpubench_torch.workloads.meta_storm",
+        "tpubench_torch.workloads.drill", "tpubench_torch.replay.driver",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"

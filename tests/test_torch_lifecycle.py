@@ -145,6 +145,8 @@ def _write_sequence(p, kind: str, tmp: Path) -> dict:
         w2 = be.open_write("w/b", if_generation_match=0)
         rec("part_412", lambda: w2.write(b"y" * 10))
         rec("finalize_412", lambda: w2.finalize())
+        rec("list_all", lambda: [meta(m) for m in be.list(
+            "w/", page_size=1)])
         rec("delete", lambda: be.delete("w/a"))
         listed = rec("list", lambda: [meta(m) for m in be.list(
             "w/", page_size=1)])
@@ -156,6 +158,13 @@ def _write_sequence(p, kind: str, tmp: Path) -> dict:
     return {"outcomes": out, "stored": stored}
 
 
+# The outcomes where the port's repair of ROADMAP C.7 parts from
+# ``tpubench``: the wire gRPC client follows ``next_page_token`` (the
+# reference returns the first page), and the h2 fake's HTTP/1.1 side
+# deletes (the reference answers 404, so ``w/a`` stays and is listed).
+C7_DIFFS = {"h2_h11": {"delete", "list"}, "grpc": {"list_all"}}
+
+
 @pytest.mark.parametrize("kind", ["fake", "local", "h1", "h2_h11", "grpc"])
 def test_write_side_matches_reference(kind, tmp_path, monkeypatch):
     import tpubench.storage.gcs_grpc as jax_gcs_grpc
@@ -165,16 +174,102 @@ def test_write_side_matches_reference(kind, tmp_path, monkeypatch):
     monkeypatch.setattr(jax_gcs_grpc, "_HAVE_LIB", False)
     ref = _write_sequence(_pkg("tpubench"), kind, tmp_path / "ref")
     port = _write_sequence(_pkg("tpubench_torch"), kind, tmp_path / "port")
-    assert port["outcomes"] == ref["outcomes"]
-    assert port["stored"] == ref["stored"]
+    diffs = C7_DIFFS.get(kind, set())
+    assert ([o for o in port["outcomes"] if o[0] not in diffs]
+            == [o for o in ref["outcomes"] if o[0] not in diffs])
+    outcomes = {o[0]: o for o in port["outcomes"]}
+    ref_outcomes = {o[0]: o for o in ref["outcomes"]}
+    both = (("w/a", 70_001, 1), ("w/b", 3 * PART, 1))
+    if kind == "h2_h11":
+        assert ref_outcomes["delete"][1:] == ("err", 404, False)
+        assert outcomes["delete"] == ("delete", "ok", None)
+        assert ref_outcomes["list"][2] == both
+        assert outcomes["list"][2] == both[1:]
+        assert "w/a" in ref["stored"] and "w/a" not in port["stored"]
+    elif kind == "grpc":
+        assert ref_outcomes["list_all"][2] == both[:1]
+        assert outcomes["list_all"][2] == both
+    else:
+        assert port["stored"] == ref["stored"]
+    assert port["stored"]["w/b"] == ref["stored"]["w/b"]
     want = deterministic_bytes("w/b", 3 * PART).tobytes()
     assert port["stored"]["w/b"] == want
-    outcomes = {o[0]: o for o in port["outcomes"]}
+    assert outcomes["list_all"][2] == both
     # The reset cost the upload one resumed part where the store injects
     # it, and the 412s were never retried (non-transient, both paths).
     assert outcomes["resumed_parts"][2] == (0 if kind == "local" else 1)
     assert outcomes["media_412"][1:] == ("err", 412, False)
     assert outcomes["finalize_412"][1:] == ("err", 412, False)
+
+
+def bounded(fn, timeout_s: float = 30.0):
+    """``fn()`` on a daemon thread, failing the test if it has not
+    returned after ``timeout_s`` (a wire-fake hang must not hold a
+    worker until the suite's limit)."""
+    import threading
+
+    box: dict = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    assert not t.is_alive(), f"timed out after {timeout_s} s"
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def test_grpc_wire_list_follows_every_page():
+    """C.7, first half: a listing larger than ``page_size`` comes back
+    whole over the wire gRPC client, one RPC per page."""
+    from tpubench_torch.config import TransportConfig
+    from tpubench_torch.storage.fake_grpc_wire_server import (
+        FakeGrpcWireServer,
+    )
+    from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
+
+    store = FakeBackend.prepopulated("m/", 40, 100)
+    server = FakeGrpcWireServer(store).start()
+    client = GcsGrpcBackend(
+        "b", transport=TransportConfig(endpoint=server.endpoint))
+    try:
+        names = bounded(lambda: [m.name for m in client.list(
+            "m/", page_size=16)])
+        unpaged = bounded(lambda: [m.name for m in client.list("m/")])
+    finally:
+        client.close()
+        _stop(server)
+    assert names == unpaged == [m.name for m in store.list("m/")]
+    assert len(names) == 40
+
+
+def test_h2_fake_deletes_on_its_http11_side():
+    """C.7, second half: a delete over ``--http2`` against the h2 fake
+    rides its HTTP/1.1 side and removes the object."""
+    from tpubench_torch.config import TransportConfig
+    from tpubench_torch.storage.fake_h2_server import FakeH2Server
+    from tpubench_torch.storage.gcs_http import GcsHttpBackend
+
+    store = FakeBackend.prepopulated("d/", 2, 1000)
+    server = FakeH2Server(store).start()
+    client = GcsHttpBackend("b", TransportConfig(
+        endpoint=server.endpoint, http2=True))
+    try:
+        bounded(lambda: client.delete("d/0"))
+        with pytest.raises(StorageError) as ei:
+            bounded(lambda: client.stat("d/0"))
+        assert ei.value.code == 404
+        assert [m.name for m in bounded(lambda: client.list("d/"))] == [
+            "d/1"]
+    finally:
+        client.close()
+        _stop(server)
 
 
 # ------------------------------------------------ resuming writer edges ----

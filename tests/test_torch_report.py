@@ -4,9 +4,10 @@ flight journal written by the port on the CPU (a validated read, a tuned
 read, a tune sweep), and the bench/multichip artifacts committed at the
 root of the repository. The text must be equal, character for character
 (``top``'s journal ages read one fixed clock in both), and ``--fail-on``
-must give the same exit codes and lines. A document carrying the block of
-a workload the port does not have yet is refused, naming its ROADMAP
-item.
+must give the same exit codes and lines. The drill, drill-sweep and
+replay blocks render as ``tpubench``'s; a document carrying the block of
+a workload the port does not have yet (fleet) is refused, naming its
+ROADMAP item.
 """
 
 import json
@@ -184,10 +185,7 @@ def test_train_ingest_report_prints_the_reference_scorecard(tmp_path):
     assert "pipeline: stalled" in both
 
 
-@pytest.mark.parametrize("block, item", [
-    ("drill", "A.7"), ("drill_sweep", "A.7"),
-    ("fleet", "A.7"), ("replay", "A.7"),
-])
+@pytest.mark.parametrize("block, item", [("fleet", "A.7")])
 def test_unported_block_is_refused(docs, block, item, tmp_path):
     doc = json.loads(Path(docs["validate"]).read_text())
     doc["extra"][block] = {"op": "save"}
@@ -195,6 +193,76 @@ def test_unported_block_is_refused(docs, block, item, tmp_path):
     path.write_text(json.dumps(doc))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         report_cmd.run_report([str(path)])
+
+
+# The blocks of tpubench's drill, drill-sweep and replay documents, as
+# their workloads write them (the values of a small CPU run).
+DRILL_BLOCKS = {
+    "drill": {
+        "arm": {"restore_via_coop": True, "delta_saves": True},
+        "incident": {"kill_at_s": 1.0, "join_at_s": 1.5, "victim": 3},
+        "restore_class": "restore",
+        "restore": {"requested": True, "completed": True, "verified": True,
+                    "shards": 16, "shards_restored": 16, "bytes": 1 << 31,
+                    "chunks": 1024, "torn_rereads": 2, "shed_repushes": 1,
+                    "forced_direct": 0, "errors": 0,
+                    "time_to_restore_s": 3.25, "via_coop": True},
+        "saves": {"passes": 4, "interval_s": 1.0, "delta": True,
+                  "uploaded_shards": 16, "dirty_shards": 16,
+                  "skipped_clean": 48, "cas_conflicts": 0,
+                  "full_fallbacks": 0, "bytes_uploaded": 1 << 31,
+                  "errors": 0},
+        "gold_slo": {"restore_window": {"gold": 0.95, "silver": None},
+                     "steady": {"gold": 1.0, "silver": 0.5}},
+        "time_to_rewarm_s": 0.5,
+        "amplification": {"checkpoint_bytes": 1 << 31,
+                          "restore_bytes": 1 << 31,
+                          "origin_bytes_total": 3 << 30, "ratio": 1.5},
+        "meta": {"ops": 400, "completed": 400, "errors": 0,
+                 "offered_rps": 200.0, "achieved_rps": 199.0,
+                 "p50_ms": 1.0, "p99_ms": 4.5},
+    },
+    "drill_sweep": {
+        "points": [{"save_interval_s": 2.0, "save_passes": 2,
+                    "bytes_uploaded": 1 << 20,
+                    "gold_slo_restore_window": 1.0, "p99_ms": 3.5},
+                   {"save_interval_s": 0.5, "save_passes": 8,
+                    "bytes_uploaded": 1 << 22,
+                    "gold_slo_restore_window": None, "p99_ms": None}],
+        "knee": {"offered_rps": 2.0, "reason": "p99 inflection"},
+    },
+    "replay": {
+        "bundle": "gold", "fingerprint": "f", "original_fingerprint": "o",
+        "config_match": False, "arrivals_match": True,
+        "baseline": {"arrivals": 10, "completed": 10, "shed": 0,
+                     "errors": 0, "gold_slo": 1.0, "goodput_gbps": 0.5,
+                     "p99_ms": 4.0, "rewarm_s": 0.5},
+        "replayed": {"arrivals": 10, "completed": 9, "shed": 1,
+                     "errors": 0, "gold_slo": 0.9, "goodput_gbps": 0.45,
+                     "p99_ms": 6.0, "rewarm_s": 0.75},
+        "diff": {"gold_slo_delta_pts": -10.0, "goodput_retention": 0.9,
+                 "p99_ratio": 1.5},
+    },
+}
+
+
+@pytest.mark.parametrize("block", ["drill", "drill_sweep", "replay"])
+def test_drill_and_replay_blocks_render_as_reference(docs, block, tmp_path):
+    """The blocks once refused render now, as ``tpubench``'s ``report``
+    renders them, alone and against the plain run."""
+    doc = json.loads(Path(docs["validate"]).read_text())
+    doc["extra"][block] = DRILL_BLOCKS[block]
+    if block == "drill_sweep":
+        doc["extra"]["drill"] = DRILL_BLOCKS["drill"]
+    path = tmp_path / "doc.json"
+    path.write_text(json.dumps(doc))
+    for paths in ([str(path)], [docs["validate"], str(path)]):
+        text = report_cmd.run_report(paths)
+        assert text == jax_report.run_report(paths)
+    marker = {"drill": "incident drill scorecard",
+              "drill_sweep": "save-interval sweep",
+              "replay": "== replay vs original (gold) =="}[block]
+    assert marker in text
 
 
 LIFECYCLE_BLOCKS = {

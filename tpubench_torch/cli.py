@@ -1,10 +1,12 @@
 """tpubench_torch CLI: ``tpubench``'s ``read``, ``train-ingest``, ``sweep``,
 ``pod-ingest``, ``stream``, ``gather-bench``, ``multichip-sweep``, ``probe``,
-``tune``, ``serve`` and ``chaos`` on PyTorch and CUDA, its
+``tune``, ``ckpt-save``, ``ckpt-restore``, ``meta-storm``, ``serve``,
+``chaos``, ``drill``, ``record`` and ``replay`` on PyTorch and CUDA, its
 filesystem workloads (``prepare``, ``read-fs``, ``write``, ``list``,
 ``open``, ``ssd``), ``report`` and ``top`` over the results and journals
 they write, ``preflight`` (what a run needs, checked without a device),
-and ``info`` (what the port would run on).
+and ``info`` (what the port would run on): 27 of ``tpubench``'s 29
+subcommands (``fleet`` and ``check`` are not ported yet).
 
     python -m tpubench_torch.cli read --protocol fake --workers 2 \\
         --read-call-per-worker 2 --object-size 5242903 \\
@@ -69,6 +71,22 @@ in-process fake server under a fault timeline (``--chaos-timeline``, or
 ``--chaos-fault`` / ``--chaos-start`` / ``--chaos-duration`` with the
 ``--fault-*`` values) and prints the resilience scorecard.
 
+``meta-storm`` writes ``--meta-objects`` small objects and drives an
+open-loop list/stat/open mix over them (``--meta-rate``,
+``--meta-duration``, ``--meta-mix``, ``--meta-page-size``,
+``--meta-workers``; ``--meta-sweep`` steps the offered load to the knee).
+``drill`` is a serve run on an elastic pod (``--serve-hosts`` >= 2) with a
+scripted incident: a host killed at ``--drill-kill-at``, a cold
+replacement joining at ``--drill-join-at`` and restoring a checkpoint
+(``--ckpt-*``) through the shared admission queue, while delta saves land
+every ``--save-interval`` (``--restore-direct``, ``--full-saves``,
+``--drill-meta-rate``, ``--drill-sweep``); it prints the drill scorecard.
+``record <journal>... --out B`` distils a serve or drill run's flight
+journal into a replay bundle (``tpubench``'s format); ``replay B``
+re-drives it under the caller's system knobs (``--protocol fake``, or
+``http`` with no ``--endpoint``) and prints the replay-vs-original block.
+None of these touches the card.
+
 ``sweep`` runs ``read`` over protocols × the reference's four object
 sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
 prints the rows; ``--protocol http --http2`` and ``--protocol grpc
@@ -111,6 +129,7 @@ from tpubench_torch.config import (
     MB,
     BenchConfig,
     validate_coop_config,
+    validate_drill_config,
     validate_lifecycle_config,
     validate_pipeline_config,
     validate_serve_config,
@@ -138,6 +157,9 @@ CKPT_CMDS = {
                     "time-to-restore is the headline metric, bytes "
                     "verified against the manifest crc32s",
 }
+# Commands that touch no device, in ``tpubench`` as here: their group
+# (several processes only) is gloo; each still resolves its device.
+DEVICE_FREE_CMDS = {"serve", "meta-storm", "drill", "replay"}
 FS_CMDS = {
     "read-fs": "sequential FS read (read_operation)",
     "write": "durable write (write_operations)",
@@ -213,6 +235,11 @@ def build_parser() -> argparse.ArgumentParser:
         add(name, help_)
     for name, help_ in CKPT_CMDS.items():
         _add_lifecycle_flags(add(name, help_))
+    _add_lifecycle_flags(add(
+        "meta-storm", "storage lifecycle: open-loop list/stat/open storms "
+                      "over many small objects, driven by the arrivals "
+                      "plane (poisson/bursty/diurnal); --meta-sweep steps "
+                      "offered load to the saturation knee"))
     chaos = add("chaos", "scripted fault timeline + resilience scorecard "
                          "(hermetic: fake backend or in-process fake "
                          "server; see --chaos-*)")
@@ -267,6 +294,20 @@ def build_parser() -> argparse.ArgumentParser:
                             "latency-vs-load curve with the knee "
                             "identified (p99 inflection)")
     _add_serve_flags(serve)
+    drill = add("drill", "production incident drill: the elastic pod "
+                         "serves open-loop multi-tenant traffic while a "
+                         "scripted kill takes a host down and a cold "
+                         "replacement joins and ckpt-restores THROUGH "
+                         "the shared coop-cache/admission stack, with "
+                         "periodic delta checkpoint saves riding under "
+                         "the same traffic; scorecard: gold SLO during "
+                         "the restore window vs steady state, "
+                         "time-to-restore vs time-to-rewarm, origin-"
+                         "byte amplification, per-phase blame")
+    _add_serve_flags(drill)
+    _add_lifecycle_flags(drill)
+    _add_drill_flags(drill)
+    _add_replay_parsers(sub, add)
     prep = add("prepare", "generate worker-indexed data files")
     prep.add_argument("--layout", choices=("flat", "ssd"), default="flat")
     sweep = add("sweep", "protocol A/B × size sweep (execute_pb.sh)")
@@ -296,6 +337,57 @@ def build_parser() -> argparse.ArgumentParser:
     _add_top_parser(sub)
     _add_report_parser(sub)
     return ap
+
+
+def _add_replay_parsers(sub, add) -> None:
+    """``replay`` (the common flags and the SYSTEM half of the serve
+    knobs: the scenario half comes from the bundle) and ``record``
+    (journals in, a bundle out; no config), as ``tpubench``'s."""
+    rpl = add("replay", "re-drive a recorded scenario bundle through the "
+                        "CURRENT transport/cache/QoS/coop/membership "
+                        "config: arrivals ride the trace schedule, faults "
+                        "re-arm via FaultPlan, membership feeds the "
+                        "elastic serve plane; prints the replay-vs-"
+                        "original scorecard (hermetic: fake backend or "
+                        "in-process fake server)")
+    rpl.add_argument("bundle",
+                     help="replay bundle path from `record` "
+                          "(tpubench-bundle/1 JSON, .gz transparent)")
+    rpl.add_argument("--serve-workers", type=int,
+                     help="service worker threads for the replay arm")
+    rpl.add_argument("--no-serve-qos", action="store_true",
+                     help="replay the scenario with QoS off (an A/B arm "
+                          "against the recorded baseline)")
+    rpl.add_argument("--serve-admission-cap", type=int,
+                     help="requests in service at once")
+    rpl.add_argument("--serve-queue-limit", type=int,
+                     help="queued requests before overload shedding")
+    rpl.add_argument("--serve-readahead", type=int,
+                     help="readahead depth in chunks over the replayed "
+                          "schedule")
+    recp = sub.add_parser(
+        "record",
+        help="distill a serve or drill run's flight journal(s) into a "
+             "portable, versioned replay bundle (tpubench-bundle/1): "
+             "arrival timeline, object population, fault plan, "
+             "membership timeline, tenant/class map, config fingerprint "
+             "— re-drivable via `replay`, diffable via `report "
+             "--fail-on`",
+    )
+    recp.add_argument("journals", nargs="+",
+                      help="flight-journal path(s) from ONE serve run "
+                           "(per-host .p<idx> siblings merge; sweep "
+                           ".pt<i> points are different runs — record "
+                           "them separately)")
+    recp.add_argument("--out", required=True,
+                      help="bundle output path; a .gz suffix gzips "
+                           "(canonical JSON either way, byte-stable "
+                           "across re-records)")
+    recp.add_argument("--name", default="",
+                      help="scenario name stamped into the bundle "
+                           "(default: the source bundle's name when "
+                           "recording a replay journal, else derived "
+                           "from the --out basename)")
 
 
 def _add_top_parser(sub) -> None:
@@ -353,8 +445,8 @@ def _add_report_parser(sub) -> None:
 
 
 def _add_lifecycle_flags(p) -> None:
-    """The checkpoint flags (``tpubench``'s, the same defaults), on the
-    ``ckpt-*`` parsers only."""
+    """The storage-lifecycle flags (``tpubench``'s, the same defaults), on
+    the ``ckpt-*``, ``meta-storm`` and ``drill`` parsers only."""
     p.add_argument("--ckpt-objects", type=int,
                    help="checkpoint shard-objects in the manifest "
                         "(default 4; one object per parameter shard)")
@@ -378,11 +470,100 @@ def _add_lifecycle_flags(p) -> None:
     p.add_argument("--no-restore-device", action="store_true",
                    help="ckpt-restore: host-RAM restore only — skip "
                         "staging the shards onto the card")
+    p.add_argument("--meta-objects", type=int,
+                   help="meta-storm: small-object population size "
+                        "(default 64)")
+    p.add_argument("--meta-object-bytes", type=int,
+                   help="meta-storm: bytes per small object (default 4 KiB)")
+    p.add_argument("--meta-rate", type=float, dest="meta_rate",
+                   help="meta-storm: offered metadata ops/second "
+                        "(default 200)")
+    p.add_argument("--meta-duration", type=float, dest="meta_duration",
+                   help="meta-storm: virtual schedule seconds (default 2; "
+                        "wall time scales with TPUBENCH_BENCH_SLEEP_SCALE)")
+    p.add_argument("--meta-arrival", choices=("poisson", "bursty", "diurnal"),
+                   help="meta-storm: arrival process (default poisson)")
+    p.add_argument("--meta-mix",
+                   help="meta-storm: op mix as kind:weight pairs over "
+                        "list/stat/open (default list:1,stat:2,open:2)")
+    p.add_argument("--meta-page-size", type=int,
+                   help="meta-storm: maxResults page bound for list ops "
+                        "(multi-page listings; default 16, 0 = one page)")
+    p.add_argument("--meta-workers", type=int,
+                   help="meta-storm: service worker threads the knee "
+                        "saturates (default 8)")
+    p.add_argument("--meta-sweep", action="store_true",
+                   help="meta-storm: step offered load through the "
+                        "multipliers and identify the saturation knee "
+                        "(the --serve-sweep of metadata)")
+    p.add_argument("--meta-sweep-points",
+                   help="comma list of offered-load multipliers for "
+                        "--meta-sweep (default 0.5,1,2,4)")
+    p.add_argument("--lifecycle-seed", type=int,
+                   help="arrival/mix seed (identical seeds replay "
+                        "identical storms)")
+
+
+def _add_drill_flags(p: argparse.ArgumentParser) -> None:
+    """Flags owned by the ``drill`` subcommand — the incident script
+    and the delta-save cadence (``tpubench``'s, the same defaults)."""
+    p.add_argument("--drill-kill-at", type=float, dest="drill_kill_at",
+                   help="virtual second the victim host is KILLED at "
+                        "(default 1.0)")
+    p.add_argument("--drill-join-at", type=float, dest="drill_join_at",
+                   help="virtual second the cold replacement joins and "
+                        "starts restoring (default 1.5; >= --drill-"
+                        "kill-at)")
+    p.add_argument("--drill-victim", type=int, dest="drill_victim",
+                   help="host id to kill (default -1 = last host)")
+    p.add_argument("--restore-class", dest="restore_class",
+                   help="QoS class tag restore reads carry end-to-end "
+                        "(default 'restore'; must not collide with a "
+                        "serving class)")
+    p.add_argument("--restore-priority", type=int, dest="restore_priority",
+                   help="admission priority of restore reads "
+                        "(default 1 — below gold, above best-effort)")
+    p.add_argument("--restore-weight", type=float, dest="restore_weight",
+                   help="cache/prefetch budget weight of the restore "
+                        "class (default 2.0)")
+    p.add_argument("--restore-deadline", type=float,
+                   dest="restore_deadline",
+                   help="restore-read deadline in ms (default 500)")
+    p.add_argument("--restore-inflight", type=int, dest="restore_inflight",
+                   help="restore reads in flight through the shared "
+                        "admission queue (default 8)")
+    p.add_argument("--restore-retries", type=int, dest="restore_retries",
+                   help="re-stat retries per shard on torn reads "
+                        "(default 3)")
+    p.add_argument("--restore-direct", action="store_true",
+                   dest="restore_direct",
+                   help="A/B arm: restore reads bypass the coop cache "
+                        "and fetch direct from origin (still holding "
+                        "admission slots and cache budget)")
+    p.add_argument("--save-interval", type=float, dest="save_interval",
+                   help="virtual seconds between checkpoint saves under "
+                        "traffic (default 1.0; 0 = no periodic saves)")
+    p.add_argument("--full-saves", action="store_true", dest="full_saves",
+                   help="A/B arm: every periodic save re-uploads ALL "
+                        "shards instead of only dirty ones")
+    p.add_argument("--dirty-fraction", type=float, dest="dirty_fraction",
+                   help="fraction of shards each save pass dirties "
+                        "(default 0.25)")
+    p.add_argument("--drill-meta-rate", type=float, dest="drill_meta_rate",
+                   help="concurrent metadata-storm mix, ops/second "
+                        "(default 0 = no storm; shares the storm "
+                        "quota ledger)")
+    p.add_argument("--drill-sweep", action="store_true",
+                   help="step the save interval through the multipliers "
+                        "and locate the save-rate-vs-latency knee")
+    p.add_argument("--drill-sweep-points",
+                   help="comma list of save-interval multipliers for "
+                        "--drill-sweep (default 0.5,1,2)")
 
 
 def _add_serve_flags(p: argparse.ArgumentParser) -> None:
-    """The serve-plane flag surface (``tpubench``'s, the same defaults;
-    ``tpubench`` shares it with its ``drill`` subcommand)."""
+    """The serve-plane flag surface (``tpubench``'s, the same defaults),
+    shared by the ``serve`` and ``drill`` subcommands."""
     p.add_argument("--serve-duration", type=float,
                    help="virtual schedule length in seconds "
                         "(default 4; wall time scales with "
@@ -455,9 +636,9 @@ def _add_serve_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _apply_serve_args(cfg: BenchConfig, args) -> None:
-    """Fold the serve flags (on the ``serve`` and ``chaos`` parsers only)
-    into ``cfg.serve`` and validate the section, as ``tpubench`` does for
-    every command."""
+    """Fold the serve flags (on the ``serve``, ``drill``, ``replay`` and
+    ``chaos`` parsers only) into ``cfg.serve`` and validate the section,
+    as ``tpubench`` does for every command."""
     sv = cfg.serve
     for attr, dest in (
         ("serve_duration", "duration_s"), ("serve_rate", "rate_rps"),
@@ -487,16 +668,8 @@ def _apply_serve_args(cfg: BenchConfig, args) -> None:
     if getattr(args, "serve_classes", None):
         sv.classes = _json_arg("--serve-classes", args.serve_classes)
     if getattr(args, "serve_sweep_points", None):
-        try:
-            sv.sweep_points = [
-                float(x) for x in args.serve_sweep_points.split(",") if x
-            ]
-        except ValueError:
-            raise SystemExit(
-                f"--serve-sweep-points "
-                f"{args.serve_sweep_points!r}: expected a comma list "
-                "of positive numbers"
-            ) from None
+        sv.sweep_points = _float_list("--serve-sweep-points",
+                                      args.serve_sweep_points)
     validate_serve_config(sv)
 
 
@@ -577,7 +750,66 @@ def _apply_lifecycle_args(cfg: BenchConfig, args) -> None:
         lc.verify = False
     if getattr(args, "no_restore_device", False):
         lc.restore_device = False
+    for attr, dest in (
+        ("meta_objects", "meta_objects"),
+        ("meta_object_bytes", "meta_object_bytes"),
+        ("meta_rate", "meta_rate_rps"), ("meta_duration", "meta_duration_s"),
+        ("meta_page_size", "meta_page_size"),
+        ("meta_workers", "meta_workers"),
+        ("lifecycle_seed", "seed"),
+    ):
+        v = getattr(args, attr, None)
+        if v is not None:
+            setattr(lc, dest, v)
+    if getattr(args, "meta_arrival", None):
+        lc.meta_arrival = args.meta_arrival
+    if getattr(args, "meta_mix", None):
+        lc.meta_mix = args.meta_mix
+    if getattr(args, "meta_sweep_points", None):
+        lc.sweep_points = _float_list("--meta-sweep-points",
+                                      args.meta_sweep_points)
     validate_lifecycle_config(lc)
+
+
+def _float_list(flag: str, raw: str) -> list:
+    try:
+        return [float(x) for x in raw.split(",") if x]
+    except ValueError:
+        raise SystemExit(
+            f"{flag} {raw!r}: expected a comma list of positive numbers"
+        ) from None
+
+
+def _apply_drill_args(cfg: BenchConfig, args) -> None:
+    """Fold the drill flags into ``cfg.drill``; only the ``drill``
+    command pays the drill's cross-plane checks (hosts >= 2, a restore
+    class of its own), as in ``tpubench``."""
+    dc = cfg.drill
+    for attr, dest in (
+        ("drill_kill_at", "kill_at_s"), ("drill_join_at", "join_at_s"),
+        ("drill_victim", "victim"),
+        ("restore_class", "restore_class"),
+        ("restore_priority", "restore_priority"),
+        ("restore_weight", "restore_weight"),
+        ("restore_deadline", "restore_deadline_ms"),
+        ("restore_inflight", "restore_inflight"),
+        ("restore_retries", "restore_retries"),
+        ("save_interval", "save_interval_s"),
+        ("dirty_fraction", "dirty_fraction"),
+        ("drill_meta_rate", "meta_rate_rps"),
+    ):
+        v = getattr(args, attr, None)
+        if v is not None:
+            setattr(dc, dest, v)
+    if getattr(args, "restore_direct", False):
+        dc.restore_via_coop = False
+    if getattr(args, "full_saves", False):
+        dc.delta_saves = False
+    if getattr(args, "drill_sweep_points", None):
+        dc.sweep_points = _float_list("--drill-sweep-points",
+                                      args.drill_sweep_points)
+    if getattr(args, "cmd", None) == "drill":
+        validate_drill_config(dc, cfg.serve)
 
 
 def _add_common(p) -> None:
@@ -1030,6 +1262,7 @@ def build_config(args) -> BenchConfig:
     _apply_tune_args(cfg, args)
     _apply_lifecycle_args(cfg, args)
     _apply_serve_args(cfg, args)
+    _apply_drill_args(cfg, args)
     if cfg.obs.results_bucket and t.protocol not in ("http", "grpc"):
         # Fail at parse time, not after an hour-long run: upload_result
         # needs an object-store protocol ('local' roots at workload.dir,
@@ -1192,10 +1425,10 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
         )) or chaos_wl == "pod-ingest" or (
         cmd == "ckpt-restore" and cfg.lifecycle.restore_device)
     group_device = device
-    if (cmd in CKPT_CMDS or cmd == "serve" or chaos_wl == "serve") \
-            and not one_rank:
+    device_free = cmd in DEVICE_FREE_CMDS or chaos_wl == "serve"
+    if (cmd in CKPT_CMDS or device_free) and not one_rank:
         group_device = "cpu"
-    if cmd == "serve" or chaos_wl == "serve":
+    if device_free:
         from tpubench_torch.device import resolve_device
 
         resolve_device(device)
@@ -1311,12 +1544,95 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
                 if res.extra.get("membership"):
                     print(format_membership_scorecard(
                         res.extra["membership"]))
+            elif cmd == "meta-storm":
+                from tpubench_torch.lifecycle import (
+                    format_lifecycle_scorecard,
+                )
+                from tpubench_torch.workloads.meta_storm import (
+                    run_meta_storm,
+                )
+
+                res = run_meta_storm(cfg, backend=backend,
+                                     sweep=args.meta_sweep, device=device)
+                print(format_lifecycle_scorecard(res.extra["lifecycle"]))
+            elif cmd == "drill":
+                res = _drill(cfg, args, device, backend)
+            elif cmd == "replay":
+                res = _replay(cfg, args, device)
             else:
                 raise SystemExit(f"unknown command {cmd!r}")
         if cfg.obs.profile_dir:
             print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
         if topo["process_count"] > 1:
             res.extra["topology"] = topo
+    return res
+
+
+def _drill(cfg: BenchConfig, args, device, backend=None) -> RunResult:
+    """The ``drill`` command: the run (or ``--drill-sweep``) under the
+    tracer, against the prepopulated in-process fake server when
+    ``--protocol http|grpc`` names no endpoint; the serve, resize and
+    drill scorecards printed."""
+    from tpubench_torch.obs.tracing import tracer_session
+    from tpubench_torch.workloads.chaos import hermetic_target
+    from tpubench_torch.workloads.drill import (
+        format_drill_scorecard,
+        format_drill_sweep,
+        run_drill,
+        run_drill_sweep,
+    )
+    from tpubench_torch.workloads.serve import (
+        format_membership_scorecard,
+        format_serve_scorecard,
+    )
+
+    with tracer_session(cfg) as tracer, hermetic_target(cfg, populated=True):
+        if args.drill_sweep:
+            res = run_drill_sweep(cfg, tracer=tracer, device=device)
+        else:
+            res = run_drill(cfg, backend=backend, tracer=tracer,
+                            device=device)
+    print(format_serve_scorecard(res.extra["serve"]))
+    if res.extra.get("membership"):
+        print(format_membership_scorecard(res.extra["membership"]))
+    print(format_drill_scorecard(res.extra["drill"]))
+    if res.extra.get("drill_sweep"):
+        print(format_drill_sweep(res.extra["drill_sweep"]))
+    return res
+
+
+def _replay(cfg: BenchConfig, args, device) -> RunResult:
+    """The ``replay`` command: load and validate the bundle, re-drive it,
+    print the scorecards and the replay-vs-original block."""
+    from tpubench_torch.obs.tracing import tracer_session
+    from tpubench_torch.replay.bundle import (
+        format_replay_block,
+        load_bundle,
+        validate_bundle,
+    )
+    from tpubench_torch.replay.driver import run_replay
+    from tpubench_torch.workloads.serve import (
+        format_membership_scorecard,
+        format_serve_scorecard,
+    )
+
+    bundle = load_bundle(args.bundle)
+    if bundle is None:
+        raise SystemExit(
+            f"replay: no usable bundle at {args.bundle!r} (missing, "
+            "unreadable, or truncated — see warnings above)"
+        )
+    validate_bundle(bundle, args.bundle)
+    with tracer_session(cfg) as tracer:
+        res = run_replay(cfg, bundle, tracer=tracer, device=device)
+    print(format_serve_scorecard(res.extra["serve"]))
+    if res.extra.get("membership"):
+        print(format_membership_scorecard(res.extra["membership"]))
+    if res.extra.get("drill"):
+        from tpubench_torch.workloads.drill import format_drill_scorecard
+
+        print(format_drill_scorecard(res.extra["drill"]))
+    print(format_replay_block(res.extra["replay"]))
     return res
 
 
@@ -1538,6 +1854,18 @@ def main(argv=None) -> int:
         )
     if args.cmd == "report":
         return report(args)
+    if args.cmd == "record":
+        # Journal distillation: device-free and config-free, like report.
+        from tpubench_torch.replay.bundle import record_bundle
+
+        bundle = record_bundle(args.journals, args.out, name=args.name)
+        print(
+            f"bundle written: {args.out} ({bundle['name']}: "
+            f"{len(bundle['arrivals'])} arrivals, "
+            f"{len(bundle['objects'])} objects, fingerprint "
+            f"{bundle['config_fingerprint']})"
+        )
+        return 0
     if args.cmd == "multichip-sweep":
         # No config and no bring-up here: each child brings up its own.
         from tpubench_torch.dist.sweep import main as sweep_main

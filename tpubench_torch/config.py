@@ -3,9 +3,9 @@
 
 One config JSON drives both packages: a file written by ``tpubench
 --save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (drill, fleet,
-…) are kept as the raw dicts they were loaded as, so they
-round-trip without a dataclass.
+unchanged. The sections the port has no code for yet (``fleet``) are
+kept as the raw dicts they were loaded as, so they round-trip without a
+dataclass.
 
 A command of ``tpubench`` the port does not have yet is not in its parser,
 so a switched-on feature never silently does nothing.
@@ -1016,11 +1016,132 @@ def parse_meta_mix(spec: str, where: str = "lifecycle") -> dict[str, float]:
     return {k: v / total for k, v in out.items()}
 
 
+@dataclass
+class DrillConfig:
+    """Composed incident drill (``drill``, ``workloads/drill.py``):
+    restore-while-serving on the elastic pod.
+
+    The serve plane runs its open-loop QoS traffic over ``serve.hosts``
+    pod hosts; at ``kill_at_s`` the membership plane kills ``victim``;
+    at ``join_at_s`` a cold replacement joins and runs a checkpoint
+    restore THROUGH the shared admission queue (and, on the coop arm,
+    the coop cache), so restore reads, peer traffic, and gold-class
+    fetches contend for the same slots, byte budgets, and — with
+    ``meta_rate_rps`` > 0 — metadata quota. Periodic checkpoint DELTA
+    saves (lifecycle/delta.py) ride under the same traffic on
+    ``save_interval_s``."""
+
+    # QoS identity of restore reads: their own first-class tag in the
+    # admission queue and the cache/prefetch owner budgets (never a
+    # masquerading tenant). Colliding with a serving class name is a
+    # config error (validate_drill_config).
+    restore_class: str = "restore"
+    restore_priority: int = 1  # between gold (0) and best_effort
+    restore_weight: float = 2.0  # byte-budget split weight
+    restore_deadline_ms: float = 500.0  # per-chunk deadline (sheds count)
+    # Restore driver window: chunk reads the joiner keeps in flight
+    # through the shared admission queue.
+    restore_inflight: int = 8
+    # Bounded re-reads when a delta save lands a new shard generation
+    # under an in-flight restore read (the torn-read path).
+    restore_retries: int = 3
+    # Scripted incident, in virtual schedule seconds on the arrival
+    # clock: victim dies at kill_at_s, replacement joins cold at
+    # join_at_s. victim = -1 resolves to the last host.
+    kill_at_s: float = 1.0
+    join_at_s: float = 1.5
+    victim: int = -1
+    # A/B arm: True routes restore reads through the joiner's coop
+    # cache (peer hits possible); False fetches direct-to-origin (still
+    # through the admission queue — slot contention stays).
+    restore_via_coop: bool = True
+    # Periodic checkpoint saves under traffic: interval in virtual
+    # seconds (0 = no periodic saves); delta_saves=False forces every
+    # save full (the delta-vs-full A/B arm); dirty_fraction of shards
+    # mutate between saves.
+    save_interval_s: float = 1.0
+    delta_saves: bool = True
+    dirty_fraction: float = 0.25
+    # Concurrent open-loop metadata storm sharing the lifecycle quota
+    # ledger with standalone meta-storm runs (0 = no storm mix).
+    meta_rate_rps: float = 0.0
+    # drill-sweep: save-interval multipliers stepped in order.
+    sweep_points: list = field(default_factory=lambda: [0.5, 1.0, 2.0])
+
+
+def validate_drill_config(dc: "DrillConfig", sc: "ServeConfig",
+                          where: str = "drill") -> None:
+    """Parse-time sanity for the drill plane (one-line SystemExit at
+    config load — the validate_fault_config style). The drill composes
+    the serve plane, so it also inherits validate_serve_config."""
+    if not dc.restore_class or not isinstance(dc.restore_class, str):
+        raise SystemExit(
+            f"{where}.restore_class={dc.restore_class!r}: must be a "
+            "non-empty string"
+        )
+    if dc.restore_class in {c.get("name") for c in sc.classes}:
+        raise SystemExit(
+            f"{where}.restore_class={dc.restore_class!r} collides with a "
+            "serving class name — restore traffic must carry its own QoS "
+            "tag"
+        )
+    if not isinstance(dc.restore_priority, int) or dc.restore_priority < 0:
+        raise SystemExit(
+            f"{where}.restore_priority={dc.restore_priority!r}: must be "
+            "an int >= 0"
+        )
+    for name in ("restore_weight", "restore_deadline_ms", "join_at_s"):
+        v = getattr(dc, name)
+        if not (v > 0):  # also rejects NaN
+            raise SystemExit(f"{where}.{name}={v!r}: must be > 0")
+    for name, lo in (("restore_inflight", 1), ("restore_retries", 0)):
+        v = getattr(dc, name)
+        if v < lo:
+            raise SystemExit(f"{where}.{name}={v!r}: must be >= {lo}")
+    if not (dc.kill_at_s >= 0):
+        raise SystemExit(f"{where}.kill_at_s={dc.kill_at_s!r}: must be >= 0")
+    if not (dc.join_at_s >= dc.kill_at_s):
+        raise SystemExit(
+            f"{where}.join_at_s={dc.join_at_s!r}: must be >= kill_at_s "
+            f"({dc.kill_at_s}) — the replacement joins after the incident"
+        )
+    if sc.hosts < 2:
+        raise SystemExit(
+            f"{where} needs serve.hosts >= 2 (got {sc.hosts}): a pod of "
+            "one has no survivor to keep serving"
+        )
+    if not isinstance(dc.victim, int) or not (-1 <= dc.victim < sc.hosts):
+        raise SystemExit(
+            f"{where}.victim={dc.victim!r}: must be -1 (last host) or an "
+            f"int in [0, {sc.hosts})"
+        )
+    if not (dc.save_interval_s >= 0):
+        raise SystemExit(
+            f"{where}.save_interval_s={dc.save_interval_s!r}: must be >= 0"
+        )
+    if not (0.0 < dc.dirty_fraction <= 1.0):  # also rejects NaN
+        raise SystemExit(
+            f"{where}.dirty_fraction={dc.dirty_fraction!r}: must be in "
+            "(0, 1]"
+        )
+    if not (dc.meta_rate_rps >= 0):
+        raise SystemExit(
+            f"{where}.meta_rate_rps={dc.meta_rate_rps!r}: must be >= 0"
+        )
+    if not dc.sweep_points or not all(
+        isinstance(p, (int, float)) and p > 0 for p in dc.sweep_points
+    ):
+        raise SystemExit(
+            f"{where}.sweep_points={dc.sweep_points!r}: must be a "
+            "non-empty list of positive save-interval multipliers"
+        )
+
+
 # The sections the port has dataclasses for; every other section of a
 # loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
                    "telemetry", "tune", "pipeline", "coop",
-                   "lifecycle", "serve")
+                   "lifecycle", "serve", "drill")
 
 
 @dataclass
@@ -1036,6 +1157,7 @@ class BenchConfig:
     coop: CoopConfig = field(default_factory=CoopConfig)
     lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    drill: DrillConfig = field(default_factory=DrillConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -1085,6 +1207,7 @@ _SUBTYPES = {
     "coop": CoopConfig,
     "lifecycle": LifecycleConfig,
     "serve": ServeConfig,
+    "drill": DrillConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,

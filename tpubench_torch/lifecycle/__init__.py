@@ -1,15 +1,16 @@
-"""Storage-lifecycle plane — a copy of ``tpubench/lifecycle``'s checkpoint
-half (device-free; ``workloads/ckpt.py`` adds the staging onto the card):
+"""Storage-lifecycle plane — a copy of ``tpubench/lifecycle`` (device-free;
+``workloads/ckpt.py`` adds the staging onto the card):
 
 * :mod:`.manifest` — the sharded-checkpoint layout (objects + crc32s) save
   and restore agree on, in ``tpubench``'s format;
 * :mod:`.upload` — the resumable multi-part upload driver (parts, flight
-  phases, part latency, resumed-part accounting) and the crc32 readback.
-
-Still to come (``ROADMAP.md`` A.3): ``delta`` (``ifGenerationMatch``-CAS
-delta saves) and ``storm`` (the metadata storm engine of ``meta-storm``).
+  phases, part latency, resumed-part accounting) and the crc32 readback;
+* :mod:`.delta` — per-shard dirty tracking and ``ifGenerationMatch``-CAS
+  delta saves (the drill's periodic saves);
+* :mod:`.storm` — the open-loop metadata storm engine of ``meta-storm``.
 """
 
+from tpubench_torch.lifecycle.delta import DeltaTracker, delta_save  # noqa: F401
 from tpubench_torch.lifecycle.manifest import (  # noqa: F401
     CkptManifest,
     build_manifest,
@@ -17,6 +18,11 @@ from tpubench_torch.lifecycle.manifest import (  # noqa: F401
     read_manifest,
     shard_content,
     shard_object_name,
+)
+from tpubench_torch.lifecycle.storm import (  # noqa: F401
+    MetaOp,
+    build_storm_schedule,
+    run_storm,
 )
 from tpubench_torch.lifecycle.upload import (  # noqa: F401
     readback_crc32,

@@ -1,6 +1,5 @@
 """``report --fail-on`` — the exit-code regression contract (a copy of
-``tpubench/replay/gate.py``; the rest of the replay plane comes with
-``ROADMAP.md`` A.7).
+``tpubench/replay/gate.py``).
 
 A ``--fail-on`` expression is a FAILURE CONDITION over the metrics a
 result document carries: ``<metric><op><threshold>`` (no spaces), e.g.

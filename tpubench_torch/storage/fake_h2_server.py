@@ -316,6 +316,23 @@ class _Conn:
                 )
                 continue
             if (
+                method == "DELETE"
+                and len(parts) >= 7
+                and parts[1] == "storage"
+                and parts[5] == "o"
+            ):
+                # The HTTP/1.1 fake's do_DELETE (``tpubench``'s h2 fake
+                # answers 404 here: ROADMAP C.7).
+                try:
+                    self.backend.delete(
+                        urllib.parse.unquote("/".join(parts[6:]))
+                    )
+                except StorageError as e:
+                    send_error(e.code or 500)
+                    continue
+                send(204, b"", "application/json")
+                continue
+            if (
                 method != "GET"
                 or len(parts) < 7
                 or parts[1] != "storage"

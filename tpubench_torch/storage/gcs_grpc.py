@@ -489,13 +489,26 @@ class GcsGrpcBackend:
         return _WireBidiWriter(self, name, if_generation_match)
 
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
-        wreq = wp.ListObjectsRequest(
-            parent=self._bucket_path, prefix=prefix, page_size=max(0, page_size),
-        )
-        resp = wp.ListObjectsResponse.decode(
-            self._wire_unary(f"{_SVC}/ListObjects", wreq)
-        )
-        return [ObjectMeta(o.name, o.size, o.generation) for o in resp.objects]
+        """Full listing under ``prefix``, following ``next_page_token``
+        as the HTTP client follows ``nextPageToken``; ``page_size`` > 0
+        bounds each wire page, not the listing. (``tpubench``'s wire
+        client reads the first page only: ROADMAP C.7.)"""
+        out: list[ObjectMeta] = []
+        token = ""
+        while True:
+            wreq = wp.ListObjectsRequest(
+                parent=self._bucket_path, prefix=prefix,
+                page_size=max(0, page_size), page_token=token,
+            )
+            resp = wp.ListObjectsResponse.decode(
+                self._wire_unary(f"{_SVC}/ListObjects", wreq)
+            )
+            out.extend(
+                ObjectMeta(o.name, o.size, o.generation) for o in resp.objects
+            )
+            token = resp.next_page_token
+            if not token:
+                return out
 
     def stat(self, name: str) -> ObjectMeta:
         o = wp.Object.decode(self._wire_unary(

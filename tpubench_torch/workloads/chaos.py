@@ -321,8 +321,8 @@ def spawn_hermetic_server(cfg: BenchConfig, fault_plan=None, store=None):
 
 
 @contextlib.contextmanager
-def hermetic_target(cfg: BenchConfig):
-    """Hermetic-target guard for the lifecycle CLI paths: under
+def hermetic_target(cfg: BenchConfig, populated: bool = False):
+    """Hermetic-target guard for the lifecycle and drill CLI paths: under
     ``--protocol http``/``--protocol grpc`` with no endpoint, spawn the
     matching in-process fake server (carrying ``transport.fault`` when
     active, so upload faults are injected ON THE WIRE) and restore the
@@ -330,9 +330,10 @@ def hermetic_target(cfg: BenchConfig):
     the run already has a target (an explicit endpoint, or a protocol like
     ``fake``/``local`` that needs no server).
 
-    The server's store starts empty: ``tpubench``'s is prepopulated with
-    the read workload's objects (``workers`` × ``object_size``, 4.8 GB
-    at the defaults), which no lifecycle command reads."""
+    The server's store starts empty unless ``populated`` (``drill``,
+    whose serve traffic reads the read workload's objects): ``tpubench``'s
+    is always prepopulated with them (``workers`` × ``object_size``,
+    4.8 GB at the defaults), which no checkpoint command reads."""
     t = cfg.transport
     if t.protocol not in ("http", "grpc") or t.endpoint:
         yield None
@@ -343,7 +344,9 @@ def hermetic_target(cfg: BenchConfig):
         FaultPlan(**dataclasses.asdict(t.fault)) if t.fault.active else None
     )
     restore = (t.endpoint, t.directpath)
-    server = spawn_hermetic_server(cfg, store=FakeBackend(fault=plan))
+    server = spawn_hermetic_server(
+        cfg, fault_plan=plan,
+        store=None if populated else FakeBackend(fault=plan))
     try:
         yield server
     finally:

@@ -12,7 +12,7 @@ given two or more runs — pairwise deltas grouped by config axis
 (transport bit, staging mode, fetch executor).
 
 A document carrying the block of a workload the port does not have yet
-(drill, fleet, replay) is refused
+(fleet) is refused
 with ``NotImplementedError`` naming its ``ROADMAP.md`` item, never
 rendered without that block. ``bench.py`` lines and multichip-sweep
 artifacts are plain dicts and render as in ``tpubench``.
@@ -144,10 +144,7 @@ def _axis(run: dict) -> str:
 # Result blocks whose formatter belongs to a workload not ported yet ->
 # the ROADMAP item that brings it.
 UNPORTED_BLOCKS = {
-    "drill": "A.7: drill",
-    "drill_sweep": "A.7: drill",
     "fleet": "A.7: fleet",
-    "replay": "A.7: replay",
 }
 
 
@@ -222,6 +219,21 @@ def summarize_run(run: dict, label: str = "") -> str:
         )
 
         lines.append(format_membership_scorecard(mb))
+    dr = extra.get("drill")
+    if dr:
+        # Incident-drill scorecard: same body `drill` printed live —
+        # time-to-restore vs time-to-rewarm, gold SLO during the
+        # restore window vs steady state, delta-save ledger, origin-byte
+        # amplification.
+        from tpubench_torch.workloads.drill import format_drill_scorecard
+
+        lines.append(format_drill_scorecard(dr))
+    ds = extra.get("drill_sweep")
+    if ds:
+        # Save-interval sweep curve with the knee identified.
+        from tpubench_torch.workloads.drill import format_drill_sweep
+
+        lines.append(format_drill_sweep(ds))
     for key, item in UNPORTED_BLOCKS.items():
         if extra.get(key):
             # The block's formatter lives in a workload not ported yet:
@@ -230,10 +242,19 @@ def summarize_run(run: dict, label: str = "") -> str:
                 f"not ported to tpubench_torch yet: the report block "
                 f"extra[{key!r}] (ROADMAP {item})"
             )
+    rp = extra.get("replay")
+    if rp:
+        # Replay-vs-original scorecard diff: the same body `replay`
+        # printed live — original vs replayed, fingerprints, and the
+        # drift deltas the --fail-on grammar gates on.
+        from tpubench_torch.replay.bundle import format_replay_block
+
+        lines.append(format_replay_block(rp))
     lc = extra.get("lifecycle")
     if lc:
         # Storage-lifecycle scorecard: same body the CLI printed live
-        # (save goodput/parts/resume counts, time-to-restore).
+        # (save goodput/parts/resume counts, time-to-restore, storm
+        # knee curve).
         from tpubench_torch.lifecycle import format_lifecycle_scorecard
 
         lines.append(format_lifecycle_scorecard(lc))
