@@ -254,6 +254,24 @@ before the last line:
    recording config (fingerprint and arrivals match, gold SLO within 5
    points, the drill's restore verified), then drill_default's journal
    recorded, replayed and re-recorded: the two bundles byte-identical.
+25. fleet — ``fleet`` through ``cli.execute``, none of it launching a
+   kernel: fleet_scale (``tpubench``'s scale acceptance: 1024 hosts in 8
+   pods, 100,000 tenants, diurnal 30,000/s for 1 s, 5% of the fleet
+   killed at 0.5 s and rejoined 0.4 s later, seed 20: 51 kills and 51
+   rejoins applied, no error, the serve, resize and fleet blocks in the
+   printout and in ``report`` over the result, under 60 s of wall),
+   fleet_max (4096 hosts at the FleetConfig and ServeConfig defaults
+   under a rolling upgrade: every host paused and resumed, epoch 8,192,
+   under 60 s), fleet_sweep (``--fleet-sweep`` at the defaults: 5
+   points, the knee or none) and fleet_agree (a 4-host elastic ``serve``
+   with 4 ms a read writes a journal, ``fleet --calibrate-from`` it runs
+   the same scenario: the same arrivals, ``kill_host`` 1 at epoch 1 in
+   both, gold SLO within 2 points; both arms' gold SLO and the fitted
+   origin and peer p50/p99 printed);
+26. check — ``check --json`` over ``tpubench_torch/`` on this machine,
+   every drift guard run (the native-counters guard builds and probes
+   the engine): exit 0, no finding, no stale allowlist entry, no guard
+   skipped, every file scanned; each pass's and guard's seconds printed.
 
 Phase kernels also holds ``tb_checksum`` at phase gather's shard (4 MiB),
 at phase train's pod shard (one step's batch, 64 MiB, 524,288 × 128), at
@@ -271,7 +289,8 @@ the reverse order; the ``flight_cost`` line gives their staged GB/s.
 
 Phase agree also runs http_validate and grpc_validate small, on the CPU and
 on the card. Then the ``kernels`` summary line (launches summed over the paths that
-ran each kernel, and per path), the ``nvidia-smi`` name/power-limit line,
+ran each kernel, and per path; ``no_launch_paths``: every mode of phases
+serve, drill, fleet and check, each at 0), the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 rest of the repository beside it, the script fails at once.
 """
@@ -391,6 +410,10 @@ KERNELS = {
 }
 
 
+# Phases none of whose modes stages a byte (in tpubench as here).
+NO_KERNEL_PHASES = ("serve", "drill", "fleet", "check")
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -445,11 +468,18 @@ def main() -> int:
     counts.update(phase_serve(store, smi))
     counts.update(phase_chaos(store, pod_store, smi))
     counts.update(phase_drill(store, smi))
+    counts.update(phase_fleet(smi))
+    counts.update(phase_check(smi))
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
         v["launches"] = sum(by_path.values())
         v["launches_by_path"] = by_path
+        # The phases that stage nothing, every mode at 0 launches.
+        idle = {p: c[k] for p, c in counts.items()
+                if p.split("/")[0] in NO_KERNEL_PHASES}
+        check(not any(idle.values()), f"{k}: launched in {idle}")
+        v["no_launch_paths"] = idle
     emit({"kernels": [dict(name=k, **v) for k, v in kernels.items()]})
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4506,6 +4536,275 @@ def phase_drill(store, smi) -> dict:
     emit({"phase": "drill_total", "seconds": time.perf_counter() - t_phase,
           "card": smi, "reduced": DRILL_REDUCED})
     return launches
+
+
+# ------------------------------------------------------------- phase 25 --
+# Phase fleet: the virtual-time fleet through cli.execute. fleet_scale is
+# tpubench's scale acceptance (tests/test_fleet.py:520-558): 1024 hosts
+# (8 pods), 100,000 tenants, diurnal arrivals at 30,000/s for 1 s, 5% of
+# the fleet killed at 0.5 s and rejoined 0.4 s later, seed 20, in under
+# 60 s of wall. fleet_max: the top of the README's 64-4096 range at the
+# FleetConfig and ServeConfig defaults, every host paused once by a
+# rolling upgrade. fleet_sweep: --fleet-sweep at the defaults.
+# fleet_agree: tests/test_fleet.py:433-475's agreement gate on this host
+# (a 4-host elastic serve, 4 ms a read, host 1 killed at 0.54 s; the
+# virtual arm calibrated from the threaded arm's journal): gold SLO
+# within 2 points, the same kill at the same epoch, the same arrivals.
+FLEET_WALL_S = 60.0
+FLEET_CHUNK = 64 * 1024
+FLEET_SCALE_ARGV = [
+    "--object-size", str(MIB), "--granule-bytes", str(FLEET_CHUNK),
+    "--fleet-hosts", "1024", "--fleet-seed", "20",
+    "--fleet-timeline", "correlated_failure", "--fleet-fail-at", "0.5",
+    "--fleet-fail-fraction", "0.05", "--fleet-recover", "0.4",
+    "--serve-seed", "20", "--serve-arrival", "diurnal",
+    "--serve-duration", "1", "--serve-rate", "30000",
+    "--serve-tenants", "100000"]
+FLEET_MAX_HOSTS = 4096
+AGREE_KILL_S = 0.54  # 0.45 of the 1.2 s schedule
+AGREE_ARGV = [
+    "--protocol", "fake", "--workers", "4", "--object-size", str(MIB),
+    "--granule-bytes", str(FLEET_CHUNK), "--staging", "none",
+    "--cache-bytes", str(64 * MIB), "--fault-per-read-latency", "0.004",
+    "--serve-seed", "11", "--serve-duration", "1.2", "--serve-rate", "250",
+    "--serve-tenants", "24", "--serve-workers", "4", "--serve-hosts", "4",
+    "--resize-window", "0.4", "--membership-timeline",
+    json.dumps([[AGREE_KILL_S, AGREE_KILL_S, {"kill_host": 1}]])]
+FLEET_REDUCED = [
+    "one process: every simulated host is an event of one loop, as in "
+    "tpubench; the fleet touches no device",
+]
+
+
+def _fleet_exec(cmd: str, argv: list) -> tuple:
+    """``cmd`` through ``cli.execute`` on the card, its printout captured;
+    returns the result, the printout, the seconds and the launch counts."""
+    import contextlib
+    import io
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    args, cfg = _cli([cmd, *argv])
+    buf = io.StringIO()
+    landing.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cli.execute(cmd, cfg, device="cuda", args=args)
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    check(counts == {"land": 0, "checksum": 0},
+          f"fleet/{cmd}: launched {counts}")
+    return res, buf.getvalue(), seconds, counts
+
+
+def _fleet_line(mode: str, res, seconds: float, counts: dict, smi) -> dict:
+    fl, sv = res.extra["fleet"], res.extra["serve"]
+    gold = min(sv["classes"].values(), key=lambda c: c["priority"]) \
+        if sv.get("classes") else {}
+    req = res.summaries.get("request")
+    return {"phase": "fleet", "mode": mode, "launches": counts,
+            "seconds": seconds, "hosts": fl["hosts"], "pods": fl["pods"],
+            "workers": fl["workers"], "tenants": fl["tenants"],
+            "timeline": fl["timeline"], "arrivals": fl["arrivals"],
+            "sim": fl["sim"], "cross_pod": fl.get("cross_pod"),
+            "errors": res.errors, "shed": sv.get("shed"),
+            "gold_slo": gold.get("slo_attainment"),
+            "gold_p99_ms": gold.get("p99_ms"),
+            "p99_ms": req.p99_ms if req else None, "card": smi,
+            "reduced": FLEET_REDUCED}
+
+
+def _fleet_events(res, action: str) -> list:
+    return [e for e in res.extra["membership"]["events"]
+            if e["action"] == action]
+
+
+def _fleet_scale(smi) -> dict:
+    from tpubench_torch.metrics.report import write_result
+    from tpubench_torch.workloads.report_cmd import run_report
+
+    res, out, seconds, counts = _fleet_exec("fleet", FLEET_SCALE_ARGV)
+    fl = res.extra["fleet"]
+    kills = _fleet_events(res, "kill_host")
+    rejoins = _fleet_events(res, "rejoin_host")
+    report = run_report([write_result(res, f"{BUILD}/results", tag="scale")])
+    line = _fleet_line("fleet_scale", res, seconds, counts, smi)
+    line.update(kills=len(kills), rejoins=len(rejoins),
+                remap_fraction=kills[0]["remap_fraction"] if kills else None)
+    emit(line)
+    check(fl["hosts"] == 1024 and fl["pods"] == 8
+          and fl["tenants"] == 100_000 and fl["arrivals"] > 10_000,
+          f"fleet/fleet_scale: {fl['hosts']} hosts, {fl['pods']} pods, "
+          f"{fl['tenants']} tenants, {fl['arrivals']} arrivals")
+    check(len(kills) == 51 and all(e["applied"] for e in kills)
+          and len(rejoins) == 51 and all(e["applied"] for e in rejoins),
+          f"fleet/fleet_scale: {len(kills)} kills, {len(rejoins)} rejoins")
+    check(res.errors == 0, f"fleet/fleet_scale: {res.errors} errors")
+    for text in (out, report):
+        check(all(b in text for b in (
+            "serve scorecard", "membership resize scorecard",
+            "== fleet simulation ==")), "fleet/fleet_scale: a scorecard "
+            "is missing from the printout or the report")
+    check(seconds < FLEET_WALL_S,
+          f"fleet/fleet_scale: {seconds:.1f} s (budget {FLEET_WALL_S} s)")
+    return line
+
+
+def _fleet_max(smi) -> dict:
+    res, out, seconds, counts = _fleet_exec("fleet", [
+        "--fleet-hosts", str(FLEET_MAX_HOSTS),
+        "--fleet-timeline", "rolling_upgrade"])
+    fl, mb = res.extra["fleet"], res.extra["membership"]
+    pauses = _fleet_events(res, "pause_host")
+    resumes = _fleet_events(res, "resume_host")
+    line = _fleet_line("fleet_max", res, seconds, counts, smi)
+    line.update(pauses=len(pauses), resumes=len(resumes), epoch=mb["epoch"])
+    emit(line)
+    n = FLEET_MAX_HOSTS
+    check(fl["hosts"] == n and fl["pods"] == n // 128,
+          f"fleet/fleet_max: {fl['hosts']} hosts in {fl['pods']} pods")
+    check(len(pauses) == len(resumes) == n
+          and all(e["applied"] for e in pauses + resumes)
+          and mb["epoch"] == 2 * n,
+          f"fleet/fleet_max: {len(pauses)} pauses, {len(resumes)} resumes, "
+          f"epoch {mb['epoch']}")
+    check(res.errors == 0 and "== fleet simulation ==" in out,
+          f"fleet/fleet_max: {res.errors} errors")
+    check(seconds < FLEET_WALL_S,
+          f"fleet/fleet_max: {seconds:.1f} s (budget {FLEET_WALL_S} s)")
+    return line
+
+
+def _fleet_sweep(smi) -> dict:
+    res, out, seconds, counts = _fleet_exec("fleet", ["--fleet-sweep"])
+    sw = res.extra["serve"]["sweep"]
+    line = {"phase": "fleet", "mode": "fleet_sweep", "launches": counts,
+            "seconds": seconds, "hosts": res.extra["fleet"]["hosts"],
+            "points": sw["points"], "knee": sw["knee"],
+            "base_rate_rps": sw["base_rate_rps"],
+            "sim": res.extra["fleet"]["sim"], "card": smi,
+            "reduced": FLEET_REDUCED}
+    emit(line)
+    check(len(sw["points"]) == 5 and res.errors == 0,
+          f"fleet/fleet_sweep: {len(sw['points'])} points, "
+          f"{res.errors} errors")
+    check("== fleet simulation ==" in out, "fleet/fleet_sweep: no block")
+    return line
+
+
+def _fleet_agree(smi) -> dict:
+    """The threaded arm (``serve``, writing its journal) and the virtual
+    arm (``fleet --calibrate-from`` that journal, the same scenario)."""
+    journal = f"{BUILD}/fleet/agree.json"
+    profile = f"{BUILD}/fleet/profile.json"
+    threaded, _, t_seconds, t_counts = _fleet_exec(
+        "serve", [*AGREE_ARGV, "--flight-journal", journal])
+    virtual, out, v_seconds, v_counts = _fleet_exec("fleet", [
+        *AGREE_ARGV, "--fleet-hosts", "0", "--fleet-workers-per-host", "0",
+        "--calibrate-from", journal, "--fleet-profile", profile])
+
+    def gold(res):
+        return min(res.extra["serve"]["classes"].values(),
+                   key=lambda c: c["priority"])["slo_attainment"]
+
+    t_gold, v_gold = gold(threaded), gold(virtual)
+    t_ev = threaded.extra["membership"]["events"][0]
+    v_ev = virtual.extra["membership"]["events"][0]
+    prof = virtual.extra["fleet"]["profile"]
+    delta = None if t_gold is None or v_gold is None else \
+        (v_gold - t_gold) * 100.0
+    line = {"phase": "fleet", "mode": "fleet_agree",
+            "launches": {"land": t_counts["land"] + v_counts["land"],
+                         "checksum": t_counts["checksum"]
+                         + v_counts["checksum"]},
+            "seconds": t_seconds + v_seconds,
+            "threaded": {"gold_slo": t_gold, "seconds": t_seconds,
+                         "arrivals": threaded.extra["serve"]["arrivals"],
+                         "event": {k: t_ev[k] for k in (
+                             "action", "host", "epoch", "t_s")}},
+            "virtual": {"gold_slo": v_gold, "seconds": v_seconds,
+                        "arrivals": virtual.extra["serve"]["arrivals"],
+                        "event": {k: v_ev[k] for k in (
+                            "action", "host", "epoch", "t_s")},
+                        "sim": virtual.extra["fleet"]["sim"]},
+            "gold_slo_delta_pts": delta,
+            "fitted": {ph: prof[ph] for ph in ("origin", "peer")},
+            "card": smi, "reduced": FLEET_REDUCED}
+    emit(line)
+    check(prof["origin"]["source"] == "fitted",
+          f"fleet/fleet_agree: origin not fitted {prof['origin']}")
+    check("fleet profile written" in out, "fleet/fleet_agree: no profile")
+    check(threaded.errors == virtual.errors == 0,
+          f"fleet/fleet_agree: errors {threaded.errors}/{virtual.errors}")
+    check(line["threaded"]["arrivals"] == line["virtual"]["arrivals"],
+          "fleet/fleet_agree: the arms offered different schedules")
+    check((t_ev["action"], t_ev["host"], t_ev["epoch"])
+          == (v_ev["action"], v_ev["host"], v_ev["epoch"])
+          == ("kill_host", 1, 1),
+          f"fleet/fleet_agree: events {t_ev} vs {v_ev}")
+    check(delta is not None and abs(delta) <= 2.0,
+          f"fleet/fleet_agree: gold SLO threaded {t_gold} vs virtual "
+          f"{v_gold} (the gate allows 2 points)")
+    return line
+
+
+def phase_fleet(smi) -> dict:
+    """fleet_scale, fleet_max, fleet_sweep and fleet_agree; none launches
+    a kernel. Returns the launch counts."""
+    import os
+
+    t_phase = time.perf_counter()
+    os.makedirs(f"{BUILD}/fleet", exist_ok=True)
+    launches = {}
+    for mode, run in (("fleet_scale", _fleet_scale), ("fleet_max", _fleet_max),
+                      ("fleet_sweep", _fleet_sweep),
+                      ("fleet_agree", _fleet_agree)):
+        launches[f"fleet/{mode}"] = run(smi)["launches"]
+    emit({"phase": "fleet_total", "seconds": time.perf_counter() - t_phase,
+          "card": smi, "reduced": FLEET_REDUCED})
+    return launches
+
+
+# ------------------------------------------------------------- phase 26 --
+def phase_check(smi) -> dict:
+    """``check --json`` over the port's tree on this machine, every drift
+    guard included (the native-counters guard builds and probes the
+    engine here): exit 0, no finding, no stale allowlist entry, no guard
+    skipped, every file scanned. The seconds of each pass and guard are
+    the run's own. No kernel launches."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from tpubench_torch.analysis import run_cli_check
+    from tpubench_torch.kernels import landing
+
+    landing.reset_launches()
+    buf, kept = io.StringIO(), []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run_cli_check(json_out=True, keep=kept)
+    seconds = time.perf_counter() - t0
+    doc = json.loads(buf.getvalue())
+    counts = _launch_counts()
+    py_files = len(list((Path(__file__).resolve().parent
+                         / "tpubench_torch").rglob("*.py")))
+    line = {"phase": "check", "mode": "check", "launches": counts, "rc": rc,
+            "seconds": seconds, "summary": doc["summary"],
+            "files_scanned": doc["files_scanned"], "passes": doc["passes"],
+            "skipped": doc["skipped"], "stale": doc["stale_allowlist"],
+            "pass_seconds": kept[0].seconds if kept else None, "card": smi}
+    emit(line)
+    check(rc == 0 and doc["summary"]["findings"] == 0
+          and not doc["stale_allowlist"],
+          f"check: rc {rc}, {doc['summary']}")
+    check(doc["skipped"] == [] and "drift" in doc["passes"],
+          f"check: guards skipped {doc['skipped']}")
+    check(doc["files_scanned"] == py_files,
+          f"check: {doc['files_scanned']} files of {py_files}")
+    check(counts == {"land": 0, "checksum": 0}, f"check: launched {counts}")
+    return {"check/check": counts}
 
 
 if __name__ == "__main__":

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Some of ``chip_smoke.py``'s phases alone, on one GPU.
 
-    python3 scripts/smoke_phases.py --phases serve,chaos,drill
+    python3 scripts/smoke_phases.py --phases serve,chaos,drill,fleet,check
 
 Builds the kernels (phase build), makes phase read's store (48 x 100 MiB)
-and phase pod's (one 1 GiB object), then runs the phases named, in the
-order given, with every check ``chip_smoke.py`` makes; each prints its
-JSON lines as there. A phase that needs another phase's state is not
+when serve, chaos or drill is asked for and phase pod's (one 1 GiB object)
+for chaos, then runs the phases named, in the order given, with every
+check ``chip_smoke.py`` makes; each prints its JSON lines as there. A phase that needs another phase's state is not
 offered. The last lines are the launch counts by path, the seconds taken
 and the card's name and power limit. A quick way to try a phase on the
 card before the whole script runs.
@@ -21,7 +21,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PHASES = ("serve", "chaos", "drill")
+PHASES = ("serve", "chaos", "drill", "fleet", "check")
 
 
 def main() -> int:
@@ -45,7 +45,8 @@ def main() -> int:
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     cs.phase_build()
-    store = cs.populate()
+    store = (cs.populate() if {"serve", "chaos", "drill"} & set(names)
+             else None)
     pod_store = (FakeBackend.prepopulated("tpubench/file_", 1, cs.POD_OBJECT)
                  if "chaos" in names else None)
     counts = {}
@@ -54,6 +55,10 @@ def main() -> int:
             counts.update(cs.phase_serve(store, smi))
         elif name == "drill":
             counts.update(cs.phase_drill(store, smi))
+        elif name == "fleet":
+            counts.update(cs.phase_fleet(smi))
+        elif name == "check":
+            counts.update(cs.phase_check(smi))
         else:
             counts.update(cs.phase_chaos(store, pod_store, smi))
     cs.emit({"launches": counts, "seconds": time.perf_counter() - t0})

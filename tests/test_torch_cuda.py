@@ -703,6 +703,28 @@ def test_serve_on_the_card_launches_nothing(cuda):
         assert landing.land.launches == landing.checksum.launches == 0
 
 
+def test_fleet_on_the_card_launches_nothing(cuda):
+    """``fleet`` on ``device="cuda"`` (a virtual-time run, and its sweep)
+    touches no device: no kernel launched."""
+    from tpubench_torch.config import BenchConfig
+    from tpubench_torch.fleet.driver import run_fleet, run_fleet_sweep
+    from tpubench_torch.kernels import landing
+
+    cfg = BenchConfig()
+    cfg.workload.object_size = 1 << 20
+    cfg.workload.granule_bytes = GRANULE
+    cfg.obs.export = "none"
+    cfg.fleet.hosts, cfg.fleet.timeline = 64, "correlated_failure"
+    cfg.serve.duration_s = 0.5
+    landing.reset_launches()
+    res = run_fleet(cfg, device="cuda")
+    assert res.errors == 0 and res.extra["serve"]["completed"] > 0
+    cfg.serve.sweep_points = [0.5, 1.0]
+    sweep = run_fleet_sweep(cfg, device="cuda").extra["serve"]["sweep"]
+    assert len(sweep["points"]) == 2
+    assert landing.land.launches == landing.checksum.launches == 0
+
+
 def _lifecycle_cfg():
     from tpubench_torch.config import BenchConfig
 

@@ -80,6 +80,14 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.lifecycle.storm", "tpubench_torch.lifecycle.delta",
         "tpubench_torch.workloads.meta_storm",
         "tpubench_torch.workloads.drill", "tpubench_torch.replay.driver",
+        "tpubench_torch.fleet", "tpubench_torch.fleet.vtime",
+        "tpubench_torch.fleet.calibrate", "tpubench_torch.fleet.driver",
+        "tpubench_torch.analysis", "tpubench_torch.analysis.core",
+        "tpubench_torch.analysis.threads",
+        "tpubench_torch.analysis.lifecycle",
+        "tpubench_torch.analysis.determinism",
+        "tpubench_torch.analysis.lockorder",
+        "tpubench_torch.analysis.drift", "tpubench_torch.analysis.passes",
     } <= set(mods)
     proc = _run(
         "import importlib, json, sys\n"
@@ -188,6 +196,14 @@ def test_engine_builds_only_from_the_ports_sources():
             assert (csrc / inc).is_file(), (p.name, inc)
     assert build.library_path().parent == REPO / "build" / "tpubench_torch"
     assert build.library_path().name.startswith("libtb_engine-")
+    # The sanitizer matrix's stress binary: the port's copy of the
+    # harness, built beside the library.
+    assert build.STRESS_SOURCE == csrc / "stress.cc"
+    assert not re.findall(r'#include\s+"', build.STRESS_SOURCE.read_text())
+    for san in build.SANITIZERS:
+        path = build.stress_path(san)
+        assert path.parent == REPO / "build" / "tpubench_torch"
+        assert path.name.startswith(f"stress_{san}-")
 
 
 def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
@@ -210,7 +226,7 @@ def test_cli_exits_nonzero_without_cuda_and_runs_with_device_cpu(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["pod-ingest", "gather-bench", "probe",
                                  "sweep", "list", "stream", "train-ingest",
-                                 "serve", "chaos"])
+                                 "serve", "chaos", "fleet"])
 def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
     argv = [cmd, "--protocol", "fake", "--workers", "1", "--object-size",
             "70001", "--dir", str(tmp_path), "--results-dir", str(tmp_path)]

@@ -185,14 +185,23 @@ def test_train_ingest_report_prints_the_reference_scorecard(tmp_path):
     assert "pipeline: stalled" in both
 
 
-@pytest.mark.parametrize("block, item", [("fleet", "A.7")])
-def test_unported_block_is_refused(docs, block, item, tmp_path):
+def test_fleet_block_renders_as_reference(docs, tmp_path):
+    """A fleet run's block (the last one the port's report lacked)
+    renders as ``tpubench``'s report renders it."""
+    from tpubench_torch.fleet.driver import run_fleet
+
+    cfg = BenchConfig()
+    cfg.workload.object_size = 1 << 20
+    cfg.workload.granule_bytes = 64 * 1024
+    cfg.obs.export = "none"
+    cfg.fleet.hosts, cfg.serve.duration_s = 4, 0.2
     doc = json.loads(Path(docs["validate"]).read_text())
-    doc["extra"][block] = {"op": "save"}
+    doc["extra"]["fleet"] = run_fleet(cfg, device="cpu").extra["fleet"]
     path = tmp_path / "doc.json"
     path.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        report_cmd.run_report([str(path)])
+    text = report_cmd.run_report([str(path)])
+    assert text == jax_report.run_report([str(path)])
+    assert "== fleet simulation ==" in text and "hosts=4" in text
 
 
 # The blocks of tpubench's drill, drill-sweep and replay documents, as

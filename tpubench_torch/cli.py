@@ -1,12 +1,13 @@
 """tpubench_torch CLI: ``tpubench``'s ``read``, ``train-ingest``, ``sweep``,
 ``pod-ingest``, ``stream``, ``gather-bench``, ``multichip-sweep``, ``probe``,
 ``tune``, ``ckpt-save``, ``ckpt-restore``, ``meta-storm``, ``serve``,
-``chaos``, ``drill``, ``record`` and ``replay`` on PyTorch and CUDA, its
-filesystem workloads (``prepare``, ``read-fs``, ``write``, ``list``,
-``open``, ``ssd``), ``report`` and ``top`` over the results and journals
-they write, ``preflight`` (what a run needs, checked without a device),
-and ``info`` (what the port would run on): 27 of ``tpubench``'s 29
-subcommands (``fleet`` and ``check`` are not ported yet).
+``chaos``, ``drill``, ``fleet``, ``record`` and ``replay`` on PyTorch and
+CUDA, its filesystem workloads (``prepare``, ``read-fs``, ``write``,
+``list``, ``open``, ``ssd``), ``report`` and ``top`` over the results and
+journals they write, ``preflight`` (what a run needs, checked without a
+device), ``check`` (the static analysis of this package's own source)
+and ``info`` (what the port would run on): all 29 of ``tpubench``'s
+subcommands.
 
     python -m tpubench_torch.cli read --protocol fake --workers 2 \\
         --read-call-per-worker 2 --object-size 5242903 \\
@@ -85,7 +86,17 @@ every ``--save-interval`` (``--restore-direct``, ``--full-saves``,
 journal into a replay bundle (``tpubench``'s format); ``replay B``
 re-drives it under the caller's system knobs (``--protocol fake``, or
 ``http`` with no ``--endpoint``) and prints the replay-vs-original block.
-None of these touches the card.
+``fleet`` runs the elastic serve plane under virtual time at 64-4096
+simulated hosts (``--fleet-hosts``, ``--fleet-pods``,
+``--fleet-timeline``; ``--calibrate-from`` fits its service times from
+flight journals, ``--fleet-profile`` writes or loads them,
+``--fleet-sweep`` steps the offered load to the knee). None of these
+touches the card.
+
+``check`` runs the invariant-analysis passes over ``tpubench_torch/``
+(``--json``, ``--allowlist``, ``--no-drift``, or a list of files): exit
+0 clean, 1 on findings or a stale allowlist entry, 2 when the analyzer
+itself is misconfigured. It needs no config and no device.
 
 ``sweep`` runs ``read`` over protocols × the reference's four object
 sizes (``--sweep-protocols``, ``--sweep-sizes``, ``--sweep-native``) and
@@ -126,10 +137,12 @@ import sys
 from typing import Optional
 
 from tpubench_torch.config import (
+    FLEET_TIMELINE_KINDS,
     MB,
     BenchConfig,
     validate_coop_config,
     validate_drill_config,
+    validate_fleet_config,
     validate_lifecycle_config,
     validate_pipeline_config,
     validate_serve_config,
@@ -159,7 +172,7 @@ CKPT_CMDS = {
 }
 # Commands that touch no device, in ``tpubench`` as here: their group
 # (several processes only) is gloo; each still resolves its device.
-DEVICE_FREE_CMDS = {"serve", "meta-storm", "drill", "replay"}
+DEVICE_FREE_CMDS = {"serve", "meta-storm", "drill", "replay", "fleet"}
 FS_CMDS = {
     "read-fs": "sequential FS read (read_operation)",
     "write": "durable write (write_operations)",
@@ -307,6 +320,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_serve_flags(drill)
     _add_lifecycle_flags(drill)
     _add_drill_flags(drill)
+    fleet = add("fleet", "virtual-time fleet simulation: the SAME serve/"
+                         "qos/membership/coop code under a discrete-"
+                         "event driver instead of worker threads — "
+                         "64-4096 simulated hosts, multi-pod topologies "
+                         "with cross-pod routing, diurnal multi-tenant "
+                         "mixes and correlated-failure / rolling-"
+                         "upgrade membership timelines, scored by the "
+                         "real serve + membership scorecards; service "
+                         "times calibrate from flight journals via "
+                         "--calibrate-from")
+    _add_serve_flags(fleet)
+    _add_fleet_flags(fleet)
     _add_replay_parsers(sub, add)
     prep = add("prepare", "generate worker-indexed data files")
     prep.add_argument("--layout", choices=("flat", "ssd"), default="flat")
@@ -336,7 +361,31 @@ def build_parser() -> argparse.ArgumentParser:
     mcs.add_argument("--device", choices=("cuda", "cpu"))
     _add_top_parser(sub)
     _add_report_parser(sub)
+    _add_check_parser(sub)
     return ap
+
+
+def _add_check_parser(sub) -> None:
+    chk = sub.add_parser(
+        "check",
+        help="invariant-analysis plane: AST passes mechanizing the "
+             "recurring review findings (flight-op lifecycle, thread "
+             "hygiene, slab-lease balance, determinism & bounds, "
+             "catalog-drift guards, lock-order graph) over the "
+             "tpubench_torch tree; nonzero exit on findings; vetted "
+             "allowlist entries require justifications",
+    )
+    chk.add_argument("--json", action="store_true",
+                     help="machine output (tpubench-check/1 schema)")
+    chk.add_argument("--allowlist",
+                     help="override the checked-in allowlist path "
+                          "(tpubench_torch/analysis/allowlist.json)")
+    chk.add_argument("--no-drift", action="store_true",
+                     help="skip the runtime catalog-drift guards (pure "
+                          "AST passes only — faster, no engine probe)")
+    chk.add_argument("paths", nargs="*",
+                     help="restrict analysis to these files (default: "
+                          "the whole tpubench_torch tree)")
 
 
 def _add_replay_parsers(sub, add) -> None:
@@ -561,9 +610,71 @@ def _add_drill_flags(p: argparse.ArgumentParser) -> None:
                         "--drill-sweep (default 0.5,1,2)")
 
 
+def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
+    """Flags owned by the ``fleet`` subcommand — the simulated topology,
+    the membership timeline generator, and the calibration plumbing."""
+    p.add_argument("--fleet-hosts", type=int, dest="fleet_hosts",
+                   help="simulated pod size, 64-4096 territory "
+                        "(default 64; 0 = inherit --serve-hosts, the "
+                        "agreement-gate arm)")
+    p.add_argument("--fleet-pods", type=int, dest="fleet_pods",
+                   help="partition the hosts into N pods with a "
+                        "cross-pod routing ring above the per-pod "
+                        "coop rings (default 0 = one pod per 128 "
+                        "hosts, minimum one)")
+    p.add_argument("--fleet-workers-per-host", type=int,
+                   dest="fleet_workers_per_host",
+                   help="simulated service slots per host (default 2; "
+                        "0 = --serve-workers pod-wide, the "
+                        "agreement-gate arm)")
+    p.add_argument("--fleet-objects", type=int, dest="fleet_objects",
+                   help="synthetic object population the Zipf tenant "
+                        "mix draws over (default 64)")
+    p.add_argument("--fleet-timeline", choices=FLEET_TIMELINE_KINDS,
+                   dest="fleet_timeline",
+                   help="generated membership timeline: "
+                        "correlated_failure kills --fleet-fail-"
+                        "fraction of the hosts at --fleet-fail-at, "
+                        "rolling_upgrade pauses every host in "
+                        "staggered windows (default none)")
+    p.add_argument("--fleet-fail-at", type=float, dest="fleet_fail_at",
+                   help="correlated_failure: virtual second the blast "
+                        "lands (default 0.5)")
+    p.add_argument("--fleet-fail-fraction", type=float,
+                   dest="fleet_fail_fraction",
+                   help="correlated_failure: fraction of hosts killed "
+                        "together (default 0.1)")
+    p.add_argument("--fleet-recover", type=float, dest="fleet_recover",
+                   help="correlated_failure: seconds until the victims "
+                        "rejoin cold (default 0 = they stay dead)")
+    p.add_argument("--fleet-upgrade-pause", type=float,
+                   dest="fleet_upgrade_pause",
+                   help="rolling_upgrade: pause window per host in "
+                        "virtual seconds (default 0.2)")
+    p.add_argument("--fleet-seed", type=int, dest="fleet_seed",
+                   help="victim-selection seed (identical seeds replay "
+                        "identical blast patterns; default 20)")
+    p.add_argument("--calibrate-from", nargs="+", dest="calibrate_from",
+                   metavar="JOURNAL",
+                   help="fit per-phase service times from flight "
+                        "journal base paths (.p<idx> siblings and "
+                        ".gz variants discovered like `top`); "
+                        "phases with too few samples fall back to the "
+                        "configured constants with a warning")
+    p.add_argument("--fleet-profile", dest="fleet_profile",
+                   help="service-time profile JSON: written here after "
+                        "--calibrate-from, loaded from here otherwise "
+                        "(the --tune-profile round-trip shape)")
+    p.add_argument("--fleet-sweep", action="store_true",
+                   dest="fleet_sweep",
+                   help="step offered load through the serve sweep "
+                        "multipliers under the virtual driver and "
+                        "locate the knee (p99 inflection)")
+
+
 def _add_serve_flags(p: argparse.ArgumentParser) -> None:
     """The serve-plane flag surface (``tpubench``'s, the same defaults),
-    shared by the ``serve`` and ``drill`` subcommands."""
+    shared by the ``serve``, ``drill`` and ``fleet`` subcommands."""
     p.add_argument("--serve-duration", type=float,
                    help="virtual schedule length in seconds "
                         "(default 4; wall time scales with "
@@ -812,6 +923,34 @@ def _apply_drill_args(cfg: BenchConfig, args) -> None:
         validate_drill_config(dc, cfg.serve)
 
 
+def _apply_fleet_args(cfg: BenchConfig, args) -> None:
+    """Fold the fleet flags into ``cfg.fleet``; only the ``fleet`` command
+    pays fleet validation, so any other command carrying a config file
+    with default fleet values is not refused."""
+    fc = cfg.fleet
+    for attr, dest in (
+        ("fleet_hosts", "hosts"), ("fleet_pods", "pods"),
+        ("fleet_workers_per_host", "workers_per_host"),
+        ("fleet_objects", "objects"),
+        ("fleet_timeline", "timeline"),
+        ("fleet_fail_at", "fail_at_s"),
+        ("fleet_fail_fraction", "fail_fraction"),
+        ("fleet_recover", "recover_s"),
+        ("fleet_upgrade_pause", "upgrade_pause_s"),
+        ("fleet_seed", "seed"),
+        ("fleet_profile", "profile_path"),
+    ):
+        v = getattr(args, attr, None)
+        if v is not None:
+            setattr(fc, dest, v)
+    if getattr(args, "calibrate_from", None):
+        fc.calibrate_from = list(args.calibrate_from)
+    if getattr(args, "fleet_sweep", False):
+        fc.sweep = True
+    if getattr(args, "cmd", None) == "fleet":
+        validate_fleet_config(fc, cfg.serve)
+
+
 def _add_common(p) -> None:
     p.add_argument("--config", help="JSON config file (tpubench --save-config)")
     p.add_argument("--protocol", choices=("http", "grpc", "local", "fake"),
@@ -873,7 +1012,8 @@ def _add_common(p) -> None:
                    help="device_put = copy ring; pallas = landing-kernel ring")
     p.add_argument("--validate", action="store_true",
                    help="device checksum of the landed bytes (copy ring)")
-    p.add_argument("--depth", "--staging-depth", type=int, dest="depth",
+    p.add_argument("--depth", "--staging-depth", type=int,
+                   dest="staging_depth",
                    help="in-flight staging depth (the staging_depth tune "
                         "knob)")
     p.add_argument("--no-double-buffer", action="store_true",
@@ -1235,10 +1375,10 @@ def build_config(args) -> BenchConfig:
         t.tls_insecure_skip_verify = True
     if args.staging:
         s.mode = args.staging
-    if args.depth is not None:
-        if args.depth < 1:
-            raise SystemExit(f"--depth {args.depth}: must be >= 1")
-        s.depth = args.depth
+    if args.staging_depth is not None:
+        if args.staging_depth < 1:
+            raise SystemExit(f"--depth {args.staging_depth}: must be >= 1")
+        s.depth = args.staging_depth
     if args.no_double_buffer:
         s.double_buffer = False
     if args.validate:
@@ -1263,6 +1403,7 @@ def build_config(args) -> BenchConfig:
     _apply_lifecycle_args(cfg, args)
     _apply_serve_args(cfg, args)
     _apply_drill_args(cfg, args)
+    _apply_fleet_args(cfg, args)
     if cfg.obs.results_bucket and t.protocol not in ("http", "grpc"):
         # Fail at parse time, not after an hour-long run: upload_result
         # needs an object-store protocol ('local' roots at workload.dir,
@@ -1559,6 +1700,8 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
                 res = _drill(cfg, args, device, backend)
             elif cmd == "replay":
                 res = _replay(cfg, args, device)
+            elif cmd == "fleet":
+                res = _fleet(cfg, device)
             else:
                 raise SystemExit(f"unknown command {cmd!r}")
         if cfg.obs.profile_dir:
@@ -1598,6 +1741,49 @@ def _drill(cfg: BenchConfig, args, device, backend=None) -> RunResult:
     print(format_drill_scorecard(res.extra["drill"]))
     if res.extra.get("drill_sweep"):
         print(format_drill_sweep(res.extra["drill_sweep"]))
+    return res
+
+
+def _fleet(cfg: BenchConfig, device) -> RunResult:
+    """The ``fleet`` command: the service profile (fitted from
+    ``--calibrate-from`` journals and written to ``--fleet-profile``, or
+    loaded from it), the run or ``--fleet-sweep``, the serve, resize and
+    fleet blocks printed."""
+    from tpubench_torch.fleet.calibrate import (
+        fit_profile,
+        load_profile,
+        save_profile,
+    )
+    from tpubench_torch.fleet.driver import (
+        format_fleet_block,
+        run_fleet,
+        run_fleet_sweep,
+    )
+    from tpubench_torch.workloads.serve import (
+        format_membership_scorecard,
+        format_serve_scorecard,
+    )
+
+    fc = cfg.fleet
+    if fc.calibrate_from:
+        profile = fit_profile(fc.calibrate_from, defaults={
+            "hit": fc.hit_service_ms, "peer": fc.peer_service_ms,
+            "origin": fc.origin_service_ms, "cross_pod": fc.cross_pod_ms,
+        })
+        fc.profile = profile.to_dict()
+        if fc.profile_path:
+            print("fleet profile written: "
+                  f"{save_profile(profile, fc.profile_path)}")
+    elif fc.profile_path and not fc.profile:
+        fc.profile = load_profile(fc.profile_path).to_dict()
+    if fc.sweep:
+        res = run_fleet_sweep(cfg, device=device)
+    else:
+        res = run_fleet(cfg, device=device)
+    print(format_serve_scorecard(res.extra["serve"]))
+    if res.extra.get("membership"):
+        print(format_membership_scorecard(res.extra["membership"]))
+    print(format_fleet_block(res.extra["fleet"]))
     return res
 
 
@@ -1842,6 +2028,14 @@ def main(argv=None) -> int:
 
         print(json.dumps(capability_report()))
         return 0
+    if args.cmd == "check":
+        # Static analysis: device-free and config-free, like report.
+        from tpubench_torch.analysis import run_cli_check
+
+        return run_cli_check(
+            json_out=args.json, paths=args.paths or None,
+            allowlist_path=args.allowlist, with_drift=not args.no_drift,
+        )
     if args.cmd == "top":
         # Device-free and config-free, like report.
         from tpubench_torch.obs.live import run_top

@@ -1,14 +1,11 @@
-"""Configuration for the PyTorch port — the read path's half of
-:mod:`tpubench.config`, copied field for field at the same defaults.
+"""Configuration for the PyTorch port — :mod:`tpubench.config`, copied
+section for section and field for field at the same defaults.
 
 One config JSON drives both packages: a file written by ``tpubench
---save-config`` loads here, and :meth:`BenchConfig.to_dict` writes it back
-unchanged. The sections the port has no code for yet (``fleet``) are
-kept as the raw dicts they were loaded as, so they round-trip without a
-dataclass.
-
-A command of ``tpubench`` the port does not have yet is not in its parser,
-so a switched-on feature never silently does nothing.
+--save-config`` loads here into typed sections, and
+:meth:`BenchConfig.to_dict` writes it back unchanged. A section no
+dataclass here knows is kept as the raw dict it was loaded as
+(``BenchConfig.raw``), so it round-trips instead of being dropped.
 
 All sizes are bytes unless the field name says otherwise.
 """
@@ -1137,11 +1134,134 @@ def validate_drill_config(dc: "DrillConfig", sc: "ServeConfig",
         )
 
 
-# The sections the port has dataclasses for; every other section of a
-# loaded config is kept as the raw dict it was.
+# Generated fleet membership-timeline kinds (fleet/driver.py builds the
+# serve-format entries; "none" defers to serve.membership_timeline).
+FLEET_TIMELINE_KINDS = ("none", "correlated_failure", "rolling_upgrade")
+
+
+@dataclass
+class FleetConfig:
+    """Virtual-time fleet simulation (``fleet``,
+    ``fleet/driver.py``): the elastic serve plane run by a discrete-event
+    driver instead of worker threads, so pods scale to 64-4096 hosts.
+
+    Service times come from a :class:`tpubench_torch.fleet.calibrate.
+    FleetProfile` — either the per-phase constants below, or a
+    distribution fitted from flight journals (``--calibrate-from``)
+    and round-tripped through ``--fleet-profile`` JSON."""
+
+    # Simulated pod size. 0 = inherit serve.hosts (the agreement-gate
+    # arm, where both drivers must see the identical config).
+    hosts: int = 64
+    # Pod partitioning: hosts split into contiguous pods, each with its
+    # own coop ring; >1 pod adds the cross-pod routing tier. 0 = auto
+    # (one pod per 128 hosts, minimum one).
+    pods: int = 0
+    # Simulated service slots: workers_per_host * hosts virtual workers
+    # share one admission queue. 0 = use serve.workers as the GLOBAL
+    # pool size (the agreement-gate arm again: the threaded plane's
+    # worker count is global, not per-host).
+    workers_per_host: int = 2
+    # Synthetic object population (the fleet never opens a backend);
+    # sizes come from workload.object_size.
+    objects: int = 64
+    # Per-phase service-time constants (ms) used when no fitted profile
+    # is configured. Defaults approximate the hermetic fake backend's
+    # regime: origin ~ a faulted granule read, peer ~ loopback RTT.
+    origin_service_ms: float = 4.0
+    peer_service_ms: float = 0.5
+    hit_service_ms: float = 0.05
+    cross_pod_ms: float = 1.5
+    # Flat stand-in for the bounded transient-retry ladder a paused
+    # owner costs its peers (PEER_MAX_ATTEMPTS x backoff, ~150 ms).
+    pause_penalty_ms: float = 150.0
+    # Generated membership timeline (FLEET_TIMELINE_KINDS); composes
+    # with serve.membership_timeline entries.
+    timeline: str = "none"
+    fail_at_s: float = 0.5  # correlated failure / first upgrade start
+    fail_fraction: float = 0.1  # fraction of the fleet that dies
+    recover_s: float = 0.0  # > 0: victims rejoin (cold) this much later
+    upgrade_pause_s: float = 0.2  # rolling upgrade: per-host pause
+    upgrade_stagger_s: float = 0.0  # 0 = sequential (next as prev resumes)
+    # Victim-selection seed: WHICH hosts die changes remap geometry, so
+    # it must replay deterministically.
+    seed: int = 20
+    # Fitted service profile (the FleetProfile.to_dict round-trip);
+    # populated by --fleet-profile / --calibrate-from. Empty = use the
+    # per-phase constants above.
+    profile: dict = field(default_factory=dict)
+    # --fleet-profile path (read, or written by --calibrate-from).
+    profile_path: str = ""
+    # --calibrate-from journal base paths (``.p<idx>``/gz siblings are
+    # discovered automatically).
+    calibrate_from: list = field(default_factory=list)
+    # --fleet-sweep: step offered load like --serve-sweep.
+    sweep: bool = False
+
+
+def validate_fleet_config(fc: "FleetConfig", sc: "ServeConfig",
+                          where: str = "fleet") -> None:
+    """Parse-time sanity for the fleet plane (the one-line SystemExit
+    style). The fleet composes the serve plane, so it also inherits
+    validate_serve_config (the driver syncs serve.hosts first)."""
+    if not isinstance(fc.hosts, int) or not (0 <= fc.hosts <= 8192):
+        raise SystemExit(
+            f"{where}.hosts={fc.hosts!r}: must be an int in [0, 8192] "
+            "(0 = inherit serve.hosts)"
+        )
+    if not isinstance(fc.pods, int) or fc.pods < 0:
+        raise SystemExit(f"{where}.pods={fc.pods!r}: must be an int >= 0")
+    if fc.pods > max(fc.hosts, sc.hosts):
+        raise SystemExit(
+            f"{where}.pods={fc.pods}: more pods than hosts "
+            f"({max(fc.hosts, sc.hosts)})"
+        )
+    if not isinstance(fc.workers_per_host, int) or fc.workers_per_host < 0:
+        raise SystemExit(
+            f"{where}.workers_per_host={fc.workers_per_host!r}: must be "
+            "an int >= 0 (0 = serve.workers as the global pool)"
+        )
+    if not isinstance(fc.objects, int) or fc.objects < 1:
+        raise SystemExit(
+            f"{where}.objects={fc.objects!r}: must be an int >= 1"
+        )
+    for name in ("origin_service_ms", "peer_service_ms", "cross_pod_ms"):
+        v = getattr(fc, name)
+        if not (v > 0):  # also rejects NaN
+            raise SystemExit(f"{where}.{name}={v!r}: must be > 0")
+    for name in ("hit_service_ms", "pause_penalty_ms", "fail_at_s",
+                 "recover_s", "upgrade_stagger_s"):
+        v = getattr(fc, name)
+        if not (v >= 0):  # also rejects NaN
+            raise SystemExit(f"{where}.{name}={v!r}: must be >= 0")
+    if fc.timeline not in FLEET_TIMELINE_KINDS:
+        raise SystemExit(
+            f"{where}.timeline={fc.timeline!r}: must be one of "
+            f"{FLEET_TIMELINE_KINDS}"
+        )
+    if not (0.0 < fc.fail_fraction < 1.0):  # also rejects NaN
+        raise SystemExit(
+            f"{where}.fail_fraction={fc.fail_fraction!r}: must be in "
+            "(0, 1) — someone has to survive"
+        )
+    if not (fc.upgrade_pause_s > 0):
+        raise SystemExit(
+            f"{where}.upgrade_pause_s={fc.upgrade_pause_s!r}: must be > 0"
+        )
+    if not isinstance(fc.seed, int) or fc.seed < 0:
+        raise SystemExit(f"{where}.seed={fc.seed!r}: must be an int >= 0")
+    if not isinstance(fc.profile, dict):
+        raise SystemExit(
+            f"{where}.profile: must be a fleet-profile dict "
+            f"(got {type(fc.profile).__name__})"
+        )
+
+
+# The sections the port has dataclasses for (all of ``tpubench``'s); any
+# other section of a loaded config is kept as the raw dict it was.
 PORTED_SECTIONS = ("workload", "transport", "staging", "dist", "obs",
                    "telemetry", "tune", "pipeline", "coop",
-                   "lifecycle", "serve", "drill")
+                   "lifecycle", "serve", "drill", "fleet")
 
 
 @dataclass
@@ -1158,6 +1278,7 @@ class BenchConfig:
     lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     drill: DrillConfig = field(default_factory=DrillConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     raw: dict[str, dict] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
@@ -1208,6 +1329,7 @@ _SUBTYPES = {
     "lifecycle": LifecycleConfig,
     "serve": ServeConfig,
     "drill": DrillConfig,
+    "fleet": FleetConfig,
     "retry": RetryConfig,
     "fault": FaultConfig,
     "tail": TailConfig,

@@ -5,10 +5,10 @@ For this system the state is not parameters but a config and a dataset:
 fake-store population of ``(name, size, generation)`` triples, and returns
 the port's config and a :class:`FakeBackend` holding identical bytes (the
 bytes are a function of name and size, :func:`deterministic_bytes`).
-Every section the port has a dataclass for (``pipeline`` among them)
-loads into it field for field, and ``BenchConfig.to_dict()`` writes back
-the dict ``tpubench``'s ``BenchConfig.from_dict`` reads, so one config
-JSON drives both packages either way.
+Every section loads into the port's dataclass for it field for field
+(``fleet``, the last to get one, included), and ``BenchConfig.to_dict()``
+writes back the dict ``tpubench``'s ``BenchConfig.from_dict`` reads, so
+one config JSON drives both packages either way.
 
 A stream's state is its snapshot (:func:`stream_state`): the format is
 ``tpubench``'s, so a snapshot ``tpubench stream`` wrote resumes the port's

@@ -11,11 +11,9 @@ percentile block per summary (Avg/P20/P50/P90/p99/Min/Max —
 given two or more runs — pairwise deltas grouped by config axis
 (transport bit, staging mode, fetch executor).
 
-A document carrying the block of a workload the port does not have yet
-(fleet) is refused
-with ``NotImplementedError`` naming its ``ROADMAP.md`` item, never
-rendered without that block. ``bench.py`` lines and multichip-sweep
-artifacts are plain dicts and render as in ``tpubench``.
+Every workload's block renders, ``fleet``'s included. ``bench.py`` lines
+and multichip-sweep artifacts are plain dicts and render as in
+``tpubench``.
 
 Pure functions over parsed dicts; the CLI wires file loading around them.
 """
@@ -141,13 +139,6 @@ def _axis(run: dict) -> str:
     return " ".join(bits)
 
 
-# Result blocks whose formatter belongs to a workload not ported yet ->
-# the ROADMAP item that brings it.
-UNPORTED_BLOCKS = {
-    "fleet": "A.7: fleet",
-}
-
-
 def percentile_block(name: str, s: dict) -> str:
     """One summary in the ssd_test block format (one line; field order
     shared with the live-run renderer via PCT_FIELDS)."""
@@ -234,14 +225,14 @@ def summarize_run(run: dict, label: str = "") -> str:
         from tpubench_torch.workloads.drill import format_drill_sweep
 
         lines.append(format_drill_sweep(ds))
-    for key, item in UNPORTED_BLOCKS.items():
-        if extra.get(key):
-            # The block's formatter lives in a workload not ported yet:
-            # refuse rather than render the run without it.
-            raise NotImplementedError(
-                f"not ported to tpubench_torch yet: the report block "
-                f"extra[{key!r}] (ROADMAP {item})"
-            )
+    fl = extra.get("fleet")
+    if fl:
+        # Virtual-time fleet block: simulated topology, virtual-vs-real
+        # wall clock, the fitted service profile — printed after the
+        # serve/membership scorecards it was scored by.
+        from tpubench_torch.fleet.driver import format_fleet_block
+
+        lines.append(format_fleet_block(fl))
     rp = extra.get("replay")
     if rp:
         # Replay-vs-original scorecard diff: the same body `replay`
