@@ -61,7 +61,13 @@ before the last line:
    mode must stage every byte with zero errors, launch its kernel once per
    transfer, keep 48 distinct streams on page-locked slots and, but for the
    faulted mode (whose resumed reads fill slots off the granule grid), ship
-   the transfers ``expected_transfers`` counts;
+   the transfers ``expected_transfers`` counts. Mode grpc_lib is gRPC
+   library mode (grpcio and the storage-v2 types): where one does not
+   import (the card's machine has grpcio, not the types), a client on
+   Google's default endpoint must raise the non-transient
+   ``StorageError`` naming it, before any connection; where both import,
+   grpc_lib_validate reads the deployment over the port's grpcio fake on
+   an explicit channel, checked as grpc_validate is;
 7. obs — phase read's deployment with the whole obs plane on: tracing
    (the tracer ``make_tracer`` builds, with an in-memory span store),
    telemetry on an ephemeral loopback port with OTLP dry-run export,
@@ -1395,9 +1401,85 @@ def phase_protocols(store, smi, seed: int) -> dict:
                 launches[f"protocols/{mode}"] = counts
                 _check_protocol(mode, cfg, res, counts, stagers, store, smi,
                                 obs)
+            launches.update(grpc_lib_mode(store, servers, smi))
         finally:
             shutil.rmtree(servers.local_dir, ignore_errors=True)
     return launches
+
+
+def grpc_lib_mode(store, servers, smi) -> dict:
+    """Mode grpc_lib of phase protocols, gRPC library mode. Where grpcio or
+    the storage-v2 types do not import (the card's machine has grpcio but
+    not the types): the refusal on Google's default endpoint, which must
+    name the missing package. With both: grpc_lib_validate, the
+    deployment over the port's grpcio fake on an explicit channel given as
+    ``run_read(backend=...)``, checked as grpc_validate is. Returns the
+    launch counts."""
+    import importlib
+
+    from tpubench_torch.config import TransportConfig
+    from tpubench_torch.storage.base import StorageError
+    from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
+
+    found, versions = {}, {}
+    for key, mod in (("grpcio", "grpc"),
+                     ("storage_v2", "google.cloud._storage_v2.types")):
+        try:
+            versions[key] = getattr(importlib.import_module(mod),
+                                    "__version__", None)
+            found[key] = True
+        except ImportError as e:
+            found[key], versions[key] = False, str(e)
+    if not all(found.values()):
+        missing = ("grpcio" if not found["grpcio"]
+                   else "google.cloud._storage_v2")
+        try:
+            GcsGrpcBackend("testbucket", TransportConfig(protocol="grpc"))
+            err = None
+        except StorageError as refused:
+            err = refused
+        check(err is not None and f"{missing} does not import" in str(err)
+              and err.transient is False,
+              f"grpc_lib: default endpoint without {missing} gave {err!r}")
+        emit({"phase": "protocols", "mode": "grpc_lib", **found,
+              "imports": versions, "refusal": str(err),
+              "transient": err.transient, "card": smi})
+        return {}
+    import grpc
+
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.storage.fake_grpc_server import FakeGcsGrpcServer
+    from tpubench_torch.storage.retrying import RetryingBackend
+    from tpubench_torch.workloads.read import run_read
+
+    mode = "grpc_lib_validate"
+    cfg = _protocol_config("grpc_validate", servers)
+    with FakeGcsGrpcServer(store) as srv:
+        cfg.transport.endpoint = srv.endpoint
+        ch = grpc.insecure_channel(srv.endpoint.removeprefix("insecure://"))
+        grpc.channel_ready_future(ch).result(timeout=30)
+        backend = RetryingBackend(
+            GcsGrpcBackend(cfg.workload.bucket, cfg.transport, channel=ch),
+            cfg.transport.retry,
+        )
+        store.open_count = store.injected_errors = 0
+        stagers = []
+        kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
+        try:
+            with Observed() as obs:
+                landing.reset_launches()
+                res = run_read(cfg, device="cuda", sink_factory=kept,
+                               backend=backend)
+                counts = {"land": landing.land.launches,
+                          "checksum": landing.checksum.launches}
+        finally:
+            backend.close()
+            ch.close()
+    _check_protocol(mode, cfg, res, counts, stagers, store, smi, obs)
+    emit({"phase": "protocols", "mode": "grpc_lib", **found,
+          "imports": versions, "checked_as": mode, "card": smi})
+    return {f"protocols/{mode}": counts}
 
 
 def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,

@@ -45,6 +45,7 @@ def test_every_module_imports_without_jax_or_tpubench():
         "tpubench_torch.storage.fake_server",
         "tpubench_torch.storage.fake_h2_server",
         "tpubench_torch.storage.fake_grpc_wire_server",
+        "tpubench_torch.storage.fake_grpc_server",
         "tpubench_torch.storage.gcs_grpc",
         "tpubench_torch.storage.grpc_wire.client",
         "tpubench_torch.storage.grpc_wire.framing",
@@ -239,15 +240,83 @@ def test_pod_commands_exit_nonzero_without_cuda(cmd, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-def test_unported_protocol_raises_not_implemented():
-    """gRPC to Google's endpoint needs library mode (A.2), refused before
-    the client connects."""
+def test_unported_protocol_raises_not_implemented(monkeypatch):
+    """gRPC to Google's endpoint is library mode now: where ``grpcio``
+    does not import, the run stops before the client connects (or asks
+    for credentials) with a non-transient ``StorageError`` naming it,
+    and never with the old ``NotImplementedError``."""
+    from tpubench_torch.storage.base import StorageError
     from tpubench_torch.workloads.read import run_read
 
+    monkeypatch.setitem(sys.modules, "grpc", None)  # import grpc fails
     cfg = BenchConfig()
     cfg.transport.protocol = "grpc"  # Google's endpoint
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+    with pytest.raises(StorageError, match="grpcio does not import") as ei:
         run_read(cfg, device="cpu")
+    assert not ei.value.transient
+    assert not isinstance(ei.value, NotImplementedError)
+    assert "ROADMAP A.2" not in str(ei.value)
+
+
+# An import hook that makes grpcio and the storage-v2 types unimportable,
+# as on a machine that has neither.
+_NO_GRPCIO = (
+    "import sys, importlib.abc\n"
+    "class _Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path, target=None):\n"
+    "        if name == 'grpc' or name.startswith(('grpc.', "
+    "'google.cloud._storage_v2')):\n"
+    "            raise ImportError(f'{name} blocked')\n"
+    "sys.meta_path.insert(0, _Block())\n"
+)
+
+
+def test_port_runs_without_grpcio(tmp_path):
+    """Without grpcio and the storage-v2 types (the card's machine lacks
+    the types): every module but the grpcio fake server imports,
+    ``read --protocol grpc`` runs over the wire fake to completion, and
+    the default endpoint raises the ``StorageError`` naming grpcio
+    before any connection."""
+    mods = [m for m in _all_modules()
+            if m != "tpubench_torch.storage.fake_grpc_server"]
+    proc = _run(
+        _NO_GRPCIO
+        + "import importlib, json\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from tpubench_torch.cli import main\n"
+        "from tpubench_torch.config import TransportConfig\n"
+        "from tpubench_torch.storage.base import StorageError\n"
+        "from tpubench_torch.storage.fake import FakeBackend\n"
+        "from tpubench_torch.storage.fake_grpc_wire_server import "
+        "FakeGrpcWireServer\n"
+        "from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend\n"
+        "store = FakeBackend.prepopulated('tpubench/file_', 2, 300001)\n"
+        "srv = FakeGrpcWireServer(store).start()\n"
+        "rc = main(['read', '--protocol', 'grpc', '--endpoint', "
+        "srv.endpoint, '--bucket', 'testbucket', '--workers', '2', "
+        "'--read-call-per-worker', '1', '--object-size', '300001', "
+        "'--granule-bytes', '65536', '--validate', '--device', 'cpu', "
+        f"'--results-dir', {str(tmp_path)!r}])\n"
+        "srv.stop()\n"
+        "try:\n"
+        "    GcsGrpcBackend('b', TransportConfig())\n"
+        "    refusal = None\n"
+        "except StorageError as e:\n"
+        "    refusal = [str(e), e.transient]\n"
+        "print(json.dumps({'rc': rc, 'refusal': refusal, 'loaded': "
+        "sorted(m for m in sys.modules if m == 'grpc' or "
+        "m.startswith(('grpc.', 'google.cloud._storage_v2', "
+        "'google.auth')))}))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0 and out["loaded"] == []
+    msg, transient = out["refusal"]
+    assert "grpcio does not import" in msg and transient is False
+    path = proc.stdout.strip().splitlines()[-2].removeprefix("result: ")
+    res = json.loads(Path(path).read_text())
+    assert res["errors"] == 0 and res["extra"]["checksum_ok"] is True
+    assert res["extra"]["staged_bytes"] == 2 * 300_001
 
 
 def test_multichip_child_never_imports_jax(tmp_path):

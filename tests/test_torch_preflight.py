@@ -105,38 +105,60 @@ def test_preflight_unreachable_bucket_fails():
 
 def test_preflight_bad_key_file_fails_auth_naming_a2():
     """A missing key file on Google's endpoint: both packages fail
-    building the token source, with the same check, and fail the run
-    (the port's bucket check fails building its client, before any
-    request)."""
-    ref_cfg, cfg = _both(protocol="http", key_file="/nonexistent/sa-key.json")
-    ref_auth = jax_pf._auth_check(ref_cfg)  # local: reads the key file only
-    assert ref_auth["ok"] is False
-    res = preflight.run_preflight(cfg, probe_timeout_s=5.0)
-    c = _checks(res)
-    assert c["auth"] == ref_auth
-    assert c["auth"]["ok"] is False and c["auth"]["skipped"] is False
-    assert "/nonexistent/sa-key.json" in c["auth"]["detail"]
-    assert "backend construction" in c["bucket"]["detail"]
-    assert res["ok"] is False
+    building the token source, with the same auth check, and fail the
+    run, before any request. Over HTTP the bucket checks are equal too.
+    Over gRPC (library mode) the port's call credentials come from the
+    key file and fail on it, where ``tpubench``'s library mode ignores
+    the key file and fails on the absent default credentials: a known
+    difference, never a pass."""
+    for protocol in ("http", "grpc"):
+        ref_cfg, cfg = _both(protocol=protocol, directpath=False,
+                             key_file="/nonexistent/sa-key.json")
+        ref_auth = jax_pf._auth_check(ref_cfg)  # local: reads the key file
+        ref_bucket = jax_pf._bucket_check(ref_cfg)  # fails building it
+        assert ref_auth["ok"] is False
+        res = preflight.run_preflight(cfg, probe_timeout_s=5.0)
+        c = _checks(res)
+        assert c["auth"] == ref_auth
+        assert c["auth"]["ok"] is False and c["auth"]["skipped"] is False
+        assert "/nonexistent/sa-key.json" in c["auth"]["detail"]
+        assert c["bucket"]["ok"] is ref_bucket["ok"] is False
+        assert not c["bucket"]["skipped"]
+        assert "backend construction" in c["bucket"]["detail"]
+        assert "ROADMAP A.2" not in c["bucket"]["detail"]
+        if protocol == "http":
+            assert c["bucket"] == ref_bucket
+        else:
+            assert "/nonexistent/sa-key.json" in c["bucket"]["detail"]
+            assert "no ADC (stub)" in ref_bucket["detail"]
+        assert res["ok"] is False
 
 
 @pytest.mark.parametrize("protocol", ["http", "grpc"])
-def test_preflight_default_endpoint_credentials_fail_naming_a2(protocol):
+def test_preflight_default_endpoint_credentials_fail_naming_a2(
+        protocol, monkeypatch):
     """Default credentials on Google's endpoint, on a machine without
-    them: the auth check fails as ``tpubench``'s does, never skipped or
-    ok, and no request leaves the machine: the HTTP client fails building
-    its token source, the gRPC client is refused (library mode, still
-    ROADMAP A.2) before it connects."""
+    them: the auth and bucket checks fail as ``tpubench``'s do, never
+    skipped or ok, and no request leaves the machine (each client fails
+    building its credentials: the gRPC one in library mode). Where grpcio
+    does not import, the gRPC bucket check names it."""
     ref_cfg, cfg = _both(protocol=protocol, directpath=False)
     res = preflight.run_preflight(cfg, probe_timeout_s=5.0)
     c = _checks(res)
     assert c["auth"] == jax_pf._auth_check(ref_cfg)
     assert c["auth"]["ok"] is False and not c["auth"]["skipped"]
     assert "token source construction" in c["auth"]["detail"]
-    assert c["bucket"]["ok"] is False
-    want = "ROADMAP A.2" if protocol == "grpc" else "no ADC (stub)"
-    assert want in c["bucket"]["detail"]
+    assert c["bucket"] == jax_pf._bucket_check(ref_cfg)
+    assert c["bucket"]["ok"] is False and not c["bucket"]["skipped"]
+    assert "no ADC (stub)" in c["bucket"]["detail"]
     assert res["ok"] is False
+    if protocol == "grpc":
+        monkeypatch.setitem(sys.modules, "grpc", None)  # import grpc fails
+        res = preflight.run_preflight(cfg, probe_timeout_s=5.0)
+        c = _checks(res)
+        assert c["bucket"]["ok"] is False and not c["bucket"]["skipped"]
+        assert "grpcio does not import" in c["bucket"]["detail"]
+        assert res["ok"] is False
 
 
 @pytest.mark.parametrize("key_file", ["", "/k.json"], ids=["adc", "key_file"])

@@ -3,13 +3,14 @@ full and ranged reads across gRPC message (2 MiB) and granule boundaries,
 error classification, mid-stream resume (against ``tpubench``'s
 ``_ResumingReader`` under the same seeded plan, clock and sleep),
 connection reuse of the native pools, HTTPS with a certificate from the
-``openssl`` command-line tool, the local backend's root check, the
-refusals that stay (each naming its ROADMAP item), and the address the
+``openssl`` command-line tool, the local backend's root check, gRPC
+library mode's refusal where grpcio does not import, and the address the
 native receive hands the engine lying inside the staging slot.
 """
 
 import random
 import socket
+import sys
 
 import numpy as np
 import pytest
@@ -310,9 +311,17 @@ def _refusal(what: str):
 @pytest.mark.parametrize("what, item", [
     ("google_endpoint_grpc", "A.2"), ("grpc_channel", "A.2"),
 ])
-def test_refusals_that_stay_name_their_roadmap_item(what, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_refusals_that_stay_name_their_roadmap_item(what, item,
+                                                    monkeypatch):
+    """Library mode (ROADMAP ``item``, now ported) on a machine without
+    grpcio: a non-transient ``StorageError`` naming it, raised before any
+    connection, and no ``NotImplementedError`` naming the item."""
+    monkeypatch.setitem(sys.modules, "grpc", None)  # import grpc fails
+    with pytest.raises(StorageError, match="grpcio does not import") as ei:
         _refusal(what)()
+    assert not ei.value.transient
+    assert not isinstance(ei.value, NotImplementedError)
+    assert f"ROADMAP {item}" not in str(ei.value)
 
 
 class _Creds:

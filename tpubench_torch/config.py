@@ -479,9 +479,9 @@ def validate_pipeline_config(pc: "PipelineConfig",
 
 # Knobs the tune controller may actuate (``tpubench/config.py:1077``; the
 # controller's ACTUATED registry maps each to its config field and CLI
-# flag). The port's read path actuates ``workers``, ``hedge_delay_s`` and
-# ``staging_depth``; the others belong to workloads still to port and
-# stay in the set so one profile or config serves both packages.
+# flag). The read path actuates ``workers``, ``hedge_delay_s`` and
+# ``staging_depth``; ``train-ingest`` the readahead and prefetch knobs,
+# and the cooperative cache ``peer_budget_bytes`` and ``coop``.
 TUNE_KNOBS = (
     "workers",
     "readahead",

@@ -1,6 +1,6 @@
 """Live telemetry plane: the in-run, pull-based metrics registry (a copy
 of ``tpubench/obs/telemetry.py``; the live aggregator and ``top`` that
-tail its journal stream are not ported yet, ``ROADMAP.md`` A.3).
+tail its journal stream are :mod:`tpubench_torch.obs.live`).
 
 Half the reference's value is *cloud observability export* — an
 OpenCensus view pushed to Cloud Monitoring every 30 s during the run

@@ -7,8 +7,9 @@ sides (``write``/``open_write``/``delete`` on every backend).
   default), native streaming receive into the caller's memory, and the
   whole-client HTTP/2 branch; also the request parts of the native fetch
   executor;
-* :mod:`.gcs_grpc` — the storage-v2 gRPC client, wire mode only
-  (:mod:`.grpc_wire`), with native receive;
+* :mod:`.gcs_grpc` — the storage-v2 gRPC client: wire mode
+  (:mod:`.grpc_wire`) for test servers, library mode (grpcio) for
+  Google's endpoint and an explicit channel, native receive in both;
 * :mod:`.local_fs` — files under a directory root;
 * :mod:`.auth` — the token sources of the HTTP and gRPC clients;
 * :mod:`.retrying` — the client-level retry decorator with mid-stream
@@ -19,9 +20,9 @@ sides (``write``/``open_write``/``delete`` on every backend).
   executor's pool (``--fetch-executor native`` on ``http``);
 * the hermetic servers the clients are run against: :mod:`.fake_server`
   (HTTP/1.1), :mod:`.fake_h2_server` (HTTP/2), :mod:`.fake_grpc_wire_server`
-  (gRPC).
-
-Still to come (``ROADMAP.md``): gRPC library mode (A.2).
+  (gRPC on raw h2 frames, write plane included; serves grpcio clients
+  too) and :mod:`.fake_grpc_server` (gRPC on grpcio, imported only where
+  grpcio is installed).
 """
 
 from tpubench_torch.storage.base import (  # noqa: F401

@@ -21,6 +21,14 @@ and one upload-session store govern every transport in a run:
 
 The frame loop routes DATA payloads into per-stream queues, so
 client-streaming and bidi methods consume messages as they arrive.
+
+A real gRPC client (grpcio) is served as well as the hand-rolled ones:
+each connection keeps an HPACK dynamic table, the server advertises a
+header table of 0 and the largest stream window, credits the
+connection and stream windows back as DATA arrives, and answers a
+header block it cannot decode with error trailers and GOAWAY.
+``tpubench``'s copy serves a grpcio client only its first call of each
+method and stalls its request bodies at 64 KiB.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from tpubench_torch.storage.fake_h2_server import (
     _PREFACE,
     _HpackError,
     _hp_literal,
-    decode_request_headers,
+    _hpd_int,
+    _hpd_str,
 )
 from tpubench_torch.storage.fake_server import (
     inject_open_fault,
@@ -54,11 +63,102 @@ from tpubench_torch.storage.grpc_wire.framing import (
 )
 
 _DATA, _HEADERS, _RST_STREAM, _SETTINGS, _PING, _GOAWAY = 0, 1, 3, 4, 6, 7
-_UNIMPLEMENTED = 12
+_WINDOW_UPDATE = 8
+_UNIMPLEMENTED, _INTERNAL = 12, 13
+_COMPRESSION_ERROR = 0x9
+
+# Our first SETTINGS: HEADER_TABLE_SIZE 0 (a client's encoder stops
+# indexing once it has read them) and the largest stream window. The
+# connection window is raised to match by one WINDOW_UPDATE, and both
+# are credited back as DATA arrives, so a client that keeps to flow
+# control (grpcio) never stalls on a request body.
+_WINDOW_MAX = 2**31 - 1
+_SERVER_SETTINGS = struct.pack("!HIHI", 0x1, 0, 0x4, _WINDOW_MAX)
+_WINDOW_REFILL = 2**30  # credit back once this much has been consumed
 
 # Largest content per ReadObjectResponse (google.storage.v2 caps
 # ChecksummedData at 2 MiB).
 MAX_READ_CHUNK = 2 * 1024 * 1024
+
+# RFC 7541 Appendix A: the static table, names and values.
+_STATIC_TABLE = tuple(
+    (n, v) for n, _, v in (
+        e.partition("=") for e in (
+            ":authority", ":method=GET", ":method=POST", ":path=/",
+            ":path=/index.html", ":scheme=http", ":scheme=https",
+            ":status=200", ":status=204", ":status=206", ":status=304",
+            ":status=400", ":status=404", ":status=500", "accept-charset",
+            "accept-encoding=gzip, deflate", "accept-language",
+            "accept-ranges", "accept", "access-control-allow-origin", "age",
+            "allow", "authorization", "cache-control", "content-disposition",
+            "content-encoding", "content-language", "content-length",
+            "content-location", "content-range", "content-type", "cookie",
+            "date", "etag", "expect", "expires", "from", "host", "if-match",
+            "if-modified-since", "if-none-match", "if-range",
+            "if-unmodified-since", "last-modified", "link", "location",
+            "max-forwards", "proxy-authenticate", "proxy-authorization",
+            "range", "referer", "refresh", "retry-after", "server",
+            "set-cookie", "strict-transport-security", "transfer-encoding",
+            "user-agent", "vary", "via", "www-authenticate",
+        )
+    )
+)
+
+
+class _HpackDecoder:
+    """A connection's HPACK decoder, dynamic table included (RFC 7541
+    §2.3): grpc-core indexes request headers (``:path`` among them), so
+    a later block names entries an earlier block inserted. The table
+    starts at the protocol's 4,096 B; the client shrinks it to our
+    advertised 0 with a size update once it has read our SETTINGS, and
+    blocks sent before that still resolve here. Huffman-coded strings
+    raise :class:`_HpackError` (no client of this server sends them in
+    requests)."""
+
+    def __init__(self):
+        self._table: list[tuple[str, str]] = []  # newest first
+        self._size = 0
+        self._max = 4096
+
+    def _entry(self, idx: int) -> tuple[str, str]:
+        if 1 <= idx <= len(_STATIC_TABLE):
+            return _STATIC_TABLE[idx - 1]
+        j = idx - len(_STATIC_TABLE) - 1
+        if 0 <= j < len(self._table):
+            return self._table[j]
+        raise _HpackError(f"header index {idx} not in the table")
+
+    def _evict(self) -> None:
+        while self._size > self._max and self._table:
+            name, value = self._table.pop()
+            self._size -= 32 + len(name) + len(value)
+
+    def decode(self, block: bytes) -> dict[str, str]:
+        out: dict[str, str] = {}
+        i = 0
+        while i < len(block):
+            b = block[i]
+            if b & 0x80:  # indexed field
+                idx, i = _hpd_int(block, i, 7)
+                name, value = self._entry(idx)
+            elif (b & 0xE0) == 0x20:  # dynamic table size update
+                self._max, i = _hpd_int(block, i, 5)
+                self._evict()
+                continue
+            else:  # literal: with (0x40), without or never indexing
+                indexed = b & 0x40
+                idx, i = _hpd_int(block, i, 6 if indexed else 4)
+                if idx:
+                    name = self._entry(idx)[0]
+                else:
+                    name, i = _hpd_str(block, i)
+                value, i = _hpd_str(block, i)
+                if indexed:
+                    self._table.insert(0, (name, value))
+                    self._size += 32 + len(name) + len(value)
+                    self._evict()
+            out[name.lower()] = value
+        return out
 
 
 class _Kill(Exception):
@@ -71,6 +171,7 @@ class _Stream:
         self.headers = headers
         self.q: "queue.Queue[Optional[bytes]]" = queue.Queue()
         self.cancelled = threading.Event()
+        self.consumed = 0  # DATA bytes not yet credited back
 
 
 class _Rsp:
@@ -166,7 +267,11 @@ class _GrpcConn:
             first = self._recv_all(len(_PREFACE))
             if first != _PREFACE:
                 return
-            self.send_frame(_SETTINGS, 0, 0, b"")
+            self.send_frame(_SETTINGS, 0, 0, _SERVER_SETTINGS)
+            self.send_frame(_WINDOW_UPDATE, 0, 0,
+                            struct.pack("!I", _WINDOW_MAX - 65535))
+            hpack = _HpackDecoder()
+            consumed = 0  # connection DATA bytes not yet credited back
             while True:
                 fh = self._recv_all(9)
                 if fh is None:
@@ -195,9 +300,17 @@ class _GrpcConn:
                     if fflags & 0x20:  # PRIORITY
                         block = block[5:]
                     try:
-                        hdrs = decode_request_headers(block)
-                    except _HpackError:
-                        continue
+                        hdrs = hpack.decode(block)
+                    except _HpackError as e:
+                        # The table may now disagree with the client's:
+                        # fail the stream with trailers, then the
+                        # connection (COMPRESSION_ERROR), so the client
+                        # hears of it instead of waiting.
+                        _Rsp(self, stream).trailers(
+                            _INTERNAL, f"undecodable header block: {e}")
+                        self.send_frame(_GOAWAY, 0, 0, struct.pack(
+                            "!II", stream, _COMPRESSION_ERROR))
+                        return
                     st = _Stream(stream, hdrs)
                     self._streams[stream] = st
                     if fflags & 0x1:
@@ -207,8 +320,18 @@ class _GrpcConn:
                         name=f"grpc-wire-stream-{stream}", daemon=True,
                     ).start()
                 elif ftype == _DATA:
+                    consumed += flen
+                    if consumed >= _WINDOW_REFILL:
+                        self.send_frame(_WINDOW_UPDATE, 0, 0,
+                                        struct.pack("!I", consumed))
+                        consumed = 0
                     st = self._streams.get(stream)
                     if st is not None:
+                        st.consumed += flen
+                        if st.consumed >= _WINDOW_REFILL and not fflags & 0x1:
+                            self.send_frame(_WINDOW_UPDATE, 0, stream,
+                                            struct.pack("!I", st.consumed))
+                            st.consumed = 0
                         if fflags & 0x8 and payload:  # PADDED
                             pad = payload[0]
                             payload = payload[1 : len(payload) - pad]
