@@ -54,20 +54,23 @@ before the last line:
    http_validate and http_pallas (HTTP/1.1 Python reader),
    http_native_validate (native receive: the socket writes into the
    page-locked slot), http2_validate (the engine's h2c client),
-   grpc_validate (the wire client) and grpc_native_validate (the engine's
-   gRPC client) against the gRPC fake, local_validate (files written under
-   ``build/`` and removed after) and http_retry_validate (a seeded fault
-   plan on the store under the retry policy: resumes must happen). Each
-   mode must stage every byte with zero errors, launch its kernel once per
-   transfer, keep 48 distinct streams on page-locked slots and, but for the
-   faulted mode (whose resumed reads fill slots off the granule grid), ship
-   the transfers ``expected_transfers`` counts. Mode grpc_lib is gRPC
-   library mode (grpcio and the storage-v2 types): where one does not
-   import (the card's machine has grpcio, not the types), a client on
-   Google's default endpoint must raise the non-transient
-   ``StorageError`` naming it, before any connection; where both import,
-   grpc_lib_validate reads the deployment over the port's grpcio fake on
-   an explicit channel, checked as grpc_validate is;
+   grpc_validate (library mode: grpcio carrying the port's storage-v2
+   codec, as ``tpubench`` runs wherever grpcio imports) and
+   grpc_native_validate (a library-mode client whose reads the engine's
+   gRPC client makes) against the gRPC wire fake, grpc_wire_validate (the
+   wire client, pinned through ``gcs_grpc._HAVE_LIB`` as on a machine
+   without grpcio; WIRE_WORKERS workers), grpc_lib (library mode on an
+   explicit channel to the port's grpcio fake, ``--staging pallas``:
+   ``tb_land``), local_validate (files written
+   under ``build/`` and removed after) and http_retry_validate (a seeded
+   fault plan on the store under the retry policy: resumes must happen).
+   Each mode must stage every byte with zero errors, launch its kernel
+   once per transfer, keep a distinct stream per worker on page-locked
+   slots and, but for the faulted mode (whose resumed reads fill slots
+   off the granule grid), ship the transfers ``expected_transfers``
+   counts. Every gRPC line names the mode its clients ran
+   (``grpc_mode``), which must be library but in grpc_wire_validate: a
+   machine without grpcio fails the run;
 7. obs — phase read's deployment with the whole obs plane on: tracing
    (the tracer ``make_tracer`` builds, with an in-memory span store),
    telemetry on an ephemeral loopback port with OTLP dry-run export,
@@ -89,7 +92,8 @@ before the last line:
    torn down) of one 1 GiB object (the largest size of the reference's
    sweep) from the fake store, modes all_gather and ring (a fetch thread
    per shard), then http2_mux and grpc_native_mux (the store behind the
-   port's h2c and wire-gRPC servers; the rank's shard fetched as one
+   port's h2c and wire-gRPC servers, the gRPC client in library mode with
+   native receive; the rank's shard fetched as one
    ``read_ranges`` batch of 8 ranges on one connection, which the pool's
    accounting must show): verified, the device checksum equal to the
    host's byte sum mod 2³², NCCL the group's backend, the gather on the
@@ -125,9 +129,10 @@ before the last line:
    journal: exit 0, the controller's decisions counted;
 14. sweep — ``sweep`` as the CLI runs it: sweep/pallas, the fake store
    through the landing ring over the reference's four sizes and read
-   counts (256kb x 1000, 1mb x 100 at 48 workers; 100mb cut to 3 reads
-   at 48; 1gb x 1 at 8), then sweep/validate, HTTP/1.1, HTTP/2 and gRPC (each with and
-   without native receive where there is one) through the validating
+   counts, cut (256kb x 250 of 1000, 1mb x 100 at 48 workers; 100mb x 1
+   of 10 at 48; 1gb x 1 at 4), then sweep/validate, HTTP/1.1, HTTP/2 and gRPC
+   (library mode; each with and without native receive where there is
+   one) through the validating
    copy ring against phase protocols' servers (100mb, 8 workers, one
    read each). Every cell ``checksum_ok``, zero errors, every byte
    staged, its workers on distinct streams with page-locked slots, and
@@ -194,7 +199,8 @@ before the last line:
    128 MiB, 16 MiB parts, 8 writers, 8 readers, verified) in the
    in-process store (ckpt_fake), behind the HTTP/1.1 fake server that
    ``hermetic_target`` starts (ckpt_http) and behind the gRPC wire fake
-   (ckpt_grpc, 4 objects), the last two under ``CKPT_FAULT``'s upload
+   (ckpt_grpc, 4 objects, library mode: grpcio's resumable writer), the
+   last two under ``CKPT_FAULT``'s upload
    reset and stalls. Save: zero errors and corrupt finalizes, verified,
    8 parts an object, resumed parts under faults, the stored bytes the
    manifest's (read straight from the store), the manifest present.
@@ -240,17 +246,18 @@ before the last line:
    the kill applied, no slab leaked, every arrival accounted for, no
    kernel launched). Every mode prints its resilience scorecard, has
    zero errors and failed reads, and leaves the caller's config as it
-   was;
+   was. Every arm reads the fake store in process: no gRPC client runs;
 24. drill — none of it launches a kernel. meta_http and meta_grpc:
    ``meta-storm`` through ``cli.execute`` at ``tpubench``'s lifecycle
    defaults (64 objects of 4 KiB, Poisson 200 ops/s for 2 s, mix
    list:1,stat:2,open:2, pages of 16, 8 workers) behind the HTTP/1.1 and
-   the gRPC wire fakes: every op of the schedule completed, no error,
+   the gRPC wire fakes (meta_grpc in library mode, its ``grpc_mode``
+   printed): every op of the schedule completed, no error,
    every list the folder's 64 names over 4 pages (the store's own list
    counted once a page); meta_sweep: ``--meta-sweep`` at 3 points, its
    points and knee printed. drill_default: ``drill`` at ``tpubench``'s
    ServeConfig and DrillConfig defaults on a 4-host pod over phase
-   read's objects (a store sharing its arrays), a checkpoint of 16
+   read's objects (a store sharing its arrays; no gRPC client), a checkpoint of 16
    objects of 48 MiB in 16 MiB parts: the restore verified, the serving
    classes without error, no slab leaked, the pools unpinned, every
    stored shard's crc32 the one its saver published for that generation
@@ -293,8 +300,9 @@ hbm_staged``); phase native checks that the executor route, as in
 (the flight recorder off) and runs it and device_put_depth3 twice more in
 the reverse order; the ``flight_cost`` line gives their staged GB/s.
 
-Phase agree also runs http_validate and grpc_validate small, on the CPU and
-on the card. Then the ``kernels`` summary line (launches summed over the paths that
+Phase agree also runs http_validate and grpc_validate (library mode) small,
+on the CPU and on the card. Then the ``phase_seconds`` line (each phase's
+wall), then the ``kernels`` summary line (launches summed over the paths that
 ran each kernel, and per path; ``no_launch_paths``: every mode of phases
 serve, drill, fleet and check, each at 0), the ``nvidia-smi`` name/power-limit line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -304,6 +312,7 @@ rest of the repository beside it, the script fails at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -331,9 +340,15 @@ PROTOCOL_MODES = {
     "grpc_validate": ("grpc", "grpc", {}, "validate"),
     "grpc_native_validate": ("grpc", "grpc", {"native_receive": True},
                              "validate"),
+    "grpc_wire_validate": ("grpc", "grpc", {}, "validate"),
+    "grpc_lib": ("grpc", "grpcio", {}, "pallas"),
     "local_validate": ("local", None, {}, "validate"),
     "http_retry_validate": ("http", "h1", {}, "validate"),
 }
+# grpc_wire_validate's workers, cut from the deployment's 48: the wire
+# client is the path of a machine without grpcio, read here only to hold
+# that path on the card.
+WIRE_WORKERS = 16
 # The faulted mode's plan (on the store, behind the server) and its retry
 # policy: a 1-10 ms backoff without jitter.
 RETRY_FAULT = dict(error_rate=0.05, read_error_rate=0.002)
@@ -392,6 +407,7 @@ KERNELS = {
     "land": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                  replaces="tpubench/staging/pallas_stage.py:101",
                  paths=("read/pallas", "protocols/http_pallas",
+                        "protocols/grpc_lib",
                         "obs/obs_pallas", "tail/tail_pallas",
                         "tune/sweep_pallas", "sweep/pallas",
                         "train/train_pallas", "chaos/read_pallas")),
@@ -446,36 +462,48 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     check(count == 1, f"expected one card, torch sees {count}")
-    phase_build()
-    kernels = phase_kernels(torch, args.seed)
-    phase_agree()
-    store = populate()
+    seconds = {}  # phase -> wall seconds
+
+    def timed(phase: str, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            seconds[phase] = time.perf_counter() - t0
+
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, torch, args.seed)
+    timed("agree", phase_agree)
+    store = timed("populate", populate)
     counts = {  # "<phase>/<mode>" -> counts
-        **phase_read(store, smi), **phase_native(),
-        **native_h2_mode(store, smi),
-        **phase_protocols(store, smi, args.seed),
-        **phase_obs(store, smi), **phase_tail(smi, args.seed),
+        **timed("read", phase_read, store, smi),
+        **timed("native", phase_native),
+        **timed("native_h2", native_h2_mode, store, smi),
+        **timed("protocols", phase_protocols, store, smi, args.seed),
+        **timed("obs", phase_obs, store, smi),
+        **timed("tail", phase_tail, smi, args.seed),
     }
-    pod_counts, pod_store = phase_pod(smi)
+    pod_counts, pod_store = timed("pod", phase_pod, smi)
     counts.update(pod_counts)
-    counts.update(phase_gather(smi))
-    phase_probe(smi)
-    phase_profile(store, pod_store, smi)
-    counts.update(phase_tune(store, smi))
-    counts.update(phase_sweep(store, smi))
-    phase_fs(smi)
-    phase_preflight(smi)
-    counts.update(phase_stream(store, smi))
-    counts.update(phase_multichip(smi))
-    train_counts, train_lines = phase_train(store, smi)
+    counts.update(timed("gather", phase_gather, smi))
+    timed("probe", phase_probe, smi)
+    timed("profile", phase_profile, store, pod_store, smi)
+    counts.update(timed("tune", phase_tune, store, smi))
+    counts.update(timed("sweep", phase_sweep, store, smi))
+    timed("fs", phase_fs, smi)
+    timed("preflight", phase_preflight, smi)
+    counts.update(timed("stream", phase_stream, store, smi))
+    counts.update(timed("multichip", phase_multichip, smi))
+    train_counts, train_lines = timed("train", phase_train, store, smi)
     counts.update(train_counts)
-    counts.update(phase_coop(store, smi, train_lines))
-    counts.update(phase_ckpt(store, smi))
-    counts.update(phase_serve(store, smi))
-    counts.update(phase_chaos(store, pod_store, smi))
-    counts.update(phase_drill(store, smi))
-    counts.update(phase_fleet(smi))
-    counts.update(phase_check(smi))
+    counts.update(timed("coop", phase_coop, store, smi, train_lines))
+    counts.update(timed("ckpt", phase_ckpt, store, smi))
+    counts.update(timed("serve", phase_serve, store, smi))
+    counts.update(timed("chaos", phase_chaos, store, pod_store, smi))
+    counts.update(timed("drill", phase_drill, store, smi))
+    counts.update(timed("fleet", phase_fleet, smi))
+    counts.update(timed("check", phase_check, smi))
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for k, v in kernels.items():
         by_path = {p: counts[p][k] for p in KERNELS[k]["paths"]}
         check(all(by_path.values()), f"{k}: a path did not launch it {by_path}")
@@ -781,8 +809,8 @@ def phase_agree() -> None:
 
 
 def _agree_protocols(read) -> None:
-    """HTTP/1.1 and gRPC (wire) small, each read on the CPU and on the
-    card from one server: equal bytes, transfers and verdicts."""
+    """HTTP/1.1 and gRPC (library mode) small, each read on the CPU and on
+    the card from one server: equal bytes, transfers and verdicts."""
     from tpubench_torch.storage.fake import FakeBackend
 
     store = FakeBackend.prepopulated("tpubench/file_", 2, 777_777)
@@ -792,7 +820,11 @@ def _agree_protocols(read) -> None:
             cfg.workload.read_calls_per_worker = 2
             cfg.workload.granule_bytes = 64 * 1024
             cfg.staging.slot_bytes = 256 * 1024
-            ref, got = read(cfg, device="cpu").extra, read(cfg, device="cuda").extra
+            with GrpcModes() as modes:
+                ref = read(cfg, device="cpu").extra
+                got = read(cfg, device="cuda").extra
+            check(modes.mode == ("library" if mode == "grpc_validate"
+                                 else None), f"agree/{mode}: {modes.mode}")
             for key in ("staged_bytes", "checksum_ok", "staging_zero_copy"):
                 check(ref.get(key) == got.get(key), f"agree/{mode}: {key} "
                       f"cpu={ref.get(key)} cuda={got.get(key)}")
@@ -804,7 +836,8 @@ def _agree_protocols(read) -> None:
             emit({"phase": "agree", "mode": mode,
                   "staged_bytes": got["staged_bytes"],
                   "transfers": got["staging"]["transfers"],
-                  "checksum_ok": got["checksum_ok"]})
+                  "checksum_ok": got["checksum_ok"],
+                  **({"grpc_mode": modes.mode} if modes.mode else {})})
 
 
 def _agree_native(read) -> None:
@@ -892,15 +925,45 @@ def _noting(factory, made: list):
     return kept
 
 
-def _check_stagers(mode: str, made: list) -> int:
-    """48 stagers on 48 distinct streams, every slot page-locked; returns
-    the stream count."""
+def _check_stagers(mode: str, made: list, workers: int = WORKERS) -> int:
+    """A stager a worker (48), each on its own stream, every slot
+    page-locked; returns the stream count."""
     streams = {st.stream.cuda_stream for st, _ in made}
-    check(len(made) == WORKERS and len(streams) == WORKERS,
+    check(len(made) == workers and len(streams) == workers,
           f"{mode}: {len(made)} stagers on {len(streams)} streams")
     check(all(pinned for _, pinned in made),
           f"{mode}: slots not all page-locked")
     return len(streams)
+
+
+class GrpcModes:
+    """Notes the mode of every gRPC client built inside it, by wrapping
+    ``GcsGrpcBackend.__init__`` (what it builds is unchanged). ``mode``:
+    "library" or "wire", ``None`` when no gRPC client was built; clients
+    of both modes in one run fail it."""
+
+    def __enter__(self):
+        from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
+
+        self.seen: set = set()
+        init, seen = GcsGrpcBackend.__init__, self.seen
+
+        def noting(backend, *a, **k):
+            init(backend, *a, **k)
+            seen.add("library" if backend._lib else "wire")
+
+        self._saved = (GcsGrpcBackend, init)
+        GcsGrpcBackend.__init__ = noting
+        return self
+
+    def __exit__(self, *exc):
+        cls, init = self._saved
+        cls.__init__ = init
+
+    @property
+    def mode(self):
+        check(len(self.seen) <= 1, f"gRPC clients in both modes: {self.seen}")
+        return next(iter(self.seen), None)
 
 
 class Observed:
@@ -1287,8 +1350,9 @@ def native_h2_mode(store, smi) -> dict:
 
 # -------------------------------------------------------------- phase 6 --
 class _Servers:
-    """The port's HTTP/1.1, HTTP/2 and gRPC fakes over one store, started
-    together and stopped on exit (a server that fails to start raises)."""
+    """The port's HTTP/1.1, HTTP/2, gRPC wire and grpcio fakes over one
+    store, started together and stopped on exit (a server that fails to
+    start raises; without grpcio the grpcio fake does not import)."""
 
     def __init__(self, store):
         from tpubench_torch.storage.fake_grpc_wire_server import (
@@ -1297,8 +1361,11 @@ class _Servers:
         from tpubench_torch.storage.fake_h2_server import FakeH2Server
         from tpubench_torch.storage.fake_server import FakeGcsServer
 
+        from tpubench_torch.storage.fake_grpc_server import FakeGcsGrpcServer
+
         self.by_kind = {"h1": FakeGcsServer(store), "h2": FakeH2Server(store),
-                        "grpc": FakeGrpcWireServer(store)}
+                        "grpc": FakeGrpcWireServer(store),
+                        "grpcio": FakeGcsGrpcServer(store)}
         self.local_dir = ""
 
     def __enter__(self):
@@ -1335,7 +1402,8 @@ def _protocol_config(mode: str, servers, workers: int = 0,
     w.bucket = "testbucket"
     w.object_name_prefix = "tpubench/file_"
     w.dir = servers.local_dir
-    w.workers = workers or WORKERS
+    w.workers = workers or (WIRE_WORKERS if mode == "grpc_wire_validate"
+                            else WORKERS)
     w.read_calls_per_worker = 1
     w.object_size = object_size or OBJECT_SIZE
     w.granule_bytes = GRANULE
@@ -1389,10 +1457,13 @@ def phase_protocols(store, smi, seed: int) -> dict:
                 store.open_count = store.injected_errors = 0
                 stagers = []
                 kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
-                with Observed() as obs:
+                with GrpcModes() as modes, \
+                        _protocol_backend(mode, cfg) as backend, \
+                        Observed() as obs:
                     landing.reset_launches()
                     try:
-                        res = run_read(cfg, device="cuda", sink_factory=kept)
+                        res = run_read(cfg, device="cuda", sink_factory=kept,
+                                       backend=backend)
                     finally:
                         store.fault = FaultPlan()
                         store._rng = store.fault.rng()
@@ -1400,99 +1471,64 @@ def phase_protocols(store, smi, seed: int) -> dict:
                               "checksum": landing.checksum.launches}
                 launches[f"protocols/{mode}"] = counts
                 _check_protocol(mode, cfg, res, counts, stagers, store, smi,
-                                obs)
-            launches.update(grpc_lib_mode(store, servers, smi))
+                                obs, modes.mode)
         finally:
             shutil.rmtree(servers.local_dir, ignore_errors=True)
     return launches
 
 
-def grpc_lib_mode(store, servers, smi) -> dict:
-    """Mode grpc_lib of phase protocols, gRPC library mode. Where grpcio or
-    the storage-v2 types do not import (the card's machine has grpcio but
-    not the types): the refusal on Google's default endpoint, which must
-    name the missing package. With both: grpc_lib_validate, the
-    deployment over the port's grpcio fake on an explicit channel given as
-    ``run_read(backend=...)``, checked as grpc_validate is. Returns the
-    launch counts."""
-    import importlib
+@contextlib.contextmanager
+def _protocol_backend(mode: str, cfg):
+    """The backend ``run_read`` gets in ``mode`` (``None``: it opens its
+    own). grpc_wire_validate pins wire mode, as on a machine without
+    grpcio, for the run; grpc_lib gets a library-mode client on an
+    explicit channel (``import grpc`` fails the run where grpcio is
+    missing)."""
+    from tpubench_torch.storage import gcs_grpc
 
-    from tpubench_torch.config import TransportConfig
-    from tpubench_torch.storage.base import StorageError
-    from tpubench_torch.storage.gcs_grpc import GcsGrpcBackend
-
-    found, versions = {}, {}
-    for key, mod in (("grpcio", "grpc"),
-                     ("storage_v2", "google.cloud._storage_v2.types")):
+    if mode == "grpc_wire_validate":
+        saved, gcs_grpc._HAVE_LIB = gcs_grpc._HAVE_LIB, False
         try:
-            versions[key] = getattr(importlib.import_module(mod),
-                                    "__version__", None)
-            found[key] = True
-        except ImportError as e:
-            found[key], versions[key] = False, str(e)
-    if not all(found.values()):
-        missing = ("grpcio" if not found["grpcio"]
-                   else "google.cloud._storage_v2")
-        try:
-            GcsGrpcBackend("testbucket", TransportConfig(protocol="grpc"))
-            err = None
-        except StorageError as refused:
-            err = refused
-        check(err is not None and f"{missing} does not import" in str(err)
-              and err.transient is False,
-              f"grpc_lib: default endpoint without {missing} gave {err!r}")
-        emit({"phase": "protocols", "mode": "grpc_lib", **found,
-              "imports": versions, "refusal": str(err),
-              "transient": err.transient, "card": smi})
-        return {}
-    import grpc
-
-    from tpubench_torch.kernels import landing
-    from tpubench_torch.staging.device import make_sink_factory
-    from tpubench_torch.storage.fake_grpc_server import FakeGcsGrpcServer
-    from tpubench_torch.storage.retrying import RetryingBackend
-    from tpubench_torch.workloads.read import run_read
-
-    mode = "grpc_lib_validate"
-    cfg = _protocol_config("grpc_validate", servers)
-    with FakeGcsGrpcServer(store) as srv:
-        cfg.transport.endpoint = srv.endpoint
-        ch = grpc.insecure_channel(srv.endpoint.removeprefix("insecure://"))
-        grpc.channel_ready_future(ch).result(timeout=30)
-        backend = RetryingBackend(
-            GcsGrpcBackend(cfg.workload.bucket, cfg.transport, channel=ch),
-            cfg.transport.retry,
-        )
-        store.open_count = store.injected_errors = 0
-        stagers = []
-        kept = _noting(make_sink_factory(cfg, device="cuda"), stagers)
-        try:
-            with Observed() as obs:
-                landing.reset_launches()
-                res = run_read(cfg, device="cuda", sink_factory=kept,
-                               backend=backend)
-                counts = {"land": landing.land.launches,
-                          "checksum": landing.checksum.launches}
+            yield None
         finally:
-            backend.close()
+            gcs_grpc._HAVE_LIB = saved
+    elif mode == "grpc_lib":
+        import grpc
+
+        from tpubench_torch.storage.retrying import RetryingBackend
+
+        t = cfg.transport
+        ch = grpc.insecure_channel(t.endpoint.removeprefix("insecure://"))
+        try:
+            grpc.channel_ready_future(ch).result(timeout=30)
+            backend = RetryingBackend(gcs_grpc.GcsGrpcBackend(
+                cfg.workload.bucket, t, channel=ch), t.retry)
+            try:
+                yield backend
+            finally:
+                backend.close()
+        finally:
             ch.close()
-    _check_protocol(mode, cfg, res, counts, stagers, store, smi, obs)
-    emit({"phase": "protocols", "mode": "grpc_lib", **found,
-          "imports": versions, "checked_as": mode, "card": smi})
-    return {f"protocols/{mode}": counts}
+    else:
+        yield None
 
 
 def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
-                    store, smi, obs: Observed) -> None:
+                    store, smi, obs: Observed, grpc_mode) -> None:
     ex = res.extra
+    workers = cfg.workload.workers
     transfers = sum(st.transfers for st, _ in stagers)
-    expected = WORKERS * expected_transfers(OBJECT_SIZE, GRANULE, _slot(cfg))
+    expected = workers * expected_transfers(OBJECT_SIZE, GRANULE, _slot(cfg))
     check(res.errors == 0, f"{mode}: {res.errors} errors")
     check(ex.get("checksum_ok") is True, f"{mode}: checksum mismatch")
-    check(ex.get("staged_bytes") == WORKERS * OBJECT_SIZE,
+    check(ex.get("staged_bytes") == workers * OBJECT_SIZE,
           f"{mode}: staged {ex.get('staged_bytes')}")
     check(ex.get("staging_zero_copy") is True, f"{mode}: not zero-copy")
-    streams = _check_stagers(mode, stagers)
+    if cfg.transport.protocol == "grpc":
+        want_mode = "wire" if mode == "grpc_wire_validate" else "library"
+        check(grpc_mode == want_mode,
+              f"{mode}: gRPC clients in {grpc_mode} mode, want {want_mode}")
+    streams = _check_stagers(mode, stagers, workers)
     kernel = "land" if cfg.staging.mode == "pallas" else "checksum"
     want = {"land": 0, "checksum": 0, kernel: transfers}
     check(counts == want and transfers, f"{mode}: launches {counts}, want {want}")
@@ -1503,15 +1539,15 @@ def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
     else:
         check(transfers == expected,
               f"{mode}: {transfers} transfers, want {expected}")
-    flight = check_flight(f"protocols/{mode}", res, obs, WORKERS, transfers,
+    flight = check_flight(f"protocols/{mode}", res, obs, workers, transfers,
                           pallas=cfg.staging.mode == "pallas")
     conn = ex.get("native_conn_stats")
     if mode == "http_native_validate":
         check(conn is not None and conn["connects"] <= WORKERS
               and conn["reuses"] >= 0, f"{mode}: connections {conn}")
     fb = res.summaries.get("first_byte")
-    emit({
-        "phase": "protocols", "mode": mode, "workers": WORKERS,
+    line = {
+        "phase": "protocols", "mode": mode, "workers": workers,
         "object_size": OBJECT_SIZE, "staged_bytes": ex["staged_bytes"],
         "transfers": transfers, "expected_transfers": expected,
         "launches": counts, "streams": streams,
@@ -1526,7 +1562,14 @@ def _check_protocol(mode: str, cfg, res, counts: dict, stagers: list,
                              (ex.get("native_transport") or {}).items() if v},
         "opens": store.open_count, "injected_errors": store.injected_errors,
         "flight": flight, "card": smi,
-    })
+    }
+    if grpc_mode is not None:
+        line["grpc_mode"] = grpc_mode
+    if workers != WORKERS:
+        line["reduced"] = [f"{workers} of {WORKERS} workers (the wire "
+                           "client, the path of a machine without grpcio, "
+                           "read only to hold that path)"]
+    emit(line)
 
 
 # -------------------------------------------------------------- phase 7 --
@@ -1919,11 +1962,15 @@ def _pod_mode(mode: str, flags: list, store, servers, host_sum: int,
           f"pod/{mode}: {ex['mode']}, {res.bytes_total} B")
     if mux:
         # h2: the stat and the one batch share one pooled connection;
-        # gRPC stats over its wire channel, so its pool sees the batch.
+        # gRPC stats over its grpcio channel, so its pool sees the batch.
         acquires = 2 if kind == "h2" else 1
         check(batches == [MUX_RANGES_PER_RANK] and conn["connects"] == 1
               and conn["connects"] + conn["reuses"] == acquires,
               f"pod/{mode}: batches {batches}, connections {conn}")
+    grpc_mode = None
+    if mux and kind == "grpc":
+        grpc_mode = "library" if inner._lib else "wire"
+        check(grpc_mode == "library", f"pod/{mode}: gRPC in {grpc_mode} mode")
     check(len(obs.calls) == 2, f"pod/{mode}: {len(obs.calls)} collective calls")
     check(all(b == "nccl" for b, _, _ in obs.calls),
           f"pod/{mode}: backends {obs.calls}")
@@ -1947,6 +1994,7 @@ def _pod_mode(mode: str, flags: list, store, servers, host_sum: int,
           "checksum": obs.calls[-1][2], "host_sum": host_sum,
           "launches": counts, "native_conn_stats": conn,
           "ranges": MUX_RANGES_PER_RANK if mux else 1,
+          **({"grpc_mode": grpc_mode} if grpc_mode else {}),
           **{k: ex[k] for k in (
               "fetch_seconds", "stage_seconds", "gather_seconds",
               "compile_seconds", "fetch_gbps", "stage_gbps",
@@ -2445,11 +2493,13 @@ def phase_tune(store, smi) -> dict:
 # sizes; the 1gb cell with SWEEP_1GB_WORKERS (48 x 1 GiB objects would be
 # generated in host memory). Then the clients against phase protocols'
 # servers (phase read's 100 MiB objects) with fewer workers.
-SWEEP_1GB_WORKERS = 8
+SWEEP_1GB_WORKERS = 4
 SWEEP_SERVER_WORKERS = 8
-# The fake 100mb cell's reads a worker (the reference's launcher runs 10):
-# 48 x 3 x 100 MiB through the landing ring.
-SWEEP_100MB_READS = 3
+# Reads a worker cut from the reference launcher's (1000 at 256kb, 10 at
+# 100mb; read_operations.sh:8-14) for the script's time on the card: the
+# 256kb cell 48 x 250 reads, the 100mb cell 48 x 1 x 100 MiB.
+SWEEP_256KB_READS = 250
+SWEEP_100MB_READS = 1
 
 
 class SweepObserved:
@@ -2515,7 +2565,7 @@ def _sweep_cells(tag: str, argv: list, smi) -> tuple[dict, list]:
     real_factory = staging_device.make_sink_factory
     counts = {"land": 0, "checksum": 0}
     rows = []
-    with SweepObserved() as obs:
+    with SweepObserved() as obs, GrpcModes() as modes:
         staging_device.make_sink_factory = (
             lambda c, device="cuda": _noting(real_factory(c, device=device),
                                              stagers))
@@ -2572,8 +2622,11 @@ def _sweep_cells(tag: str, argv: list, smi) -> tuple[dict, list]:
                      "streams": len(streams),
                      "native_conn_stats": ex.get("native_conn_stats"),
                      "result": row["result"]})
+    if "grpc" in argv:
+        check(modes.mode == "library", f"{tag}: gRPC in {modes.mode} mode")
     emit({"phase": "sweep", "mode": tag, "argv": argv, "cells": rows,
-          "launches": counts, "seconds": wall, "card": smi})
+          "launches": counts, "seconds": wall, "card": smi,
+          **({"grpc_mode": modes.mode} if modes.mode else {})})
     return counts, rows
 
 
@@ -2586,8 +2639,8 @@ def phase_sweep(store, smi) -> dict:
     argv = ["--protocol", "fake", "--sweep-protocols", "fake",
             "--staging", "pallas", "--granule-bytes", str(GRANULE)]
     pallas, _ = _sweep_cells("sweep/pallas", [
-        *argv, "--sweep-sizes", "256kb,1mb", "--workers", str(WORKERS)],
-        smi)
+        *argv, "--sweep-sizes", "256kb,1mb", "--workers", str(WORKERS),
+        "--read-call-per-worker", str(SWEEP_256KB_READS)], smi)
     # sweep caps each cell's reads at --read-call-per-worker.
     mid, _ = _sweep_cells("sweep/pallas", [
         *argv, "--sweep-sizes", "100mb", "--workers", str(WORKERS),
@@ -2612,7 +2665,9 @@ def phase_sweep(store, smi) -> dict:
                 str(GRANULE), "--validate"], smi)
             validate = {k: validate[k] + n[k] for k in validate}
     emit({"phase": "sweep_reduced", "reduced": [
-        f"fake 100mb cell: {SWEEP_100MB_READS} reads a worker (the "
+        f"fake 256kb cell: {SWEEP_256KB_READS} reads a worker (the "
+        "reference's 1000; the script's time on the card)",
+        f"fake 100mb cell: {SWEEP_100MB_READS} read a worker (the "
         "reference's 10; the script's time on the card)",
         f"fake 1gb cell: {SWEEP_1GB_WORKERS} workers (48 x 1 GiB objects "
         "would be generated in host memory)",
@@ -3666,6 +3721,7 @@ def _ckpt_mode(mode: str, smi) -> dict:
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.ExitStack() as stack:
+        modes = stack.enter_context(GrpcModes())
         if proto == "fake":
             backend = open_backend(cfg)  # retry over a store of one object
             store = base_backend(backend)
@@ -3707,6 +3763,8 @@ def _ckpt_mode(mode: str, smi) -> dict:
         check(equal == objects and on_card,
               f"ckpt/{mode}: {equal}/{objects} staged tensors equal on the "
               f"card (all on the card: {on_card})")
+    check(modes.mode == ("library" if proto == "grpc" else None),
+          f"ckpt/{mode}: gRPC in {modes.mode} mode")
     part = ls["part_latency"]
     line = {
         "phase": "ckpt", "mode": mode, "protocol": proto,
@@ -3725,7 +3783,8 @@ def _ckpt_mode(mode: str, smi) -> dict:
         "card": smi,
     }
     if mode == "ckpt_grpc":
-        line["reduced"] = [f"{objects} x 128 MiB (the gRPC wire path runs "
+        line["grpc_mode"] = modes.mode
+        line["reduced"] = [f"{objects} x 128 MiB (the gRPC path runs "
                            "5-7x slower than HTTP/1.1 against the Python "
                            "fakes)"]
     return line
@@ -4339,6 +4398,7 @@ def _meta_run(mode: str, smi) -> dict:
     store.list = counted_list
     argv = ["meta-storm", "--workers", "1", "--object-size", "4096"]
     with contextlib.ExitStack() as stack:
+        modes = stack.enter_context(GrpcModes())
         if mode == "meta_sweep":
             argv += ["--protocol", "fake", "--meta-sweep",
                      "--meta-sweep-points", META_SWEEP_POINTS]
@@ -4359,9 +4419,12 @@ def _meta_run(mode: str, smi) -> dict:
     lc, life = res.extra["lifecycle"], cfg.lifecycle
     check(counts == {"land": 0, "checksum": 0},
           f"drill/{mode}: meta-storm launched {counts}")
+    check(modes.mode == ("library" if mode == "meta_grpc" else None),
+          f"drill/{mode}: gRPC in {modes.mode} mode")
     check(f"lifecycle [meta_storm]" in buf.getvalue(),
           f"drill/{mode}: no scorecard printed")
     line = {"phase": "drill", "mode": mode, "launches": counts,
+            **({"grpc_mode": modes.mode} if modes.mode else {}),
             "seconds": seconds, "wall_s": res.wall_seconds,
             "objects": life.meta_objects, "mix": life.meta_mix,
             "page_size": life.meta_page_size, "card": smi,

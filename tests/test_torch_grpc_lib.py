@@ -1,5 +1,6 @@
-"""gRPC library mode of the port (``grpcio`` plus the generated storage-v2
-types) against ``tpubench``'s, on the CPU, with the same seeded inputs.
+"""gRPC library mode of the port (``grpcio`` carrying the port's own
+storage-v2 codec) against ``tpubench``'s (grpcio plus the generated
+storage-v2 types), on the CPU, with the same seeded inputs.
 
 * Read parity: ``tpubench``'s library-mode client over its grpcio fake
   and the port's over its own, each given an explicit
@@ -16,7 +17,8 @@ types) against ``tpubench``'s, on the CPU, with the same seeded inputs.
   hangs against ``tpubench``'s copy, a paged listing, and the resumable
   writer, whose outcomes must equal ``tpubench``'s wire writer against
   ``tpubench``'s wire fake; ``ckpt-save`` under upload faults.
-* DirectPath's channel, the call credentials, and the mode choice.
+* DirectPath's channel, the call credentials, and the mode choice
+  (``tpubench``'s: library mode whenever grpcio imports).
 
 The suite has no per-test timeout, so every client call runs under
 :func:`bounded` (a deadline that fails the test instead of hanging it),
@@ -528,7 +530,7 @@ def test_lib_writer_committed_after_a_broken_stream(wire_lib):
         w = c.open_write("w/c")
         assert w.write(data[:PART]) == PART
         w._break_stream()
-        assert w._resp_iter is None and w.committed() == PART
+        assert w._stream is None and w.committed() == PART
         assert w.write(data[PART:]) == 3 * PART
         meta = w.finalize()
         assert w.finalize() is meta
@@ -652,46 +654,80 @@ def test_call_credentials_carry_the_bearer_token():
     assert got == [((("authorization", "Bearer tok-123"),), None), ((), None)]
 
 
-def test_mode_choice_by_endpoint(wire_lib):
-    """With grpcio installed, a test server's endpoint stays in wire mode
-    (the port chooses by endpoint; ``tpubench`` by what imports), and an
-    explicit channel is library mode."""
+def test_mode_choice_by_endpoint(wire_lib, monkeypatch):
+    """The mode is chosen as ``tpubench`` chooses it, whatever the
+    endpoint: with grpcio importable a test server's endpoint is library
+    mode in both packages; with the switch pinned off (a machine without
+    grpcio) it is wire mode, and reads the same object."""
     c, store = wire_lib
     ep = c.transport.endpoint
+    lib = gcs_grpc.GcsGrpcBackend("testbucket", TransportConfig(endpoint=ep))
+    try:
+        assert lib._lib and lib._owns_channels and lib._stubs
+        assert bounded(lambda: lib.stat("bench/file_0").size) == BIG
+    finally:
+        lib.close()
+    assert c._lib and not c._owns_channels
+    assert not jax_gcs_grpc.GcsGrpcBackend(
+        "b", JaxTransportConfig(endpoint=ep))._wire
+    monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", False)
     wire = gcs_grpc.GcsGrpcBackend("testbucket", TransportConfig(endpoint=ep))
     try:
         assert not wire._lib and not hasattr(wire, "_stubs")
         assert bounded(lambda: wire.stat("bench/file_0").size) == BIG
     finally:
         wire.close()
-    assert c._lib and not c._owns_channels
-    assert not jax_gcs_grpc.GcsGrpcBackend(
-        "b", JaxTransportConfig(endpoint=ep))._wire
 
 
 @pytest.mark.parametrize("blocked, named", [
     ("grpc", "grpcio"),
-    # The card's machine: grpcio imports, the storage-v2 types do not.
-    ("google.cloud._storage_v2", "google.cloud._storage_v2"),
+    # The module switch pinned to wire mode stands for the same machine.
+    ("_HAVE_LIB", "grpcio"),
 ])
 @pytest.mark.parametrize("where", ["default_endpoint", "channel"])
 def test_library_mode_refused_naming_the_missing_package(
         blocked, named, where, monkeypatch):
-    """Where library mode is needed and a package of it does not import,
-    the constructor raises a non-transient ``StorageError`` naming that
-    package, before any channel or token source is built; it never falls
-    back to wire mode."""
+    """Where library mode is needed (Google's endpoint, an explicit
+    channel) and grpcio does not import, the constructor raises a
+    non-transient ``StorageError`` naming it, before any channel or token
+    source is built; it never falls back to wire mode."""
     import google.auth
 
     def no_adc(*_a, **_k):
         raise AssertionError("the token source was built")
 
     monkeypatch.setattr(google.auth, "default", no_adc)
-    monkeypatch.setitem(sys.modules, blocked, None)  # its import fails
+    if blocked == "_HAVE_LIB":
+        monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", False)
+    else:
+        monkeypatch.setitem(sys.modules, blocked, None)  # its import fails
     channel = object() if where == "channel" else None
     with pytest.raises(StorageError, match=f"{named} does not import") as ei:
         gcs_grpc.GcsGrpcBackend("b", TransportConfig(), channel=channel)
     assert not ei.value.transient
+
+
+@pytest.mark.parametrize("where", ["default_endpoint", "channel"])
+def test_library_mode_needs_no_storage_v2_types(where, monkeypatch):
+    """The card's machine has grpcio and not ``google.cloud._storage_v2``:
+    library mode is built all the same, on Google's endpoint (its
+    channel made, nothing dialled) and on an explicit channel."""
+    import google.auth
+
+    class _Creds:
+        valid, token = True, "stub-token"
+
+    monkeypatch.setattr(google.auth, "default", lambda **_k: (_Creds(), "p"))
+    monkeypatch.setitem(sys.modules, "google.cloud._storage_v2", None)
+    ch = grpc.insecure_channel("127.0.0.1:1") if where == "channel" else None
+    c = gcs_grpc.GcsGrpcBackend(
+        "b", TransportConfig(directpath=False), channel=ch)
+    try:
+        assert c._lib and set(c._stubs[0]) == set(gcs_grpc._METHODS)
+    finally:
+        c.close()
+        if ch is not None:
+            ch.close()
 
 
 def test_wire_fake_hpack_decoder_keeps_the_dynamic_table():
@@ -762,3 +798,150 @@ def test_wire_fake_answers_an_undecodable_header_block():
     assert trailers and trailers[0]["grpc-status"] == "13"
     goaway = [p for t, _, p in frames if t == 7]
     assert goaway and struct.unpack("!II", goaway[0][:8]) == (1, 0x9)
+
+
+def test_wire_fake_keeps_to_the_clients_windows():
+    """The wire fake sends DATA only within the client's windows (RFC
+    7540 §6.9): a client advertising a 1,000-byte stream window gets at
+    most 1,000 bytes of a 100,000-byte ReadObject until it grants more,
+    then the rest, up to the trailers. A grpcio client whose window the
+    fake overran reset the stream (``frame of size ... overflows local
+    window``)."""
+    import socket
+    import struct
+    import time
+
+    from tpubench_torch.storage.fake_h2_server import (
+        _PREFACE,
+        _hp_literal,
+        decode_request_headers,
+    )
+    from tpubench_torch.storage.grpc_wire import proto
+    from tpubench_torch.storage.grpc_wire.framing import encode_frame
+
+    size, window = 100_000, 1_000
+    store = FakeBackend.prepopulated("f/", 1, size)
+    srv = FakeGrpcWireServer(store).start()
+    host, _, port = srv.endpoint.removeprefix("insecure://").partition(":")
+    got = {"data": 0, "trailers": None}
+    try:
+        with socket.create_connection((host, int(port)), timeout=10) as s:
+            def frame(ftype, flags, sid, payload=b""):
+                s.sendall(struct.pack("!I", len(payload))[1:]
+                          + bytes([ftype, flags]) + struct.pack("!I", sid)
+                          + payload)
+
+            def read_frames(seconds: float) -> None:
+                buf, end = b"", time.monotonic() + seconds
+                s.settimeout(0.1)
+                while time.monotonic() < end and got["trailers"] is None:
+                    try:
+                        chunk = s.recv(65536)
+                    except socket.timeout:
+                        continue
+                    if not chunk:
+                        break
+                    buf += chunk
+                    while len(buf) >= 9 and len(buf) >= 9 + int.from_bytes(
+                            buf[:3], "big"):
+                        n = int.from_bytes(buf[:3], "big")
+                        ftype, flags = buf[3], buf[4]
+                        sid = int.from_bytes(buf[5:9], "big") & 0x7FFFFFFF
+                        if ftype == 0 and sid == 1:
+                            got["data"] += n
+                        elif ftype == 1 and sid == 1 and flags & 0x1:
+                            got["trailers"] = decode_request_headers(
+                                buf[9:9 + n])
+                        buf = buf[9 + n:]
+
+            s.sendall(_PREFACE)
+            frame(4, 0, 0, struct.pack("!HI", 0x4, window))  # SETTINGS
+            frame(1, 0x4, 1, b"".join(_hp_literal(k, v) for k, v in (
+                (":method", "POST"), (":scheme", "http"),
+                (":path", "/google.storage.v2.Storage/ReadObject"),
+                (":authority", "fake"), ("content-type", "application/grpc"),
+                ("te", "trailers"))))
+            frame(0, 0x1, 1, encode_frame(proto.ReadObjectRequest(
+                bucket="projects/_/buckets/b", object="f/0").encode()))
+            read_frames(0.5)
+            held = got["data"]
+            frame(8, 0, 0, struct.pack("!I", 1 << 20))  # connection
+            frame(8, 0, 1, struct.pack("!I", 1 << 20))  # stream
+            read_frames(10.0)
+    finally:
+        _stop(srv)
+    assert 0 < held <= window
+    assert got["trailers"] is not None
+    assert got["trailers"]["grpc-status"] == "0"
+    assert got["data"] > size
+
+
+def test_wire_fake_writes_without_nagle(monkeypatch):
+    """Every connection the wire fake accepts has ``TCP_NODELAY`` set: a
+    response is several small writes, and under Nagle each waited out
+    the client's delayed ACK (about 40 ms a unary call on the one
+    connection grpcio keeps open)."""
+    import socket
+
+    from tpubench_torch.storage import fake_grpc_wire_server as fw
+
+    seen = []
+    init = fw._GrpcConn.__init__
+
+    def noting(self, sock, backend):
+        seen.append(sock.getsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY))
+        init(self, sock, backend)
+
+    monkeypatch.setattr(fw._GrpcConn, "__init__", noting)
+    store = FakeBackend.prepopulated("m/", 2, 4096)
+    srv = FakeGrpcWireServer(store).start()
+    ch = _channel(srv)
+    c = gcs_grpc.GcsGrpcBackend(
+        "b", TransportConfig(endpoint=srv.endpoint), channel=ch)
+    try:
+        assert bounded(lambda: [c.stat(f"m/{i % 2}").size
+                                for i in range(4)]) == [4096] * 4
+    finally:
+        c.close()
+        ch.close()
+        _stop(srv)
+    assert seen and all(seen)
+
+
+def test_wire_fake_forgets_finished_calls(monkeypatch):
+    """A call's stream and send window leave the wire fake's connection
+    when the call ends: 40 calls on the one connection grpcio keeps open
+    leave none behind (a map that only RST_STREAM emptied grew by one
+    entry a call, and each SETTINGS walked all of them)."""
+    import time
+
+    from tpubench_torch.storage import fake_grpc_wire_server as fw
+
+    conns = []
+    init = fw._GrpcConn.__init__
+
+    def noting(self, sock, backend):
+        init(self, sock, backend)
+        conns.append(self)
+
+    monkeypatch.setattr(fw._GrpcConn, "__init__", noting)
+    store = FakeBackend.prepopulated("m/", 2, 4096)
+    srv = FakeGrpcWireServer(store).start()
+    ch = _channel(srv)
+    c = gcs_grpc.GcsGrpcBackend(
+        "b", TransportConfig(endpoint=srv.endpoint), channel=ch)
+    try:
+        assert bounded(lambda: [c.stat(f"m/{i % 2}").size
+                                for i in range(40)]) == [4096] * 40
+        assert bounded(lambda: _read(c, "m/0"))[0] == deterministic_bytes(
+            "m/0", 4096).tobytes()
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and any(
+                cn._streams or cn._stream_send for cn in conns):
+            time.sleep(0.01)
+        assert len(conns) == 1
+        assert conns[0]._streams == {} and conns[0]._stream_send == {}
+    finally:
+        c.close()
+        ch.close()
+        _stop(srv)

@@ -272,11 +272,11 @@ _NO_GRPCIO = (
 
 
 def test_port_runs_without_grpcio(tmp_path):
-    """Without grpcio and the storage-v2 types (the card's machine lacks
-    the types): every module but the grpcio fake server imports,
-    ``read --protocol grpc`` runs over the wire fake to completion, and
-    the default endpoint raises the ``StorageError`` naming grpcio
-    before any connection."""
+    """Without grpcio (and the storage-v2 types): every module but the
+    grpcio fake server imports, ``read --protocol grpc`` runs in wire mode,
+    the only mode left, over the wire fake to completion, and the default
+    endpoint raises the ``StorageError`` naming grpcio before any
+    connection."""
     mods = [m for m in _all_modules()
             if m != "tpubench_torch.storage.fake_grpc_server"]
     proc = _run(

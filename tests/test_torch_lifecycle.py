@@ -155,7 +155,8 @@ def _write_sequence(p, kind: str, tmp: Path) -> dict:
         be.close()
         if server is not None:
             _stop(server)
-    return {"outcomes": out, "stored": stored}
+    return {"outcomes": out, "stored": stored,
+            "grpc_lib": getattr(client, "_lib", None)}
 
 
 # The outcomes where the port's repair of ROADMAP C.7 parts from
@@ -165,15 +166,29 @@ def _write_sequence(p, kind: str, tmp: Path) -> dict:
 C7_DIFFS = {"h2_h11": {"delete", "list"}, "grpc": {"list_all"}}
 
 
-@pytest.mark.parametrize("kind", ["fake", "local", "h1", "h2_h11", "grpc"])
+@pytest.mark.parametrize(
+    "kind", ["fake", "local", "h1", "h2_h11", "grpc", "grpc_lib"])
 def test_write_side_matches_reference(kind, tmp_path, monkeypatch):
     import tpubench.storage.gcs_grpc as jax_gcs_grpc
 
-    # tpubench picks gRPC library mode when grpcio imports; the port is
-    # wire-only, so the reference is held to wire mode here.
+    from tpubench_torch.storage import gcs_grpc
+
+    # Both packages pick gRPC library mode when grpcio imports, and
+    # tpubench's wire fake serves grpcio only its first call of a method
+    # (ROADMAP C.11): the reference is held to wire mode here. The port's
+    # switch is pinned with it in case grpc (wire client against wire
+    # client) and left to choose in case grpc_lib (library mode over the
+    # port's repaired wire fake).
+    lib = kind == "grpc_lib"
+    kind = "grpc" if lib else kind
     monkeypatch.setattr(jax_gcs_grpc, "_HAVE_LIB", False)
-    ref = _write_sequence(_pkg("tpubench"), kind, tmp_path / "ref")
-    port = _write_sequence(_pkg("tpubench_torch"), kind, tmp_path / "port")
+    monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", None if lib else False)
+    ref = bounded(lambda: _write_sequence(_pkg("tpubench"), kind,
+                                          tmp_path / "ref"))
+    port = bounded(lambda: _write_sequence(_pkg("tpubench_torch"), kind,
+                                           tmp_path / "port"))
+    if kind == "grpc":
+        assert port["grpc_lib"] is lib
     diffs = C7_DIFFS.get(kind, set())
     assert ([o for o in port["outcomes"] if o[0] not in diffs]
             == [o for o in ref["outcomes"] if o[0] not in diffs])
@@ -631,29 +646,41 @@ def test_checkpoints_cross_between_packages(jax_cpu_devices, tmp_path):
         sorted(p.name for p in ref_dir.rglob("*"))
 
 
-def test_ckpt_save_over_grpc_through_the_cli(tmp_path, capsys):
+def test_ckpt_save_over_grpc_through_the_cli(tmp_path, capsys, monkeypatch):
     """``ckpt-save --protocol grpc`` with no endpoint runs against the
     port's gRPC wire fake (StartResumableWrite → BidiWriteObject →
-    QueryWriteStatus), with the config's upload reset on the wire."""
+    QueryWriteStatus), with the config's upload reset on the wire: in
+    wire mode (pinned, as where grpcio does not import) each session
+    resumes the one part its reset broke; in library mode, the CLI's own
+    choice where grpcio imports, both writers share one connection, so a
+    reset can break the other writer's part too (ROADMAP's known
+    differences)."""
+    from tpubench_torch.storage import gcs_grpc
+
     conf = tmp_path / "c.json"
     conf.write_text(json.dumps({"transport": {
         "fault": {"upload_reset_after_bytes": RESET, "seed": SEED},
         "retry": {"initial_backoff_s": 0.001, "max_backoff_s": 0.01,
                   "max_attempts": 6},
     }}))
-    rc = cli.main([
-        "ckpt-save", "--config", str(conf), "--protocol", "grpc",
-        "--ckpt-objects", "2", "--ckpt-object-bytes", str(OBJ),
-        "--ckpt-part-bytes", str(PART), "--ckpt-writers", "2",
-        "--results-dir", str(tmp_path / "r"),
-    ])
-    assert rc == 0
-    path = capsys.readouterr().out.strip().splitlines()[-1]
-    res = json.loads(Path(path.removeprefix("result: ")).read_text())
-    lc = res["extra"]["lifecycle"]
-    assert lc["verified"] is True and lc["corrupt_finalizes"] == 0
-    assert lc["parts"] == 2 * 4 and lc["resumed_parts"] == 2
-    assert res["errors"] == 0
+    for have_lib in (False, None):
+        monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", have_lib)
+        rc = cli.main([
+            "ckpt-save", "--config", str(conf), "--protocol", "grpc",
+            "--ckpt-objects", "2", "--ckpt-object-bytes", str(OBJ),
+            "--ckpt-part-bytes", str(PART), "--ckpt-writers", "2",
+            "--results-dir", str(tmp_path / f"r{have_lib}"),
+        ])
+        assert rc == 0
+        path = capsys.readouterr().out.strip().splitlines()[-1]
+        res = json.loads(Path(path.removeprefix("result: ")).read_text())
+        lc = res["extra"]["lifecycle"]
+        assert lc["verified"] is True and lc["corrupt_finalizes"] == 0
+        assert lc["parts"] == 2 * 4 and res["errors"] == 0
+        if have_lib is False:
+            assert lc["resumed_parts"] == 2
+        else:
+            assert 2 <= lc["resumed_parts"] <= lc["parts"]
 
 
 def test_staging_failure_raises(monkeypatch):

@@ -158,8 +158,10 @@ def test_meta_storm_sweep_flag_runs_the_points():
 
 def test_grpc_paged_lists_return_the_whole_population(monkeypatch):
     """ROADMAP C.7 on the storm's user: a page of 5 under 24 objects. The
-    port's lists carry all 24 names; ``tpubench``'s wire client returns
-    the first page (5). Every other count is equal."""
+    port's lists carry all 24 names, in wire mode (pinned, as where grpcio
+    does not import) and in library mode (the port's own choice);
+    ``tpubench``'s wire client returns the first page (5). Every other
+    count is equal."""
     import tpubench.storage.gcs_grpc as jax_gcs_grpc
     from tpubench.storage.fake import FakeBackend as JaxFake
     from tpubench.storage.fake_grpc_wire_server import (
@@ -170,28 +172,46 @@ def test_grpc_paged_lists_return_the_whole_population(monkeypatch):
         FakeGrpcWireServer,
     )
 
+    from tpubench_torch.storage import gcs_grpc
+
+    # tpubench's wire fake serves grpcio only its first call of a method
+    # (ROADMAP C.11): the reference is held to wire mode; the port runs
+    # both modes over its repaired wire fake.
     monkeypatch.setattr(jax_gcs_grpc, "_HAVE_LIB", False)
-    results = []
-    for cls, run, kw, server_cls, store in (
-        (BenchConfig, meta_storm.run_meta_storm, {"device": "cpu"},
-         FakeGrpcWireServer, FakeBackend()),
-        (JaxConfig, jax_meta.run_meta_storm, {}, JaxWireServer, JaxFake()),
-    ):
-        server = server_cls(store).start()
-        cfg = _cfg(cls, "grpc", meta_mix="list:1,stat:1",
-                   meta_duration_s=0.3)
-        cfg.transport.endpoint = server.endpoint
-        try:
-            results.append(bounded(lambda: run(cfg, **kw)))
-        finally:
-            server.stop()
-    port, ref = (r.extra["lifecycle"] for r in results)
-    lists = port["by_kind_completed"]["list"]
-    assert lists == ref["by_kind_completed"]["list"] > 0
-    assert port["list_items"] == 24 * lists
-    assert ref["list_items"] == 5 * lists
-    assert port["errors"] == ref["errors"] == 0
-    assert port["by_kind_completed"] == ref["by_kind_completed"]
+    modes = []
+    init = gcs_grpc.GcsGrpcBackend.__init__
+
+    def noting(backend, *a, **k):
+        init(backend, *a, **k)
+        modes.append(backend._lib)
+
+    monkeypatch.setattr(gcs_grpc.GcsGrpcBackend, "__init__", noting)
+    for have_lib in (False, None):
+        monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", have_lib)
+        modes.clear()
+        results = []
+        for cls, run, kw, server_cls, store in (
+            (BenchConfig, meta_storm.run_meta_storm, {"device": "cpu"},
+             FakeGrpcWireServer, FakeBackend()),
+            (JaxConfig, jax_meta.run_meta_storm, {}, JaxWireServer,
+             JaxFake()),
+        ):
+            server = server_cls(store).start()
+            cfg = _cfg(cls, "grpc", meta_mix="list:1,stat:1",
+                       meta_duration_s=0.3)
+            cfg.transport.endpoint = server.endpoint
+            try:
+                results.append(bounded(lambda: run(cfg, **kw)))
+            finally:
+                server.stop()
+        assert modes and set(modes) == {have_lib is None}
+        port, ref = (r.extra["lifecycle"] for r in results)
+        lists = port["by_kind_completed"]["list"]
+        assert lists == ref["by_kind_completed"]["list"] > 0
+        assert port["list_items"] == 24 * lists
+        assert ref["list_items"] == 5 * lists
+        assert port["errors"] == ref["errors"] == 0
+        assert port["by_kind_completed"] == ref["by_kind_completed"]
 
 
 def test_storm_ledger_is_shared_across_runs():

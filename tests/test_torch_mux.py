@@ -9,9 +9,9 @@ the port at one rank, whose shard it fetches as the same 8 ranges):
 ``verified``, bytes, holes and the pod checksum of every collective call
 must be equal, and the fetch must take one connection.
 
-``tpubench`` picks gRPC library mode whenever ``grpcio`` imports; the port
-is wire-only, so the JAX side is held to wire mode here by patching
-``tpubench.storage.gcs_grpc._HAVE_LIB``."""
+Both packages pick gRPC library mode whenever ``grpcio`` imports; these
+tests hold the native and wire clients, so both sides are held to wire
+mode here by patching each package's ``gcs_grpc._HAVE_LIB``."""
 
 import socket
 import threading
@@ -37,6 +37,7 @@ from tpubench_torch.dist import bringup
 from tpubench_torch.dist.shard import ShardTable
 from tpubench_torch.native.engine import get_engine
 from tpubench_torch.storage import base_backend, open_backend
+from tpubench_torch.storage import gcs_grpc
 from tpubench_torch.storage.base import StorageError, deterministic_bytes
 from tpubench_torch.storage.fake import FakeBackend, FaultPlan
 from tpubench_torch.storage.fake_grpc_wire_server import FakeGrpcWireServer
@@ -54,6 +55,7 @@ pytestmark = pytest.mark.filterwarnings("ignore:.*directpath")
 @pytest.fixture(autouse=True)
 def _wire_mode(monkeypatch):
     monkeypatch.setattr(jax_gcs_grpc, "_HAVE_LIB", False)
+    monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", False)
 
 
 @pytest.fixture(scope="module")

@@ -13,10 +13,11 @@ the per-chip rates and ``n_chips`` (8 simulated JAX CPU devices against
 the port's one CPU). ``extra["flight"]`` is compared by structure (record
 counts per kind, phase names, key sets), not by its times.
 
-``tpubench`` picks gRPC library mode whenever ``grpcio`` imports; the port
-is wire-only, so the JAX side is held to wire mode here by patching
-``tpubench.storage.gcs_grpc._HAVE_LIB`` (nothing in ``tpubench`` is
-edited).
+Both packages pick gRPC library mode whenever ``grpcio`` imports; the
+gRPC variants hold the wire clients, so both sides are held to wire mode
+here by patching each package's ``gcs_grpc._HAVE_LIB`` (nothing in
+``tpubench`` is edited). Library mode is held against ``tpubench``'s in
+``test_torch_grpc_lib.py``.
 
 One case runs HTTP/1.1 with tail tolerance, tracing and telemetry on, and
 compares their counters and span names. One more case runs HTTP/1.1 with
@@ -52,6 +53,7 @@ from tpubench_torch import convert
 from tpubench_torch.config import BenchConfig
 from tpubench_torch.obs.tracing import RecordingTracer
 from tpubench_torch.staging.device import make_sink_factory
+from tpubench_torch.storage import gcs_grpc
 from tpubench_torch.storage.base import deterministic_bytes
 from tpubench_torch.storage.fake_grpc_wire_server import FakeGrpcWireServer
 from tpubench_torch.storage.fake_h2_server import FakeH2Server
@@ -95,6 +97,7 @@ SERVERS = {
 @pytest.fixture(autouse=True)
 def _wire_mode_and_devices(monkeypatch, jax_cpu_devices):
     monkeypatch.setattr(jax_gcs_grpc, "_HAVE_LIB", False)
+    monkeypatch.setattr(gcs_grpc, "_HAVE_LIB", False)
 
 
 def _stop(server) -> None:

@@ -7,9 +7,10 @@ sides (``write``/``open_write``/``delete`` on every backend).
   default), native streaming receive into the caller's memory, and the
   whole-client HTTP/2 branch; also the request parts of the native fetch
   executor;
-* :mod:`.gcs_grpc` — the storage-v2 gRPC client: wire mode
-  (:mod:`.grpc_wire`) for test servers, library mode (grpcio) for
-  Google's endpoint and an explicit channel, native receive in both;
+* :mod:`.gcs_grpc` — the storage-v2 gRPC client: library mode (grpcio
+  carrying :mod:`.grpc_wire`'s codec) wherever grpcio imports, wire mode
+  (:mod:`.grpc_wire`, test servers only) where it does not, native
+  receive in both;
 * :mod:`.local_fs` — files under a directory root;
 * :mod:`.auth` — the token sources of the HTTP and gRPC clients;
 * :mod:`.retrying` — the client-level retry decorator with mid-stream

@@ -5,15 +5,16 @@ tests.
 It serves ``google.storage.v2.Storage`` from a :class:`FakeBackend`, with
 its fault injection: ReadObject (content in messages of at most 2 MiB,
 object metadata on the first), GetObject, ListObjects, DeleteObject and
-WriteObject. Handlers are registered generically from the generated
-request and response types, so no servicer code generation is needed.
-It has no resumable sessions (StartResumableWrite, BidiWriteObject,
+WriteObject. Handlers are registered generically, with the port's
+storage-v2 codec (:mod:`.grpc_wire.proto`) as their serializers, so no
+servicer code generation and no generated types are needed. It has no
+resumable sessions (StartResumableWrite, BidiWriteObject,
 QueryWriteStatus): library mode's resumable writer is tested against
 :mod:`.fake_grpc_wire_server`, which has them.
 
-``grpc`` is imported with this module, the storage-v2 types when a
-server is built. Only tests, and ``chip_smoke.py`` where grpcio imports,
-load it: the package runs without grpcio.
+``grpc`` is imported with this module, which needs nothing else beyond
+the port. Only tests and ``chip_smoke.py`` load it: the package runs
+without grpcio.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from tpubench_torch.storage.base import StorageError
 from tpubench_torch.storage.fake import FakeBackend
 from tpubench_torch.storage.fake_server import make_self_signed_cert
 from tpubench_torch.storage.gcs_grpc import MAX_READ_CHUNK
+from tpubench_torch.storage.grpc_wire import proto as wp
 
 _SVC = "google.storage.v2.Storage"
 
@@ -40,18 +42,20 @@ def _abort_storage_error(context, e: StorageError):
     context.abort(code, str(e))
 
 
+def _obj(m) -> wp.Object:
+    return wp.Object(name=m.name, size=m.size, generation=m.generation)
+
+
 class _Handlers:
-    def __init__(self, backend: FakeBackend, s2):
+    def __init__(self, backend: FakeBackend):
         self.backend = backend
-        self.s2 = s2
 
     # --------------------------------------------------- streaming read --
     def read_object(self, request, context):
-        s2 = self.s2
         try:
-            meta = self.backend.stat(request.object_)
+            meta = self.backend.stat(request.object)
             reader = self.backend.open_read(
-                request.object_, start=request.read_offset,
+                request.object, start=request.read_offset,
                 length=request.read_limit or None,
             )
         except StorageError as e:
@@ -68,94 +72,76 @@ class _Handlers:
                     return
                 if n <= 0:
                     break
-                resp = s2.ReadObjectResponse(
-                    checksummed_data=s2.ChecksummedData(content=bytes(mv[:n]))
+                yield wp.ReadObjectResponse(
+                    checksummed_data=wp.ChecksummedData(content=bytes(mv[:n])),
+                    metadata=_obj(meta) if first else None,
                 )
-                if first:
-                    resp.metadata = s2.Object(
-                        name=meta.name, size=meta.size,
-                        generation=meta.generation,
-                    )
-                    first = False
-                yield resp
+                first = False
         finally:
             reader.close()
 
     # ------------------------------------------------------------ unary --
     def get_object(self, request, context):
         try:
-            m = self.backend.stat(request.object_)
+            m = self.backend.stat(request.object)
         except StorageError as e:
             _abort_storage_error(context, e)
             return
-        return self.s2.Object(name=m.name, size=m.size, generation=m.generation)
+        return _obj(m)
 
     def list_objects(self, request, context):
-        s2 = self.s2
-        return s2.ListObjectsResponse(
-            objects=[
-                s2.Object(name=m.name, size=m.size, generation=m.generation)
-                for m in self.backend.list(request.prefix)
-            ]
+        return wp.ListObjectsResponse(
+            objects=[_obj(m) for m in self.backend.list(request.prefix)]
         )
 
     def delete_object(self, request, context):
         try:
-            self.backend.delete(request.object_)
+            self.backend.delete(request.object)
         except StorageError as e:
             _abort_storage_error(context, e)
             return
-        return b""
+        return wp.Msg()  # google.protobuf.Empty
 
     def write_object(self, request_iterator, context):
         name = None
         chunks = []
         for req in request_iterator:
-            if req.write_object_spec and req.write_object_spec.resource.name:
-                name = req.write_object_spec.resource.name
-            if req.checksummed_data and req.checksummed_data.content:
-                chunks.append(bytes(req.checksummed_data.content))
+            spec = req.write_object_spec
+            if spec is not None and spec.resource is not None \
+                    and spec.resource.name:
+                name = spec.resource.name
+            if req.checksummed_data is not None \
+                    and req.checksummed_data.content:
+                chunks.append(req.checksummed_data.content)
         if name is None:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, "missing spec")
             return
         meta = self.backend.write(name, b"".join(chunks))
-        return self.s2.WriteObjectResponse(
-            resource=self.s2.Object(name=meta.name, size=meta.size)
+        return wp.WriteObjectResponse(
+            resource=wp.Object(name=meta.name, size=meta.size)
         )
 
 
 def _service(backend: FakeBackend) -> grpc.GenericRpcHandler:
-    from google.cloud._storage_v2 import types as s2
+    h = _Handlers(backend)
 
-    h = _Handlers(backend, s2)
+    def codec(req_cls) -> dict:
+        return dict(request_deserializer=req_cls.decode,
+                    response_serializer=wp.Msg.encode)
+
     return grpc.method_handlers_generic_handler(
         _SVC,
         {
             "ReadObject": grpc.unary_stream_rpc_method_handler(
-                h.read_object,
-                request_deserializer=s2.ReadObjectRequest.deserialize,
-                response_serializer=s2.ReadObjectResponse.serialize,
-            ),
+                h.read_object, **codec(wp.ReadObjectRequest)),
             "GetObject": grpc.unary_unary_rpc_method_handler(
-                h.get_object,
-                request_deserializer=s2.GetObjectRequest.deserialize,
-                response_serializer=s2.Object.serialize,
-            ),
+                h.get_object, **codec(wp.GetObjectRequest)),
             "ListObjects": grpc.unary_unary_rpc_method_handler(
-                h.list_objects,
-                request_deserializer=s2.ListObjectsRequest.deserialize,
-                response_serializer=s2.ListObjectsResponse.serialize,
-            ),
+                h.list_objects, **codec(wp.ListObjectsRequest)),
             "DeleteObject": grpc.unary_unary_rpc_method_handler(
-                h.delete_object,
-                request_deserializer=s2.DeleteObjectRequest.deserialize,
-                response_serializer=lambda b: b if isinstance(b, bytes) else b"",
-            ),
+                h.delete_object, **codec(wp.DeleteObjectRequest)),
             "WriteObject": grpc.stream_unary_rpc_method_handler(
-                h.write_object,
-                request_deserializer=s2.WriteObjectRequest.deserialize,
-                response_serializer=s2.WriteObjectResponse.serialize,
-            ),
+                h.write_object, **codec(wp.WriteObjectRequest)),
         },
     )
 

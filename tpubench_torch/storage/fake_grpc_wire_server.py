@@ -25,10 +25,12 @@ client-streaming and bidi methods consume messages as they arrive.
 A real gRPC client (grpcio) is served as well as the hand-rolled ones:
 each connection keeps an HPACK dynamic table, the server advertises a
 header table of 0 and the largest stream window, credits the
-connection and stream windows back as DATA arrives, and answers a
-header block it cannot decode with error trailers and GOAWAY.
-``tpubench``'s copy serves a grpcio client only its first call of each
-method and stalls its request bodies at 64 KiB.
+connection and stream windows back as DATA arrives, answers a header
+block it cannot decode with error trailers and GOAWAY, sends DATA only
+within the client's own connection and stream windows, and writes with
+``TCP_NODELAY``. ``tpubench``'s copy serves a grpcio client only its
+first call of each method, stalls its request bodies at 64 KiB,
+overruns its windows and holds each small write for the peer's ACK.
 """
 
 from __future__ import annotations
@@ -176,7 +178,8 @@ class _Stream:
 
 class _Rsp:
     """Per-stream response side: lazy initial HEADERS, framed DATA
-    messages, trailers (trailers-only when nothing was sent yet)."""
+    messages within the client's flow-control windows, trailers
+    (trailers-only when nothing was sent yet)."""
 
     def __init__(self, conn: "_GrpcConn", stream_id: int):
         self._conn = conn
@@ -194,9 +197,11 @@ class _Rsp:
                 + _hp_literal("content-type", "application/grpc"),
             )
         mv = memoryview(encode_frame(m.encode()))
-        step = conn.client_max_frame
-        for off in range(0, len(mv), step):
-            conn.send_frame(_DATA, 0, self._sid, bytes(mv[off : off + step]))
+        off = 0
+        while off < len(mv):
+            n = conn.reserve(self._sid, min(len(mv) - off, conn.client_max_frame))
+            conn.send_frame(_DATA, 0, self._sid, bytes(mv[off : off + n]))
+            off += n
 
     def trailers(self, status: int, message: str = "") -> None:
         if self.done:
@@ -223,6 +228,13 @@ class _GrpcConn:
         self.wlock = threading.Lock()
         self.client_max_frame = 16384
         self._streams: dict[int, _Stream] = {}
+        # Send-side flow control (RFC 7540 §6.9): the client's windows for
+        # our DATA, 65,535 B until its SETTINGS and WINDOW_UPDATEs say more.
+        self._fc = threading.Condition()
+        self._conn_send = 65535
+        self._stream_init = 65535
+        self._stream_send: dict[int, int] = {}
+        self._closed = False
 
     # ---------------------------------------------------------- frame io --
     def _recv_all(self, n: int) -> Optional[bytes]:
@@ -261,6 +273,38 @@ class _GrpcConn:
         except OSError:
             pass
 
+    def reserve(self, stream: int, want: int) -> int:
+        """Take up to ``want`` bytes of both windows for a DATA frame on
+        ``stream``, waiting for the client's credit; raises ``OSError``
+        once the stream is reset or the connection is gone."""
+        with self._fc:
+            while True:
+                if self._closed or stream not in self._stream_send:
+                    raise OSError(f"stream {stream} closed awaiting credit")
+                n = min(want, self._conn_send, self._stream_send[stream])
+                if n > 0:
+                    self._conn_send -= n
+                    self._stream_send[stream] -= n
+                    return n
+                self._fc.wait(1.0)
+
+    def _credit(self, stream: int, inc: int) -> None:
+        with self._fc:
+            if stream == 0:
+                self._conn_send += inc
+            elif stream in self._stream_send:
+                self._stream_send[stream] += inc
+            self._fc.notify_all()
+
+    def _initial_window(self, value: int) -> None:
+        """SETTINGS_INITIAL_WINDOW_SIZE moves every open stream's window
+        by the change (RFC 7540 §6.9.2)."""
+        with self._fc:
+            delta, self._stream_init = value - self._stream_init, value
+            for sid in self._stream_send:
+                self._stream_send[sid] += delta
+            self._fc.notify_all()
+
     # ------------------------------------------------------------ serving --
     def serve(self) -> None:
         try:
@@ -287,9 +331,14 @@ class _GrpcConn:
                         ident, value = struct.unpack_from("!HI", payload, off)
                         if ident == 0x5:  # SETTINGS_MAX_FRAME_SIZE
                             self.client_max_frame = value
+                        elif ident == 0x4:  # SETTINGS_INITIAL_WINDOW_SIZE
+                            self._initial_window(value)
                     self.send_frame(_SETTINGS, 0x1, 0, b"")
                 elif ftype == _PING and not fflags & 0x1:
                     self.send_frame(_PING, 0x1, 0, payload)
+                elif ftype == _WINDOW_UPDATE and len(payload) == 4:
+                    self._credit(stream, struct.unpack("!I", payload)[0]
+                                 & 0x7FFFFFFF)
                 elif ftype == _HEADERS:
                     if not fflags & 0x4:
                         return  # CONTINUATION unsupported: drop conn
@@ -313,6 +362,8 @@ class _GrpcConn:
                         return
                     st = _Stream(stream, hdrs)
                     self._streams[stream] = st
+                    with self._fc:
+                        self._stream_send[stream] = self._stream_init
                     if fflags & 0x1:
                         st.q.put(None)
                     threading.Thread(
@@ -344,12 +395,18 @@ class _GrpcConn:
                     if st is not None:
                         st.cancelled.set()
                         st.q.put(None)
+                    with self._fc:  # a sender awaiting credit gives up
+                        self._stream_send.pop(stream, None)
+                        self._fc.notify_all()
                 elif ftype == _GOAWAY:
                     return
         except OSError:
             return
         finally:
-            for st in self._streams.values():
+            with self._fc:
+                self._closed = True
+                self._fc.notify_all()
+            for st in list(self._streams.values()):
                 st.q.put(None)  # unblock any handler still reading
             try:
                 self.sock.close()
@@ -358,6 +415,16 @@ class _GrpcConn:
 
     # --------------------------------------------------------- dispatch --
     def _dispatch(self, st: _Stream) -> None:
+        try:
+            self._handle(st)
+        finally:
+            # The call is over: drop its stream and send window, so a
+            # long-lived connection keeps only the calls still open.
+            self._streams.pop(st.id, None)
+            with self._fc:
+                self._stream_send.pop(st.id, None)
+
+    def _handle(self, st: _Stream) -> None:
         method = st.headers.get(":path", "").rsplit("/", 1)[-1]
         handler = getattr(self, f"_rpc_{method}", None)
         rsp = _Rsp(self, st.id)
@@ -629,6 +696,10 @@ class FakeGrpcWireServer:
                 conn, _ = self._sock.accept()
             except OSError:
                 return
+            # A response is several small writes (HEADERS, DATA, trailers):
+            # under Nagle each waits out the client's delayed ACK, ~40 ms
+            # a unary call on a connection kept open, as grpcio keeps it.
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             if self._ctx is not None:
                 try:
                     conn = self._ctx.wrap_socket(conn, server_side=True)

@@ -1,22 +1,20 @@
 """GCS gRPC (storage v2) backend: ``tpubench/storage/gcs_grpc.py``
 (reference ``CreateGrpcClient``, main.go:106-117), in two modes behind
-one surface.
+one surface, chosen as ``tpubench`` chooses (``_HAVE_LIB``).
 
-* **Wire mode**, for every endpoint that is not Google's: the
-  dependency-free stack of :mod:`tpubench_torch.storage.grpc_wire`
-  (hand-rolled protobuf and gRPC framing over raw h2 frames), whatever is
-  installed, so a test server is spoken to by the same client on every
-  machine.
-* **Library mode**, for Google's endpoint (``googleapis.com`` in it,
-  the default included) and for an explicit ``channel=``: ``grpcio``
-  plus the generated storage-v2 types, over a bare channel (no GAPIC
-  client, so the hot loop has no client-library layer in it). Where
-  either does not import, the constructor raises a non-transient
-  :class:`StorageError` naming it, before any socket opens; it never
-  falls back to wire mode. ``grpc`` and the types are imported only here.
-
-``tpubench`` instead picks library mode whenever both import; the port
-chooses by endpoint.
+* **Library mode**, whenever ``grpcio`` imports, and always for an
+  explicit ``channel=``: grpcio channels over a bare stub per method (no
+  GAPIC client, so the hot loop has no client-library layer in it). The
+  messages are encoded and decoded by the wire stack's own storage-v2
+  codec (:mod:`tpubench_torch.storage.grpc_wire.proto`), so library mode
+  needs grpcio and nothing else. ``grpc`` is imported only when a backend
+  is built.
+* **Wire mode**, only where grpcio does not import: the dependency-free
+  stack of :mod:`tpubench_torch.storage.grpc_wire` (that codec and gRPC
+  framing over raw h2 frames). It serves test servers only: Google's
+  endpoint without grpcio, like an explicit channel without it, raises a
+  non-transient :class:`StorageError` naming grpcio before any socket
+  opens, as ``tpubench``'s wire mode refuses ``googleapis.com``.
 
 * **DirectPath** (library mode, default endpoint): the ``google-c2p``
   resolver with compute-engine channel credentials, the grpcio
@@ -99,25 +97,51 @@ _TRANSIENT_STATUS_INTS = {4, 8, 10, 13, 14}
 _STATUS_HTTPISH = {5: 404, 11: 416, 14: 503}
 
 
-def _library(what: str):
-    """``(grpc, storage-v2 types)`` for library mode, or a non-transient
-    :class:`StorageError` naming the package that does not import."""
+# The mode switch. ``tpubench`` takes library mode whenever grpcio imports
+# (its ``_HAVE_LIB``, ``tpubench/storage/gcs_grpc.py:46-54,240``), and so
+# does the port. ``None``: whether ``import grpc`` succeeds, tried when a
+# backend is built, so importing this module never loads grpc. ``False``
+# pins wire mode, as on a machine without grpcio.
+_HAVE_LIB: Optional[bool] = None
+
+# Library mode's stubs: key -> (method, grpcio call shape, response
+# message; ``None`` = the read deserializer). Requests are encoded by
+# ``wp.Msg.encode``.
+_METHODS = {
+    "read": ("ReadObject", "unary_stream", None),
+    "get": ("GetObject", "unary_unary", wp.Object),
+    "list": ("ListObjects", "unary_unary", wp.ListObjectsResponse),
+    "delete": ("DeleteObject", "unary_unary", wp.Msg),  # protobuf Empty
+    "write": ("WriteObject", "stream_unary", wp.WriteObjectResponse),
+    "start_resumable": ("StartResumableWrite", "unary_unary",
+                        wp.StartResumableWriteResponse),
+    "query_write": ("QueryWriteStatus", "unary_unary",
+                    wp.QueryWriteStatusResponse),
+    "bidi_write": ("BidiWriteObject", "stream_stream",
+                   wp.BidiWriteObjectResponse),
+}
+
+
+def _import_grpc():
+    """``(grpc, None)`` where library mode can run, else ``(None, the
+    ImportError)``."""
+    if _HAVE_LIB is False:
+        return None, ImportError("wire mode pinned (gcs_grpc._HAVE_LIB)")
     try:
         import grpc
     except ImportError as e:
-        missing, err = "grpcio", e
-    else:
-        try:
-            from google.cloud._storage_v2 import types as s2
-        except ImportError as e:
-            missing, err = "google.cloud._storage_v2", e
-        else:
-            return grpc, s2
-    raise StorageError(
-        f"{what} needs grpcio + google.cloud._storage_v2 installed "
-        f"({missing} does not import: {err})",
-        transient=False,
-    ) from err
+        return None, e
+    return grpc, None
+
+
+def _write_status(resp) -> int:
+    """The size a write-status response reports: ``persisted_size`` and
+    ``resource`` are a oneof, and a finalized session answers with the
+    object, whose size is then the committed size (``tpubench``'s
+    library writer reads 0 there: ROADMAP C.12)."""
+    if resp.resource is not None:
+        return resp.resource.size
+    return resp.persisted_size or 0
 
 
 def _wrap_rpc_error(e, what: str) -> StorageError:
@@ -135,42 +159,37 @@ def _stamped_read_deserializer(b: bytes):
     """Arrival stamp taken on the raw message bytes before protobuf
     decode: the first-byte time must not include decoding 2 MiB."""
     arrival_ns = time.perf_counter_ns()
-    from google.cloud._storage_v2 import types as s2
-
-    return arrival_ns, s2.ReadObjectResponse.deserialize(b)
+    return arrival_ns, wp.ReadObjectResponse.decode(b)
 
 
-def _empty_deserializer(b: bytes):
-    return b
+class _MessageReader:
+    """Streams ReadObjectResponse messages, carrying a message's leftover
+    bytes between ``readinto`` calls; ``_next`` gives (arrival stamp,
+    message) or ``None`` at the end, the stamp taken on the raw bytes
+    before protobuf decode. ``carrier`` (optional) is the request span:
+    ``first_byte`` on the first message, ended at close, with the error
+    when the stream failed."""
 
-
-class _GrpcReader:
-    """Library mode: streams ReadObjectResponse messages (arrival stamp,
-    message) off a grpcio response iterator, carrying a message's
-    leftover bytes between ``readinto`` calls. ``carrier`` (optional) is
-    the request span: ``first_byte`` on the first message, ended at close,
-    with the error when the stream failed."""
-
-    def __init__(self, stream, rpc_error, carrier=None):
-        self._stream = stream
-        self._rpc_error = rpc_error
+    def __init__(self, carrier=None):
         self._pending = memoryview(b"")
         self.first_byte_ns: Optional[int] = None
         self._done = False
         self._carrier = carrier
+
+    def _next(self):
+        raise NotImplementedError
 
     def readinto(self, buf: memoryview) -> int:
         if self._done and not self._pending:
             return 0
         while not self._pending:
             try:
-                item = next(self._stream, None)
-            except self._rpc_error as e:
+                item = self._next()
+            except StorageError as e:
                 self._done = True
-                err = _wrap_rpc_error(e, "ReadObject stream")
                 if self._carrier is not None:
-                    self._carrier.close(err)
-                raise err from e
+                    self._carrier.close(e)
+                raise
             if item is None:
                 self._done = True
                 return 0
@@ -179,60 +198,7 @@ class _GrpcReader:
                 self.first_byte_ns = arrival_ns
                 if self._carrier is not None:
                     self._carrier.event("first_byte")
-            content = msg.checksummed_data.content
-            if content:
-                self._pending = memoryview(content)
-        n = min(len(buf), len(self._pending))
-        buf[:n] = self._pending[:n]
-        self._pending = self._pending[n:]
-        return n
-
-    def close(self) -> None:
-        try:
-            self._stream.cancel()
-        except Exception:
-            pass
-        self._done = True
-        if self._carrier is not None:
-            self._carrier.close()  # idempotent: a failure closed it already
-
-
-class _WireGrpcReader:
-    """Streams framed ReadObjectResponse messages off a
-    :class:`~tpubench_torch.storage.grpc_wire.client.WireCall`, carrying a
-    message's leftover bytes between ``readinto`` calls. The first-byte
-    stamp is taken on the raw message bytes, before protobuf decode.
-    ``carrier`` (optional) is the request span, ended at close."""
-
-    def __init__(self, call, carrier=None):
-        self._call = call
-        self._pending = memoryview(b"")
-        self.first_byte_ns: Optional[int] = None
-        self._done = False
-        self._carrier = carrier
-
-    def readinto(self, buf: memoryview) -> int:
-        if self._done and not self._pending:
-            return 0
-        while not self._pending:
-            try:
-                raw = self._call.recv_message()
-            except StorageError as e:
-                self._done = True
-                self._call.cancel()
-                if self._carrier is not None:
-                    self._carrier.close(e)
-                raise
-            if raw is None:
-                self._done = True
-                return 0
-            arrival_ns = time.perf_counter_ns()
-            msg = wp.ReadObjectResponse.decode(raw)
-            if self.first_byte_ns is None:
-                self.first_byte_ns = arrival_ns
-                if self._carrier is not None:
-                    self._carrier.event("first_byte")
-            cd = msg.checksummed_data
+            cd = msg.checksummed_data  # None when the message has none
             if cd is not None and cd.content:
                 self._pending = memoryview(cd.content)
         n = min(len(buf), len(self._pending))
@@ -241,13 +207,58 @@ class _WireGrpcReader:
         return n
 
     def close(self) -> None:
+        self._done = True
+        if self._carrier is not None:
+            self._carrier.close()  # idempotent: a failure closed it already
+
+
+class _GrpcReader(_MessageReader):
+    """Library mode: the messages of a grpcio response iterator, decoded
+    (and stamped) by ``_stamped_read_deserializer``."""
+
+    def __init__(self, stream, rpc_error, carrier=None):
+        super().__init__(carrier)
+        self._stream = stream
+        self._rpc_error = rpc_error
+
+    def _next(self):
+        try:
+            return next(self._stream, None)
+        except self._rpc_error as e:
+            raise _wrap_rpc_error(e, "ReadObject stream") from e
+
+    def close(self) -> None:
+        try:
+            self._stream.cancel()
+        except Exception:
+            pass
+        super().close()
+
+
+class _WireGrpcReader(_MessageReader):
+    """Wire mode: the framed messages of a
+    :class:`~tpubench_torch.storage.grpc_wire.client.WireCall`."""
+
+    def __init__(self, call, carrier=None):
+        super().__init__(carrier)
+        self._call = call
+
+    def _next(self):
+        try:
+            raw = self._call.recv_message()
+        except StorageError:
+            self._call.cancel()
+            raise
+        if raw is None:
+            return None
+        return time.perf_counter_ns(), wp.ReadObjectResponse.decode(raw)
+
+    def close(self) -> None:
         if self._done:
             self._call.close()  # clean end: the connection can be reused
         else:
             self._call.cancel()  # abandoned mid-stream: RST + discard
-        self._done = True
-        if self._carrier is not None:
-            self._carrier.close()
+        super().close()
 
 
 class GcsGrpcBackend:
@@ -268,12 +279,19 @@ class GcsGrpcBackend:
         # carries its own credentials.
         self._tokens_obj = None
         self._tokens_lock = threading.Lock()
-        self._lib = channel is not None or "googleapis.com" in endpoint
+        grpc, err = _import_grpc()
+        self._lib = grpc is not None
+        if not self._lib and (channel is not None
+                              or "googleapis.com" in endpoint):
+            what = ("explicit grpc channel" if channel is not None
+                    else f"gRPC to Google's endpoint {endpoint!r}")
+            raise StorageError(
+                f"{what} needs library mode, and grpcio does not import "
+                f"({err}); wire mode serves test servers only",
+                transient=False,
+            ) from err
         if self._lib:
-            self._grpc, self._s2 = _library(
-                "explicit grpc channel" if channel is not None
-                else f"gRPC to Google's endpoint {endpoint!r}"
-            )
+            self._grpc = grpc
             if channel is not None:
                 self._channels = [channel]
                 self._owns_channels = False
@@ -402,50 +420,15 @@ class GcsGrpcBackend:
                 os.environ["GOOGLE_CLOUD_ENABLE_DIRECT_PATH_XDS"] = saved
 
     def _make_stubs(self, ch) -> dict:
-        s2 = self._s2
         return {
-            "read": ch.unary_stream(
-                f"{_SVC}/ReadObject",
-                request_serializer=s2.ReadObjectRequest.serialize,
-                response_deserializer=_stamped_read_deserializer,
-            ),
-            "get": ch.unary_unary(
-                f"{_SVC}/GetObject",
-                request_serializer=s2.GetObjectRequest.serialize,
-                response_deserializer=s2.Object.deserialize,
-            ),
-            "list": ch.unary_unary(
-                f"{_SVC}/ListObjects",
-                request_serializer=s2.ListObjectsRequest.serialize,
-                response_deserializer=s2.ListObjectsResponse.deserialize,
-            ),
-            "delete": ch.unary_unary(
-                f"{_SVC}/DeleteObject",
-                request_serializer=s2.DeleteObjectRequest.serialize,
-                response_deserializer=_empty_deserializer,
-            ),
-            "write": ch.stream_unary(
-                f"{_SVC}/WriteObject",
-                request_serializer=s2.WriteObjectRequest.serialize,
-                response_deserializer=s2.WriteObjectResponse.deserialize,
-            ),
-            "start_resumable": ch.unary_unary(
-                f"{_SVC}/StartResumableWrite",
-                request_serializer=s2.StartResumableWriteRequest.serialize,
+            key: getattr(ch, shape)(
+                f"{_SVC}/{method}",
+                request_serializer=wp.Msg.encode,
                 response_deserializer=(
-                    s2.StartResumableWriteResponse.deserialize
+                    _stamped_read_deserializer if resp is None else resp.decode
                 ),
-            ),
-            "query_write": ch.unary_unary(
-                f"{_SVC}/QueryWriteStatus",
-                request_serializer=s2.QueryWriteStatusRequest.serialize,
-                response_deserializer=s2.QueryWriteStatusResponse.deserialize,
-            ),
-            "bidi_write": ch.stream_stream(
-                f"{_SVC}/BidiWriteObject",
-                request_serializer=s2.BidiWriteObjectRequest.serialize,
-                response_deserializer=s2.BidiWriteObjectResponse.deserialize,
-            ),
+            )
+            for key, (method, shape, resp) in _METHODS.items()
         }
 
     def _stub(self) -> dict:
@@ -471,9 +454,18 @@ class GcsGrpcBackend:
         with self._rr_lock:
             return self._channels[next(self._rr)]
 
-    def _wire_unary(self, method: str, req: "wp.Msg") -> bytes:
-        """One unary RPC; errors arrive classified from the frame layer."""
-        return self._wire_chan().unary(method, req.encode())
+    def _unary(self, key: str, req: "wp.Msg", what: str):
+        """One unary RPC in either mode, its response decoded; failures
+        arrive as classified :class:`StorageError` s."""
+        method, _, resp = _METHODS[key]
+        if not self._lib:
+            return resp.decode(
+                self._wire_chan().unary(f"{_SVC}/{method}", req.encode())
+            )
+        try:
+            return self._stub()[key](req)
+        except self._grpc.RpcError as e:
+            raise _wrap_rpc_error(e, what) from e
 
     # ------------------------------------------------------- native pool --
     def _native_pool(self):
@@ -481,7 +473,10 @@ class GcsGrpcBackend:
             if self._native_pool_obj is None:
                 from tpubench_torch.storage.native_pool import build_native_pool
 
-                if self.transport.directpath and self._lib:
+                t = self.transport
+                if t.directpath and (
+                    t.endpoint or DEFAULT_ENDPOINT
+                ) in _DIRECTPATH_ENDPOINTS:
                     # The native h2 client dials the endpoint itself; the
                     # google-c2p resolver never runs.
                     warnings.warn(
@@ -588,9 +583,7 @@ class GcsGrpcBackend:
     def open_read(self, name: str, start: int = 0, length: Optional[int] = None):
         if self.transport.native_receive:
             return self._open_read_native(name, start, length)
-        if self._lib:
-            return self._open_read_lib(name, start, length)
-        wreq = wp.ReadObjectRequest(
+        req = wp.ReadObjectRequest(
             bucket=self._bucket_path, object=name,
             read_offset=start, read_limit=length or 0,
         )
@@ -599,31 +592,23 @@ class GcsGrpcBackend:
             object=name, bucket=self.bucket,
         )
         try:
-            call = self._wire_chan().server_stream(
-                f"{_SVC}/ReadObject", wreq.encode()
-            )
+            if self._lib:
+                reader = _GrpcReader(
+                    self._stub()["read"](req), self._grpc.RpcError,
+                    carrier=carrier,
+                )
+            else:
+                reader = _WireGrpcReader(
+                    self._wire_chan().server_stream(
+                        f"{_SVC}/ReadObject", req.encode()
+                    ),
+                    carrier=carrier,
+                )
             flight_note("stream_open")
-            return _WireGrpcReader(call, carrier=carrier)
+            return reader
         except BaseException as e:
             carrier.close(e)
-            raise
-
-    def _open_read_lib(self, name: str, start: int, length: Optional[int]):
-        req = self._s2.ReadObjectRequest(
-            bucket=self._bucket_path, object_=name,
-            read_offset=start, read_limit=length or 0,
-        )
-        carrier = SpanCarrier(
-            self._tracer, "gcs_grpc.read_object",
-            object=name, bucket=self.bucket,
-        )
-        try:
-            stream = self._stub()["read"](req)
-            flight_note("stream_open")
-            return _GrpcReader(stream, self._grpc.RpcError, carrier=carrier)
-        except BaseException as e:
-            carrier.close(e)
-            if isinstance(e, self._grpc.RpcError):
+            if self._lib and isinstance(e, self._grpc.RpcError):
                 raise _wrap_rpc_error(e, f"ReadObject {name}") from e
             raise
 
@@ -715,9 +700,8 @@ class GcsGrpcBackend:
                 answered=lambda e: getattr(e, "grpc_status", -1) >= 0,
             )
 
-    def _wire_write(self, name: str, data, if_generation_match) -> ObjectMeta:
-        """One-shot WriteObject as a client-streaming wire call."""
-        spec = wp.WriteObjectSpec(
+    def _write_spec(self, name: str, if_generation_match) -> "wp.WriteObjectSpec":
+        return wp.WriteObjectSpec(
             resource=wp.Object(name=name, bucket=self._bucket_path),
             if_generation_match=(
                 int(if_generation_match)
@@ -725,37 +709,33 @@ class GcsGrpcBackend:
                 else None
             ),
         )
-        mv = memoryview(data) if not isinstance(data, memoryview) else data
+
+    def _write_requests(self, name: str, data, if_generation_match):
+        """WriteObject's messages: the spec on the first, the content in
+        chunks of at most 2 MiB with their crc32c, ``finish_write`` on
+        the last."""
+        spec = self._write_spec(name, if_generation_match)
+        mv = memoryview(data)
+        if not len(mv):
+            yield wp.WriteObjectRequest(write_object_spec=spec, finish_write=True)
+            return
+        for off in range(0, len(mv), MAX_READ_CHUNK):
+            content = bytes(mv[off : off + MAX_READ_CHUNK])
+            yield wp.WriteObjectRequest(
+                write_object_spec=spec if off == 0 else None,
+                write_offset=off,
+                checksummed_data=wp.ChecksummedData(
+                    content=content, crc32c=wp.crc32c_of(content),
+                ),
+                finish_write=off + len(content) >= len(mv),
+            )
+
+    def _wire_write(self, name: str, requests) -> "wp.WriteObjectResponse":
+        """One-shot WriteObject as a client-streaming wire call."""
         call = self._wire_chan().bidi(f"{_SVC}/WriteObject")
         try:
-            if not len(mv):
-                call.send_message(
-                    wp.WriteObjectRequest(
-                        write_object_spec=spec, finish_write=True
-                    ).encode(),
-                    end=True,
-                )
-            else:
-                off = 0
-                first = True
-                while off < len(mv):
-                    chunk = mv[off : off + MAX_READ_CHUNK]
-                    last = off + len(chunk) >= len(mv)
-                    content = bytes(chunk)
-                    call.send_message(
-                        wp.WriteObjectRequest(
-                            write_object_spec=spec if first else None,
-                            write_offset=off,
-                            checksummed_data=wp.ChecksummedData(
-                                content=content,
-                                crc32c=wp.crc32c_of(content),
-                            ),
-                            finish_write=last,
-                        ).encode(),
-                        end=last,
-                    )
-                    first = False
-                    off += len(chunk)
+            for req in requests:
+                call.send_message(req.encode(), end=req.finish_write)
             raw = call.recv_message()
             if raw is None:
                 raise StorageError(
@@ -769,57 +749,25 @@ class GcsGrpcBackend:
             raise
         finally:
             call.close()
-        res = resp.resource
-        size = res.size if res is not None else resp.persisted_size
-        with self._stat_cache_lock:
-            self._stat_cache[name] = size
-        return ObjectMeta(res.name if res is not None else name, size)
-
-    def _lib_write(self, name: str, data, if_generation_match) -> ObjectMeta:
-        """One-shot WriteObject over a grpcio ``stream_unary`` call."""
-        s2 = self._s2
-
-        def requests():
-            spec = s2.WriteObjectSpec(
-                resource=s2.Object(name=name, bucket=self._bucket_path)
-            )
-            if if_generation_match is not None:
-                spec.if_generation_match = int(if_generation_match)
-            mv = memoryview(bytes(data))
-            if not mv:
-                yield s2.WriteObjectRequest(
-                    write_object_spec=spec, write_offset=0, finish_write=True
-                )
-                return
-            off = 0
-            while off < len(mv):
-                chunk = mv[off : off + MAX_READ_CHUNK]
-                req = s2.WriteObjectRequest(
-                    write_offset=off,
-                    checksummed_data=s2.ChecksummedData(content=bytes(chunk)),
-                    finish_write=off + len(chunk) >= len(mv),
-                )
-                if off == 0:
-                    req.write_object_spec = spec
-                off += len(chunk)
-                yield req
-
-        try:
-            resp = self._stub()["write"](requests())
-        except self._grpc.RpcError as e:
-            raise _wrap_rpc_error(e, f"WriteObject {name}") from e
-        # Keep the size cache coherent: a stale (smaller) size would let
-        # the short-stream classifier call a truncation "at EOF".
-        size = int(resp.resource.size)
-        with self._stat_cache_lock:
-            self._stat_cache[name] = size
-        return ObjectMeta(resp.resource.name, size)
+        return resp
 
     def write(self, name: str, data: bytes,
               if_generation_match=None) -> ObjectMeta:
-        if self._lib:
-            return self._lib_write(name, data, if_generation_match)
-        return self._wire_write(name, data, if_generation_match)
+        requests = self._write_requests(name, data, if_generation_match)
+        if not self._lib:
+            resp = self._wire_write(name, requests)
+        else:
+            try:
+                resp = self._stub()["write"](requests)
+            except self._grpc.RpcError as e:
+                raise _wrap_rpc_error(e, f"WriteObject {name}") from e
+        # Keep the size cache coherent: a stale (smaller) size would let
+        # the short-stream classifier call a truncation "at EOF".
+        size = _write_status(resp)
+        with self._stat_cache_lock:
+            self._stat_cache[name] = size
+        res = resp.resource
+        return ObjectMeta(res.name if res is not None else name, size)
 
     def open_write(self, name: str, if_generation_match=None):
         """Resumable session: StartResumableWrite → BidiWriteObject
@@ -831,25 +779,6 @@ class GcsGrpcBackend:
             return _LibBidiWriter(self, name, if_generation_match)
         return _WireBidiWriter(self, name, if_generation_match)
 
-    def _list_page(self, prefix: str, page_size: int, token: str):
-        if not self._lib:
-            return wp.ListObjectsResponse.decode(self._wire_unary(
-                f"{_SVC}/ListObjects",
-                wp.ListObjectsRequest(
-                    parent=self._bucket_path, prefix=prefix,
-                    page_size=max(0, page_size), page_token=token,
-                ),
-            ))
-        req = self._s2.ListObjectsRequest(
-            parent=self._bucket_path, prefix=prefix, page_token=token
-        )
-        if page_size > 0:
-            req.page_size = page_size
-        try:
-            return self._stub()["list"](req)
-        except self._grpc.RpcError as e:
-            raise _wrap_rpc_error(e, "ListObjects") from e
-
     def list(self, prefix: str = "", page_size: int = 0) -> list[ObjectMeta]:
         """Full listing under ``prefix``, following ``next_page_token``
         as the HTTP client follows ``nextPageToken``, in both modes;
@@ -858,47 +787,31 @@ class GcsGrpcBackend:
         out: list[ObjectMeta] = []
         token = ""
         while True:
-            resp = self._list_page(prefix, page_size, token)
+            resp = self._unary("list", wp.ListObjectsRequest(
+                parent=self._bucket_path, prefix=prefix,
+                page_size=max(0, page_size), page_token=token,
+            ), "ListObjects")
             out.extend(
-                ObjectMeta(o.name, int(o.size), int(o.generation))
-                for o in resp.objects
+                ObjectMeta(o.name, o.size, o.generation) for o in resp.objects
             )
             token = resp.next_page_token
             if not token:
                 return out
 
     def stat(self, name: str) -> ObjectMeta:
-        if self._lib:
-            try:
-                o = self._stub()["get"](self._s2.GetObjectRequest(
-                    bucket=self._bucket_path, object_=name
-                ))
-            except self._grpc.RpcError as e:
-                raise _wrap_rpc_error(e, f"GetObject {name}") from e
-        else:
-            o = wp.Object.decode(self._wire_unary(
-                f"{_SVC}/GetObject",
-                wp.GetObjectRequest(bucket=self._bucket_path, object=name),
-            ))
-        meta = ObjectMeta(o.name, int(o.size), int(o.generation))
+        o = self._unary("get", wp.GetObjectRequest(
+            bucket=self._bucket_path, object=name,
+        ), f"GetObject {name}")
+        meta = ObjectMeta(o.name, o.size, o.generation)
         # Feeds the size cache the native reader sizes its buffer from.
         with self._stat_cache_lock:
             self._stat_cache[name] = meta.size
         return meta
 
     def delete(self, name: str) -> None:
-        if self._lib:
-            try:
-                self._stub()["delete"](self._s2.DeleteObjectRequest(
-                    bucket=self._bucket_path, object_=name
-                ))
-            except self._grpc.RpcError as e:
-                raise _wrap_rpc_error(e, f"DeleteObject {name}") from e
-        else:
-            self._wire_unary(
-                f"{_SVC}/DeleteObject",
-                wp.DeleteObjectRequest(bucket=self._bucket_path, object=name),
-            )
+        self._unary("delete", wp.DeleteObjectRequest(
+            bucket=self._bucket_path, object=name,
+        ), f"DeleteObject {name}")
         with self._stat_cache_lock:
             self._stat_cache.pop(name, None)
 
@@ -910,8 +823,8 @@ class GcsGrpcBackend:
             self._native_pool_obj.close()  # also drains its BufferPool
 
 
-class _WireBidiWriter:
-    """Wire-mode resumable gRPC write (the ObjectWriter contract).
+class _BidiWriter:
+    """Resumable gRPC write (the ObjectWriter contract), in either mode.
 
     StartResumableWrite issues the session; each ``write`` chunk rides
     a BidiWriteObject message with ``flush`` + ``state_lookup`` set and
@@ -921,57 +834,51 @@ class _WireBidiWriter:
     ``_ResumingWriter`` above re-probes ``committed()`` (QueryWriteStatus)
     and resends the tail on a fresh stream (first message re-carries the
     upload id). ``finalize`` sends ``finish_write`` and half-closes; a
-    412 precondition verdict arrives non-transient."""
+    412 precondition verdict arrives non-transient. A subclass opens the
+    mode's stream (``_open_stream``)."""
 
     def __init__(self, backend: GcsGrpcBackend, name: str,
                  if_generation_match=None):
         self._b = backend
         self.name = name
-        spec = wp.WriteObjectSpec(
-            resource=wp.Object(name=name, bucket=backend._bucket_path),
-            if_generation_match=(
-                int(if_generation_match)
-                if if_generation_match is not None
-                else None
+        resp = backend._unary(
+            "start_resumable",
+            wp.StartResumableWriteRequest(
+                write_object_spec=backend._write_spec(name, if_generation_match)
             ),
+            f"StartResumableWrite {name}",
         )
-        raw = backend._wire_unary(
-            f"{_SVC}/StartResumableWrite",
-            wp.StartResumableWriteRequest(write_object_spec=spec),
-        )
-        self._uid = wp.StartResumableWriteResponse.decode(raw).upload_id
+        self._uid = resp.upload_id
         self.offset = 0
-        self._call = None
-        self._fresh = True
+        self._stream = None
         self._final: Optional[ObjectMeta] = None
+
+    def _open_stream(self):
+        raise NotImplementedError
 
     # ----------------------------------------------------------- stream --
     def _send(self, msg: "wp.BidiWriteObjectRequest", end: bool = False):
-        if self._call is None:
-            self._call = self._b._wire_chan().bidi(f"{_SVC}/BidiWriteObject")
-            self._fresh = True
-        if self._fresh:
+        if self._stream is None:
+            self._stream = self._open_stream()
             # The upload id rides only the FIRST message of each stream
             # (the storage-v2 first_message contract).
             msg.upload_id = self._uid
-            self._fresh = False
-        self._call.send_message(msg.encode(), end=end)
-        return self._call
+        self._stream.send(msg, end)
+        return self._stream
 
     def _break_stream(self) -> None:
-        call, self._call = self._call, None
-        if call is not None:
-            call.cancel()
+        stream, self._stream = self._stream, None
+        if stream is not None:
+            stream.cancel()
 
     # --------------------------------------------------------- contract --
     def write(self, data) -> int:
-        mv = memoryview(data) if not isinstance(data, memoryview) else data
-        off = 0
+        mv = memoryview(data)
+        what = f"BidiWriteObject {self.name}"
         try:
-            while off < len(mv):
-                chunk = mv[off : off + MAX_READ_CHUNK]
-                content = bytes(chunk)
-                call = self._send(
+            for off in range(0, len(mv), MAX_READ_CHUNK):
+                content = bytes(mv[off : off + MAX_READ_CHUNK])
+                ack = self._send(
                     wp.BidiWriteObjectRequest(
                         write_offset=self.offset,
                         checksummed_data=wp.ChecksummedData(
@@ -980,55 +887,42 @@ class _WireBidiWriter:
                         flush=True,
                         state_lookup=True,
                     )
-                )
-                raw = call.recv_message()
-                if raw is None:
+                ).recv(what)
+                if ack is None:
                     raise StorageError(
-                        f"BidiWriteObject {self.name}: stream closed "
-                        "before persisted-size ack",
+                        f"{what}: stream closed before persisted-size ack",
                         transient=True,
                     )
-                ack = wp.BidiWriteObjectResponse.decode(raw)
-                annotate(
-                    "bidi_ack", persisted=ack.persisted_size, object=self.name
-                )
-                self.offset = ack.persisted_size
-                off += len(chunk)
+                self.offset = _write_status(ack)
+                annotate("bidi_ack", persisted=self.offset, object=self.name)
         except StorageError:
             self._break_stream()
             raise
         return self.offset
 
     def committed(self) -> int:
-        raw = self._b._wire_unary(
-            f"{_SVC}/QueryWriteStatus",
-            wp.QueryWriteStatusRequest(upload_id=self._uid),
-        )
-        resp = wp.QueryWriteStatusResponse.decode(raw)
-        self.offset = resp.persisted_size
+        self.offset = _write_status(self._b._unary(
+            "query_write", wp.QueryWriteStatusRequest(upload_id=self._uid),
+            f"QueryWriteStatus {self.name}",
+        ))
         return self.offset
 
     def finalize(self) -> ObjectMeta:
         if self._final is not None:
             return self._final
+        what = f"BidiWriteObject {self.name} finalize"
         try:
-            call = self._send(
+            stream = self._send(
                 wp.BidiWriteObjectRequest(
                     write_offset=self.offset, finish_write=True
                 ),
                 end=True,
             )
-            raw = call.recv_message()
-            if raw is None:
-                raise StorageError(
-                    f"BidiWriteObject {self.name}: no finalize response",
-                    transient=True,
-                )
-            resp = wp.BidiWriteObjectResponse.decode(raw)
-            while call.recv_message() is not None:
-                pass
-            call.close()
-            self._call = None
+            resp = stream.recv(what)
+            if resp is None:
+                raise StorageError(f"{what}: no response", transient=True)
+            stream.drain(what)
+            self._stream = None
         except StorageError:
             self._break_stream()
             raise
@@ -1036,7 +930,7 @@ class _WireBidiWriter:
         if res is not None:
             meta = ObjectMeta(res.name or self.name, res.size, res.generation)
         else:
-            meta = ObjectMeta(self.name, resp.persisted_size)
+            meta = ObjectMeta(self.name, resp.persisted_size or 0)
         with self._b._stat_cache_lock:
             self._b._stat_cache[meta.name] = meta.size
         self._final = meta
@@ -1049,160 +943,85 @@ class _WireBidiWriter:
             pass
 
 
-class _LibBidiWriter:
-    """Library-mode twin of :class:`_WireBidiWriter`: the same RPC
-    choreography over a grpcio ``stream_stream`` call with a queue-driven
-    request iterator (lockstep: enqueue one request, pull one ack;
+class _WireBidiStream:
+    """A BidiWriteObject call of the wire stack; failures arrive
+    classified from its frame layer."""
+
+    def __init__(self, call):
+        self._call = call
+
+    def send(self, msg: "wp.Msg", end: bool) -> None:
+        self._call.send_message(msg.encode(), end=end)
+
+    def recv(self, what: str):
+        raw = self._call.recv_message()
+        return None if raw is None else wp.BidiWriteObjectResponse.decode(raw)
+
+    def drain(self, what: str) -> None:
+        while self._call.recv_message() is not None:
+            pass
+        self._call.close()
+
+    def cancel(self) -> None:
+        self._call.cancel()
+
+
+class _LibBidiStream:
+    """A grpcio ``stream_stream`` call fed by a queue-driven request
+    iterator (lockstep: enqueue one request, pull one ack;
     ``state_lookup`` makes the server answer each chunk)."""
 
-    def __init__(self, backend: GcsGrpcBackend, name: str,
-                 if_generation_match=None):
-        self._b = backend
-        self._s2 = s2 = backend._s2
-        self._rpc_error = backend._grpc.RpcError
-        self.name = name
-        spec = s2.WriteObjectSpec(
-            resource=s2.Object(name=name, bucket=backend._bucket_path)
-        )
-        if if_generation_match is not None:
-            spec.if_generation_match = int(if_generation_match)
-        try:
-            resp = backend._stub()["start_resumable"](
-                s2.StartResumableWriteRequest(write_object_spec=spec)
-            )
-        except self._rpc_error as e:
-            raise _wrap_rpc_error(e, f"StartResumableWrite {name}") from e
-        self._uid = resp.upload_id
-        self.offset = 0
-        self._q = None
-        self._resp_iter = None
-        self._fresh = True
-        self._final: Optional[ObjectMeta] = None
+    def __init__(self, stub, rpc_error):
+        self._q: "queue.Queue" = queue.Queue()
+        self._rpc_error = rpc_error
 
-    # ----------------------------------------------------------- stream --
-    def _send(self, req, end: bool = False):
-        if self._resp_iter is None:
-            q: "queue.Queue" = queue.Queue()
+        def requests(q=self._q):
+            while (item := q.get()) is not None:
+                yield item
 
-            def requests():
-                while True:
-                    item = q.get()
-                    if item is None:
-                        return
-                    yield item
+        self._it = stub(requests())
 
-            self._q = q
-            self._resp_iter = self._b._stub()["bidi_write"](requests())
-            self._fresh = True
-        if self._fresh:
-            # The upload id rides only the first message of each stream.
-            req.upload_id = self._uid
-            self._fresh = False
-        self._q.put(req)
+    def send(self, msg: "wp.Msg", end: bool) -> None:
+        self._q.put(msg)
         if end:
             self._q.put(None)
-        return self._resp_iter
 
-    def _break_stream(self) -> None:
-        it, self._resp_iter = self._resp_iter, None
-        q, self._q = self._q, None
-        if q is not None:
-            q.put(None)
-        if it is not None:
-            try:
-                it.cancel()
-            except Exception:
-                pass
-
-    def _recv(self, it, what: str):
+    def recv(self, what: str):
         try:
-            return next(it)
+            return next(self._it)
         except StopIteration:
-            raise StorageError(
-                f"{what}: stream closed before ack", transient=True
-            ) from None
+            return None
         except self._rpc_error as e:
             raise _wrap_rpc_error(e, what) from e
 
-    # --------------------------------------------------------- contract --
-    def write(self, data) -> int:
-        s2 = self._s2
-        mv = memoryview(data) if not isinstance(data, memoryview) else data
-        off = 0
+    def drain(self, what: str) -> None:
         try:
-            while off < len(mv):
-                chunk = mv[off : off + MAX_READ_CHUNK]
-                it = self._send(
-                    s2.BidiWriteObjectRequest(
-                        write_offset=self.offset,
-                        checksummed_data=s2.ChecksummedData(
-                            content=bytes(chunk)
-                        ),
-                        flush=True,
-                        state_lookup=True,
-                    )
-                )
-                ack = self._recv(it, f"BidiWriteObject {self.name}")
-                annotate(
-                    "bidi_ack", persisted=int(ack.persisted_size),
-                    object=self.name,
-                )
-                self.offset = int(ack.persisted_size)
-                off += len(chunk)
-        except StorageError:
-            self._break_stream()
-            raise
-        return self.offset
-
-    def committed(self) -> int:
-        try:
-            resp = self._b._stub()["query_write"](
-                self._s2.QueryWriteStatusRequest(upload_id=self._uid)
-            )
-        except self._rpc_error as e:
-            raise _wrap_rpc_error(e, f"QueryWriteStatus {self.name}") from e
-        # ``write_status`` is a oneof: a finalized session answers with
-        # the object, whose size is then the committed size
-        # (``tpubench``'s library writer reads 0 there).
-        self.offset = int(
-            resp.resource.size if "resource" in resp else resp.persisted_size
-        )
-        return self.offset
-
-    def finalize(self) -> ObjectMeta:
-        if self._final is not None:
-            return self._final
-        try:
-            it = self._send(
-                self._s2.BidiWriteObjectRequest(
-                    write_offset=self.offset, finish_write=True
-                ),
-                end=True,
-            )
-            resp = self._recv(it, f"BidiWriteObject {self.name} finalize")
-            for _ in it:
+            for _ in self._it:
                 pass
-            self._resp_iter = None
-            self._q = None
-        except StorageError:
-            self._break_stream()
-            raise
-        except self._rpc_error as e:  # raised while draining the stream
-            self._break_stream()
-            raise _wrap_rpc_error(
-                e, f"BidiWriteObject {self.name} finalize") from e
-        meta = ObjectMeta(
-            resp.resource.name or self.name,
-            int(resp.resource.size),
-            int(resp.resource.generation),
-        )
-        with self._b._stat_cache_lock:
-            self._b._stat_cache[meta.name] = meta.size
-        self._final = meta
-        return meta
+        except self._rpc_error as e:
+            raise _wrap_rpc_error(e, what) from e
 
-    def abort(self) -> None:
+    def cancel(self) -> None:
+        self._q.put(None)
         try:
-            self._break_stream()
+            self._it.cancel()
         except Exception:
             pass
+
+
+class _WireBidiWriter(_BidiWriter):
+    """Wire mode's resumable writer: one wire call a stream."""
+
+    def _open_stream(self) -> _WireBidiStream:
+        return _WireBidiStream(
+            self._b._wire_chan().bidi(f"{_SVC}/BidiWriteObject")
+        )
+
+
+class _LibBidiWriter(_BidiWriter):
+    """Library mode's resumable writer: one grpcio call a stream."""
+
+    def _open_stream(self) -> _LibBidiStream:
+        return _LibBidiStream(
+            self._b._stub()["bidi_write"], self._b._grpc.RpcError
+        )

@@ -13,13 +13,24 @@ speak one schema.
 
 Decoding skips unknown fields by wire type (a real server may send
 fields this codec doesn't model); every truncation is a classified
-:class:`WireCodecError`, never a silent short read.
+:class:`WireCodecError`, never a silent short read. A decode copies the
+bytes of a ``bytes`` field once and nothing else: sub-messages are
+decoded from views of the message.
+
+gRPC library mode carries these messages too, as grpcio's serializer
+(``Msg.encode``) and deserializers (``decode``): for the fields
+declared here they are byte for byte what the generated
+``google.cloud._storage_v2`` types give (``tests/test_torch_grpc_codec.py``).
+Field names follow the proto (``object``, where proto-plus says
+``object_``), and an absent sub-message decodes to ``None``, where
+proto-plus gives an empty one.
 
 Kinds: ``str`` / ``bytes`` / ``varint`` (proto3 implicit presence:
 zero/empty values are not encoded) / ``bool`` / ``ovarint`` (explicit
 presence — ``None`` = absent, 0 is encoded: ``if_generation_match=0``
-means "object must not exist") / ``fixed32`` (``None`` = absent, for
-crc32c) / ``("msg", cls)`` / ``("rep", cls)``.
+means "object must not exist"; also a member of a oneof, as
+``persisted_size`` in the ``write_status`` oneof) / ``fixed32``
+(``None`` = absent, for crc32c) / ``("msg", cls)`` / ``("rep", cls)``.
 """
 
 from __future__ import annotations
@@ -158,8 +169,9 @@ class Msg:
     # ------------------------------------------------------------ decode --
     @classmethod
     def decode(cls, data) -> "Msg":
-        if isinstance(data, memoryview):
-            data = bytes(data)
+        """Decode ``data`` (bytes-like). Sub-messages are decoded from
+        views of it, so a ``bytes`` field is the only copy made."""
+        data = memoryview(data)
         self = cls()
         i, n = 0, len(data)
         while i < n:
@@ -190,9 +202,9 @@ class Msg:
                     else:
                         getattr(self, attr).append(sub.decode(payload))
                 elif kind == "str":
-                    setattr(self, attr, payload.decode("utf-8"))
+                    setattr(self, attr, str(payload, "utf-8"))
                 else:
-                    setattr(self, attr, bytes(payload))
+                    setattr(self, attr, payload.tobytes())
             elif kind in ("varint", "ovarint", "bool"):
                 if wtype != 0:
                     raise WireCodecError(
@@ -308,9 +320,12 @@ class WriteObjectRequest(Msg):
     }
 
 
+# The write-status responses hold ``persisted_size`` and ``resource`` in
+# the ``write_status`` oneof, where a member has explicit presence: a
+# persisted size of 0 is encoded, and one absent decodes to ``None``.
 class WriteObjectResponse(Msg):
     FIELDS = {
-        1: ("persisted_size", "varint"),
+        1: ("persisted_size", "ovarint"),
         2: ("resource", ("msg", Object)),
     }
 
@@ -335,7 +350,7 @@ class QueryWriteStatusRequest(Msg):
 
 class QueryWriteStatusResponse(Msg):
     FIELDS = {
-        1: ("persisted_size", "varint"),
+        1: ("persisted_size", "ovarint"),
         2: ("resource", ("msg", Object)),
     }
 
@@ -355,7 +370,7 @@ class BidiWriteObjectRequest(Msg):
 
 class BidiWriteObjectResponse(Msg):
     FIELDS = {
-        1: ("persisted_size", "varint"),
+        1: ("persisted_size", "ovarint"),
         2: ("resource", ("msg", Object)),
     }
 
