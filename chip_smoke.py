@@ -100,6 +100,16 @@ before the last line:
    card, one ``tb_checksum`` launch per shard per collective call
    (warm-up included) and the pod flight record staged and gathered;
    fetch, stage and gather GB/s and seconds;
+9b. pod_cards — ``pod-ingest`` of the same object as a user types it
+   (``cli.main``) on every card the host shows: on one card ``main``
+   keeps the one NCCL rank in process (no launch; ``n_chips`` 1, the
+   gather's checksum the host's sum, two ``tb_checksum`` launches). On
+   n >= 2 cards (``scripts/smoke_phases.py --phases pod_cards``) ``main``
+   launches one NCCL rank a card for pod-ingest (all_gather, ring,
+   http2_mux, grpc_native_mux), ``stream --validate``, ``gather-bench``,
+   ``ckpt-restore`` and ``train-ingest --pipeline-pod``, each rank
+   reporting its card, backend, errors and launches, then ``read
+   --staging pallas`` lands on every card in process;
 10. gather — ``gather-bench`` at world size 1, each of the four
    collectives on a 4 MiB shard: ``single_device``, no errors, every
    output equal to its input, and every ``tb_checksum`` of the two
@@ -420,6 +430,7 @@ KERNELS = {
                             "obs/obs_validate", "tail/tail_validate",
                             "pod/all_gather", "pod/ring",
                             "pod/http2_mux", "pod/grpc_native_mux",
+                            "pod_cards/pod_ingest",
                             "gather/all_gather", "gather/ring",
                             "tune/online_validate", "sweep/validate",
                             "native/native_h2_validate",
@@ -485,6 +496,7 @@ def main() -> int:
     }
     pod_counts, pod_store = timed("pod", phase_pod, smi)
     counts.update(pod_counts)
+    counts.update(timed("pod_cards", phase_pod_cards, pod_store, store, smi))
     counts.update(timed("gather", phase_gather, smi))
     timed("probe", phase_probe, smi)
     timed("profile", phase_profile, store, pod_store, smi)
@@ -2004,6 +2016,352 @@ def _pod_mode(mode: str, flags: list, store, servers, host_sum: int,
           "reduced": ["one rank (the machine has one H100): the shard is "
                       "the whole object and no byte crosses a link"],
           "card": smi})
+    return counts
+
+
+# ------------------------------------------------------------ pod_cards --
+# Phase pod_cards: pod commands as a user types them (``cli.main``) over
+# every card of the host, one rank a card (``dist/launch.py``). On one
+# card, ``main`` keeps the one rank in process; on n >= 2 cards each mode
+# is n NCCL ranks. Mode -> (argv, per-rank tb_checksum launches, given
+# the host's card count and the rank; None: not checked per rank).
+POD_CARDS_STREAM_OBJECTS = 4
+POD_CARDS_TRAIN_WORKERS, POD_CARDS_TRAIN_STEPS = 16, 20
+POD_CARDS_GATHER_REPS = 5
+POD_CARDS_CKPT = dict(objects=16, object_bytes=128 * MIB, part_bytes=16 * MIB)
+
+
+def _pod_cards_modes(cards: int, endpoints: dict, ckpt_dir: str,
+                     conf: str) -> dict:
+    """The modes of phase pod_cards at ``cards`` cards (the first alone on
+    one card)."""
+    # The fake store holds max(workers, threads) objects, as tpubench's
+    # does; pod-ingest reads the first alone.
+    pod = ["pod-ingest", "--protocol", "fake", "--workers", "1",
+           "--threads", "1", "--object-size", str(POD_OBJECT)]
+    if cards == 1:
+        return {"pod_ingest": (pod, lambda r: 2)}
+    remote = ["--bucket", "testbucket", "--object-name-prefix",
+              "tpubench/file_"]
+    sizes = [1 << k for k in range(1, cards.bit_length())
+             if 1 << k <= cards]
+
+    def gather_calls(r: int) -> int:
+        return (POD_CARDS_GATHER_REPS + 1) * sum(1 for n in sizes if r < n)
+
+    return {
+        "pod_ingest": (pod, lambda r: 2),
+        "ring": ([*pod, "--ring"], lambda r: 2),
+        "http2_mux": (["pod-ingest", "--protocol", "http", "--http2",
+                       "--endpoint", endpoints["h2"], *remote],
+                      lambda r: 2),
+        "grpc_native_mux": (["pod-ingest", "--config", conf, "--protocol",
+                             "grpc", "--native-receive", "--endpoint",
+                             endpoints["grpc"], *remote], lambda r: 2),
+        "stream": (["stream", "--protocol", "fake", "--validate",
+                    "--objects", str(POD_CARDS_STREAM_OBJECTS),
+                    "--workers", str(POD_CARDS_STREAM_OBJECTS),
+                    "--object-size", str(OBJECT_SIZE)],
+                   lambda r: POD_CARDS_STREAM_OBJECTS + 1),
+        "gather_bench": (["gather-bench", "--collective", "all_gather",
+                          "--shard-mb", str(GATHER_SHARD_MB), "--reps",
+                          str(POD_CARDS_GATHER_REPS)], gather_calls),
+        "ckpt_restore": (["ckpt-restore", "--protocol", "local", "--dir",
+                          ckpt_dir], lambda r: 0),
+        "train_pod": (["train-ingest", "--protocol", "fake", "--workers",
+                       str(POD_CARDS_TRAIN_WORKERS), "--object-size",
+                       str(OBJECT_SIZE), "--granule-bytes", str(GRANULE),
+                       "--chunk-bytes", str(GRANULE), "--batch-shards",
+                       str(TRAIN_BATCH), "--step-compute-ms",
+                       str(TRAIN_COMPUTE_MS), "--steps",
+                       str(POD_CARDS_TRAIN_STEPS), "--readahead", "0",
+                       "--pipeline-pod"],
+                      lambda r: POD_CARDS_TRAIN_STEPS + 1),
+    }
+
+
+class LaunchSpy:
+    """Notes every call of ``dist.launch.launch`` (the rank count ``main``
+    chose) and passes it through."""
+
+    def __enter__(self):
+        from tpubench_torch.dist import launch
+
+        self.calls: list = []
+        self._real = real = launch.launch
+
+        def noted(argv, ranks, **kw):
+            self.calls.append(ranks)
+            return real(argv, ranks, **kw)
+
+        launch.launch = noted
+        return self
+
+    def __exit__(self, *exc):
+        from tpubench_torch.dist import launch
+
+        launch.launch = self._real
+
+
+def _pod_cards_run(mode: str, argv: list, cards: int) -> dict:
+    """``cli.main(argv)`` with its results under ``build/``: the exit
+    code, rank 0's result, every rank's ``local_rank`` line (from the
+    rank logs; none in process), the ranks ``main`` launched and the
+    seconds."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+
+    from tpubench_torch import cli
+    from tpubench_torch.dist.launch import RANK_LOG_DIR
+
+    results = f"{BUILD}/pod_cards/{mode}"
+    shutil.rmtree(results, ignore_errors=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with LaunchSpy() as spy, contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "--results-dir", results])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"pod_cards/{mode}: exit {rc}\n{buf.getvalue()[-3000:]}")
+    paths = glob.glob(f"{results}/*.json")
+    check(len(paths) == 1, f"pod_cards/{mode}: results {paths}")
+    with open(paths[0]) as f:
+        res = json.load(f)
+    lines = []
+    for log in sorted(glob.glob(f"{results}/{RANK_LOG_DIR}/*/rank*.log")):
+        with open(log) as f:
+            lines += [json.loads(ln)["local_rank"] for ln in f
+                      if ln.startswith('{"local_rank"')]
+    lines.sort(key=lambda x: x["rank"])
+    return {"res": res, "ranks": lines, "launched": spy.calls,
+            "seconds": seconds, "dir": results}
+
+
+def _pod_cards_check(mode: str, run: dict, cards: int, per_rank) -> dict:
+    """Every rank a card of its own on NCCL, no error, ``n_chips`` the
+    card count, its ``tb_checksum`` launches as the mode makes them;
+    returns the launches summed over the ranks."""
+    res, lines = run["res"], run["ranks"]
+    check(run["launched"] == [cards],
+          f"pod_cards/{mode}: main launched {run['launched']}, {cards} cards")
+    check(res["n_chips"] == cards and res["errors"] == 0,
+          f"pod_cards/{mode}: n_chips {res['n_chips']}, errors "
+          f"{res['errors']}")
+    check([x["rank"] for x in lines] == list(range(cards)),
+          f"pod_cards/{mode}: rank lines {lines}")
+    for x in lines:
+        r = x["rank"]
+        check(x["backend"] == "nccl" and x["device"] == f"cuda:{r}"
+              and x["ranks"] == cards and x["n_chips"] == cards
+              and x["errors"] == 0, f"pod_cards/{mode}: rank {x}")
+        check(x["launches"] == {"land": 0, "checksum": per_rank(r)},
+              f"pod_cards/{mode}: rank {r} launches {x['launches']}, want "
+              f"{per_rank(r)} tb_checksum")
+    return {k: sum(x["launches"][k] for x in lines)
+            for k in ("land", "checksum")}
+
+
+def _pod_cards_read(store, cards: int, smi) -> dict:
+    """``read --staging pallas`` at phase read's deployment in process
+    (``run_read`` with the CLI's sink factory): worker i lands on
+    ``cuda:(i % cards)``, so every card runs ``tb_land``; one launch a
+    transfer, ``checksum_ok``. The factory is wrapped only to keep each
+    stager."""
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging.device import make_sink_factory
+    from tpubench_torch.workloads.read import run_read
+
+    _, cfg = _cli(["read", "--protocol", "fake", "--workers", str(WORKERS),
+                   "--object-size", str(OBJECT_SIZE), "--granule-bytes",
+                   str(GRANULE), "--read-call-per-worker", "1",
+                   "--staging", "pallas"])
+    made: list = []
+    factory = make_sink_factory(cfg, device="cuda")
+
+    def kept(worker_id):
+        stager = factory(worker_id)
+        made.append(stager)
+        return stager
+
+    t0 = time.perf_counter()
+    landing.reset_launches()
+    res = run_read(cfg, backend=store, device="cuda", sink_factory=kept)
+    counts = {"land": landing.land.launches,
+              "checksum": landing.checksum.launches}
+    transfers = sum(s.transfers for s in made)
+    devices = sorted({str(s.device) for s in made})
+    check(res.errors == 0 and res.extra["checksum_ok"] is True,
+          f"pod_cards/read_pallas: errors {res.errors}, checksum_ok "
+          f"{res.extra.get('checksum_ok')}")
+    check(devices == [f"cuda:{i}" for i in range(cards)],
+          f"pod_cards/read_pallas: stagers on {devices}")
+    check(counts == {"land": transfers, "checksum": 0} and transfers,
+          f"pod_cards/read_pallas: launches {counts}, {transfers} transfers")
+    emit({"phase": "pod_cards", "mode": "read_pallas", "cards": cards,
+          "ranks": 1, "backend": None, "devices": devices,
+          "workers": WORKERS, "transfers": transfers, "launches": counts,
+          "checksum_ok": res.extra["checksum_ok"],
+          "staged_gbps": res.extra.get("staged_gbps"),
+          "staged_gbps_per_chip": res.extra.get("staged_gbps_per_chip"),
+          "staged_bytes": res.extra.get("staged_bytes"),
+          "wall_s": res.wall_seconds, "seconds": time.perf_counter() - t0,
+          "card": smi})
+    return counts
+
+
+def phase_pod_cards(pod_store, store, smi) -> dict:
+    """Pod commands as a user types them, over every card this host
+    shows. One card: ``pod-ingest`` of phase pod's 1 GiB object, which
+    ``main`` keeps in process as one NCCL rank (no launch; the gather's
+    checksum the host's sum, two launches). Several cards: ``main``
+    launches one NCCL rank a card for pod-ingest (all_gather, ring, and
+    the h2c and wire-gRPC mux routes against this process's servers),
+    ``stream --validate``, ``gather-bench`` (every power of two up to the
+    card count), ``ckpt-restore`` of a 2 GiB checkpoint saved here onto
+    the cards, and ``train-ingest --pipeline-pod``; then ``read --staging
+    pallas`` spreads its workers over the cards in process. Each rank
+    reports its card, backend, errors and launches (its ``local_rank``
+    line): every rank on its own card over NCCL, its checksums verified
+    (``errors`` 0; pod-ingest's and stream's ``verified`` hold on every
+    rank), ``n_chips`` the card count. Returns the launch counts by mode
+    (over all ranks)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tpubench_torch import cli
+    from tpubench_torch.kernels import landing
+
+    cards = torch.cuda.device_count()
+    host_sum = int(pod_store._objects["tpubench/file_0"].sum(
+        dtype=np.uint64)) % MOD
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    if cards == 1:
+        argv, _ = _pod_cards_modes(1, {}, "", "")["pod_ingest"]
+        with SharedStore(pod_store), PodObserved() as obs:
+            landing.reset_launches()
+            run = _pod_cards_run("pod_ingest", argv, 1)
+            got = {"land": landing.land.launches,
+                   "checksum": landing.checksum.launches}
+        res = run["res"]
+        check(run["launched"] == [] and not run["ranks"],
+              f"pod_cards: main launched {run['launched']} on one card")
+        check(res["n_chips"] == 1 and res["errors"] == 0
+              and res["extra"]["verified"] is True,
+              f"pod_cards/pod_ingest: {res['n_chips']} chips, errors "
+              f"{res['errors']}, verified {res['extra']['verified']}")
+        check([b for b, _, _ in obs.calls] == ["nccl", "nccl"]
+              and all(c == host_sum for _, _, c in obs.calls),
+              f"pod_cards/pod_ingest: calls {obs.calls}, host {host_sum}")
+        check(got == {"land": 0, "checksum": 2},
+              f"pod_cards/pod_ingest: launches {got}")
+        counts["pod_cards/pod_ingest"] = got
+        emit({"phase": "pod_cards", "mode": "pod_ingest", "cards": 1,
+              "ranks": 1, "backend": obs.calls[0][0], "in_process": True,
+              "n_chips": res["n_chips"], "verified": True,
+              "checksum": obs.calls[-1][2], "host_sum": host_sum,
+              "launches": got, **{k: res["extra"][k] for k in (
+                  "fetch_gbps", "stage_gbps", "gather_gbps")},
+              "seconds": run["seconds"], "card": smi})
+        return counts
+    counts["pod_cards/read_pallas"] = _pod_cards_read(store, cards, smi)
+    from tpubench_torch.native.engine import get_engine
+
+    get_engine()  # built once here, found by every rank
+    ckpt_dir = f"{BUILD}/pod_cards_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    conf = f"{BUILD}/pod_cards_grpc.json"
+    os.makedirs(BUILD, exist_ok=True)
+    with open(conf, "w") as f:  # the gRPC fake is no Google endpoint
+        json.dump({"transport": {"directpath": False}}, f)
+    c = POD_CARDS_CKPT
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["ckpt-save", "--protocol", "local", "--dir", ckpt_dir,
+                       "--ckpt-objects", str(c["objects"]),
+                       "--ckpt-object-bytes", str(c["object_bytes"]),
+                       "--ckpt-part-bytes", str(c["part_bytes"]),
+                       "--results-dir", f"{BUILD}/pod_cards/save"])
+    check(rc == 0, f"pod_cards: ckpt-save exit {rc}")
+    sums = {}
+    for k in range(POD_CARDS_STREAM_OBJECTS):
+        from tpubench_torch.storage.base import deterministic_bytes
+
+        name = f"tpubench/file_{k}"
+        sums[k] = int(deterministic_bytes(name, OBJECT_SIZE).sum(
+            dtype=np.uint64)) % MOD
+    try:
+        with _Servers(pod_store) as servers:
+            endpoints = {k: s.endpoint for k, s in servers.by_kind.items()}
+            modes = _pod_cards_modes(cards, endpoints, ckpt_dir, conf)
+            for mode, (argv, per_rank) in modes.items():
+                run = _pod_cards_run(mode, argv, cards)
+                counts[f"pod_cards/{mode}"] = got = _pod_cards_check(
+                    mode, run, cards, per_rank)
+                ex = run["res"]["extra"]
+                line = {"phase": "pod_cards", "mode": mode, "cards": cards,
+                        "ranks": len(run["ranks"]), "backend": "nccl",
+                        "n_chips": run["res"]["n_chips"], "launches": got,
+                        "launches_by_rank": [x["launches"]["checksum"]
+                                             for x in run["ranks"]],
+                        "wall_s": run["res"]["wall_seconds"],
+                        "gbps_per_chip": run["res"]["gbps_per_chip"],
+                        "seconds": run["seconds"], "card": smi}
+                if argv[0] == "pod-ingest":
+                    check(ex["verified"] is True
+                          and run["res"]["bytes_total"] == POD_OBJECT,
+                          f"pod_cards/{mode}: verified {ex['verified']}")
+                    line.update({k: ex[k] for k in (
+                        "verified", "shard_bytes", "fetch_gbps",
+                        "stage_gbps", "gather_gbps", "fetch_seconds",
+                        "stage_seconds", "gather_seconds",
+                        "compile_seconds", "ici_bytes_moved")})
+                    line["host_sum"] = host_sum
+                elif mode == "stream":
+                    want = [sums[k] for k in range(POD_CARDS_STREAM_OBJECTS)]
+                    check(ex["verified"] is True
+                          and ex["object_checksums"] == want,
+                          f"pod_cards/stream: verified {ex['verified']}, "
+                          f"checksums {ex['object_checksums']} vs {want}")
+                    line.update(verified=True, object_checksums=want,
+                                overlap_efficiency=ex["overlap_efficiency"])
+                elif mode == "gather_bench":
+                    rows = ex["scaling"]
+                    check([r["devices"] for r in rows]
+                          == [n for n in (2, 4, 8, 16, 32) if n <= cards]
+                          and not ex["single_device"],
+                          f"pod_cards/gather_bench: rows {rows}")
+                    line["scaling"] = [{k: r[k] for k in (
+                        "devices", "shard_bytes", "seconds",
+                        "per_chip_rx_gbps", "total_gbps")} for r in rows]
+                elif mode == "ckpt_restore":
+                    lc = ex["lifecycle"]
+                    check(lc["verified"] is True and lc["staged"] is True
+                          and lc["shards_per_object"] == cards
+                          and lc["objects"] == c["objects"],
+                          f"pod_cards/ckpt_restore: {lc}")
+                    line.update({k: lc[k] for k in (
+                        "verified", "shards_per_object", "objects", "bytes",
+                        "time_to_restore_s", "fetch_seconds",
+                        "stage_seconds")})
+                else:  # train_pod
+                    pipe = ex["pipeline"]
+                    check(pipe["stall"]["steps"] == POD_CARDS_TRAIN_STEPS
+                          and pipe["copies"]["pool"]["leaked_slabs"] == 0,
+                          f"pod_cards/train_pod: {pipe['stall']}")
+                    line.update(stall_p50_ms=pipe["stall"]["p50_ms"],
+                                stall_p99_ms=pipe["stall"]["p99_ms"])
+                emit(line)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "pod_cards_total", "cards": cards,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
     return counts
 
 

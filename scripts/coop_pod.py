@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -135,33 +134,27 @@ def child(a) -> None:
 
 def run_arm(a, arm: str) -> list:
     from tpubench_torch.dist.bringup import free_port
+    from tpubench_torch.dist.launch import run_ranks
 
     out_dir = str(ROOT / "build" / "coop_pod" / arm)
     os.makedirs(out_dir, exist_ok=True)
     port = free_port()
-    procs, outs = [], []
-    for rank in range(a.ranks):
-        out = os.path.join(out_dir, f"rank{rank}.json")
+    outs = [os.path.join(out_dir, f"rank{rank}.json")
+            for rank in range(a.ranks)]
+    for out in outs:
         if os.path.exists(out):
             os.remove(out)
-        outs.append(out)
-        with open(os.path.join(out_dir, f"rank{rank}.log"), "w") as log:
-            procs.append(subprocess.Popen([
-                sys.executable, __file__, "--child", "--arm", arm,
-                "--rank", str(rank), "--port", str(port), "--out", out,
-                "--out-dir", out_dir, *_shape_flags(a)],
-                stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + a.deadline_s
-    rcs = []
-    for p in procs:
-        try:
-            rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
-        except subprocess.TimeoutExpired:
-            p.kill()
-            rcs.append(p.wait())
-    if any(rcs):
-        raise RuntimeError(f"coop_pod/{arm}: ranks exited {rcs} (logs "
-                           f"under {out_dir})")
+    res = run_ranks(
+        [[sys.executable, __file__, "--child", "--arm", arm,
+          "--rank", str(rank), "--port", str(port), "--out", outs[rank],
+          "--out-dir", out_dir, *_shape_flags(a)]
+         for rank in range(a.ranks)],
+        [os.path.join(out_dir, f"rank{rank}.log") for rank in range(a.ranks)],
+        deadline_s=a.deadline_s)
+    if not res.ok:
+        raise RuntimeError(f"coop_pod/{arm}: ranks exited {res.rcs} "
+                           f"(deadline passed: {res.timed_out}; logs under "
+                           f"{out_dir})")
     rows = []
     for out in outs:
         with open(out) as f:

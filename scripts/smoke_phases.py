@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Some of ``chip_smoke.py``'s phases alone, on one GPU.
+"""Some of ``chip_smoke.py``'s phases alone: on one GPU, or for phase
+pod_cards on every GPU of the host (one rank a card).
 
     python3 scripts/smoke_phases.py --phases serve,chaos,drill,fleet,check
+    python3 scripts/smoke_phases.py --phases pod_cards   # every card
 
 Builds the kernels (phase build), makes phase read's store (48 x 100 MiB)
-when serve, chaos or drill is asked for and phase pod's (one 1 GiB object)
-for chaos, then runs the phases named, in the order given, with every
+when serve, chaos, drill or pod_cards is asked for and phase pod's (one
+1 GiB object) for chaos and pod_cards, then runs the phases named, in
+the order given, with every
 check ``chip_smoke.py`` makes; each prints its JSON lines as there. A phase that needs another phase's state is not
 offered. The last lines are the launch counts by path, the seconds taken
 and the card's name and power limit. A quick way to try a phase on the
@@ -21,7 +24,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PHASES = ("serve", "chaos", "drill", "fleet", "check")
+PHASES = ("serve", "chaos", "drill", "fleet", "check", "pod_cards")
 
 
 def main() -> int:
@@ -45,10 +48,10 @@ def main() -> int:
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     cs.phase_build()
-    store = (cs.populate() if {"serve", "chaos", "drill"} & set(names)
-             else None)
+    store = (cs.populate() if {"serve", "chaos", "drill", "pod_cards"}
+             & set(names) else None)
     pod_store = (FakeBackend.prepopulated("tpubench/file_", 1, cs.POD_OBJECT)
-                 if "chaos" in names else None)
+                 if {"chaos", "pod_cards"} & set(names) else None)
     counts = {}
     for name in names:
         if name == "serve":
@@ -59,6 +62,8 @@ def main() -> int:
             counts.update(cs.phase_fleet(smi))
         elif name == "check":
             counts.update(cs.phase_check(smi))
+        elif name == "pod_cards":
+            counts.update(cs.phase_pod_cards(pod_store, store, smi))
         else:
             counts.update(cs.phase_chaos(store, pod_store, smi))
     cs.emit({"launches": counts, "seconds": time.perf_counter() - t0})

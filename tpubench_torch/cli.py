@@ -149,6 +149,7 @@ from tpubench_torch.config import (
     validate_telemetry_config,
     validate_tune_config,
 )
+from tpubench_torch.dist.launch import launched_ranks
 from tpubench_torch.metrics.report import (
     RunResult,
     upload_result,
@@ -1553,18 +1554,12 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
     if args is None:
         args = build_parser().parse_args([cmd])
-    # A single process's pod commands get a one-rank group, and so do
-    # train-ingest's pod path (also under tune and chaos), chaos over
-    # pod-ingest and a restore onto the card. ckpt-save, a host-RAM
-    # restore and serve touch no device: their group (several processes
-    # only) is gloo. serve still resolves its device, as every entry
-    # point does.
+    # A single process's pod commands get a one-rank group. ckpt-save, a
+    # host-RAM restore and serve touch no device: their group (several
+    # processes only) is gloo. serve still resolves its device, as every
+    # entry point does.
     chaos_wl = getattr(args, "chaos_workload", "") if cmd == "chaos" else ""
-    one_rank = cmd in POD_COLLECTIVE_CMDS or (
-        cfg.pipeline.pod and (
-            cmd in ("train-ingest", "tune") or chaos_wl == "train-ingest"
-        )) or chaos_wl == "pod-ingest" or (
-        cmd == "ckpt-restore" and cfg.lifecycle.restore_device)
+    one_rank = pod_command(cmd, cfg, args)
     group_device = device
     device_free = cmd in DEVICE_FREE_CMDS or chaos_wl == "serve"
     if (cmd in CKPT_CMDS or device_free) and not one_rank:
@@ -1655,8 +1650,8 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
                 # http/grpc with no endpoint = hermetic: the run goes to
                 # the matching in-process fake server, transport.fault
-                # injected on the wire.
-                with hermetic_target(cfg):
+                # injected on the wire; a restore's ranks share rank 0's.
+                with hermetic_target(cfg, shared=one_rank):
                     if cmd == "ckpt-save":
                         res = run_ckpt_save(cfg, backend=backend)
                     else:
@@ -1708,7 +1703,58 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
             print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
         if topo["process_count"] > 1:
             res.extra["topology"] = topo
+        if launched_ranks():
+            print(json.dumps({"local_rank": _rank_line(res, topo, device)}),
+                  flush=True)
     return res
+
+
+def _rank_line(res: RunResult, topo: dict, device) -> dict:
+    """What a rank of a launched command says of itself: its card, its
+    group's backend, its own errors and kernel launches (the counts of
+    this process; the command's result is rank 0's alone)."""
+    import torch.distributed as dist
+
+    from tpubench_torch.dist.bringup import rank_device
+    from tpubench_torch.kernels import landing
+
+    rank = topo["process_index"]
+    return {
+        "rank": rank, "ranks": topo["process_count"],
+        "device": str(rank_device(device, rank)),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "n_chips": res.n_chips, "errors": res.errors,
+        "launches": {"land": landing.land.launches,
+                     "checksum": landing.checksum.launches},
+    }
+
+
+def pod_command(cmd: str, cfg: BenchConfig, args) -> bool:
+    """Whether ``cmd`` runs collectives over the pod: ``pod-ingest``,
+    ``stream``, ``gather-bench``, train-ingest's pod path (also under
+    ``tune`` and ``chaos``), ``chaos`` over pod-ingest and a restore onto
+    the card. A single process runs these on a one-rank group; on a host
+    of several cards ``main`` launches one rank a card."""
+    chaos_wl = getattr(args, "chaos_workload", "") if cmd == "chaos" else ""
+    return cmd in POD_COLLECTIVE_CMDS or (
+        cfg.pipeline.pod and (
+            cmd in ("train-ingest", "tune") or chaos_wl == "train-ingest"
+        )) or chaos_wl == "pod-ingest" or (
+        cmd == "ckpt-restore" and cfg.lifecycle.restore_device)
+
+
+def local_ranks(cmd: str, cfg: BenchConfig, args, device) -> int:
+    """How many rank processes ``main`` runs ``cmd`` as: one a visible
+    card for a pod command on CUDA when the pod is not given by
+    ``--num-processes`` (``tpubench``'s one process meshes every local
+    chip); else 1, in process."""
+    if not pod_command(cmd, cfg, args) or cfg.dist.num_processes > 1:
+        return 1
+    import torch
+
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        return 1
+    return max(1, torch.cuda.device_count())
 
 
 def _drill(cfg: BenchConfig, args, device, backend=None) -> RunResult:
@@ -2105,8 +2151,15 @@ def main(argv=None) -> int:
             print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
         print(json.dumps(rows, indent=2))
         return 0
+    ranks = local_ranks(args.cmd, cfg, args, args.device)
+    if ranks > 1:
+        from tpubench_torch.dist import launch
+
+        return launch.launch(sys.argv[1:] if argv is None else list(argv),
+                             ranks, results_dir=cfg.obs.results_dir)
     res = execute(args.cmd, cfg, device=args.device, args=args)
-    finish(res, cfg, pod_collective=args.cmd in POD_COLLECTIVE_CMDS)
+    finish(res, cfg, pod_collective=(args.cmd in POD_COLLECTIVE_CMDS
+                                     or launched_ranks() > 0))
     return 0
 
 

@@ -7,8 +7,11 @@
   (all-gather, send/recv ring, reduce-scatter, all-reduce) over the shards,
   with the per-rank checksum taken by ``tb_checksum``;
 * :mod:`.peer` — the cooperative cache's lockstep peer channel
-  (``IciPeerChannel``), which moves a chunk by the pod's all-gather.
+  (``IciPeerChannel``), which moves a chunk by the pod's all-gather;
+* :mod:`.launch` — one rank process a card of this host, started,
+  watched and ended together (``cli.main`` runs a pod command so on a
+  host of several cards; the sweep's pod sizes go through it too).
 
 Where the reference has one process driving n local chips, the port has n
-ranks, one device each.
+ranks, one device each, which one command launches.
 """

@@ -7,10 +7,13 @@ as worker ``i`` of the read path does (:func:`tpubench_torch.device.
 worker_device`).
 
 A single-process ``read`` brings nothing up, as in the reference. The pod
-commands (``pod-ingest``, ``gather-bench``) need a group even then: the
-CLI (``cli.execute``, the one place that brings groups up) builds a
-one-rank group on a loopback port for them, so their collectives run
-through NCCL on one card too.
+commands (``cli.pod_command``) need a group even then: the CLI
+(``cli.execute``, the one place that brings groups up) builds a one-rank
+group on a loopback port for them, so their collectives run through NCCL
+on one card too. On a host of several cards ``cli.main`` runs a pod
+command as one rank a card (:mod:`tpubench_torch.dist.launch`), each
+joining here from the environment the launcher gives it; the rank binds
+its card (``set_device``) before NCCL is brought up.
 """
 
 from __future__ import annotations
@@ -143,6 +146,15 @@ def _refuse_shared_gpus(device_index: int, device_count: int) -> None:
             f"{device_count} CUDA device(s): NCCL needs one rank per GPU "
             "(run at most that many processes per host)"
         )
+
+
+def barrier(group=None) -> None:
+    """Wait for every rank of ``group``; under NCCL on this rank's card
+    (named, so NCCL guesses nothing from the global rank)."""
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
 
 
 @contextlib.contextmanager

@@ -137,6 +137,26 @@ def _pod_checksum(local: torch.Tensor, pod: Pod) -> torch.Tensor:
     return total % _MOD
 
 
+def pod_sum(local_sum: int, pod: Pod) -> int:
+    """The pod's mod-2³² host byte sum from each rank's own (an int64
+    all-reduce on the rank's device; identity at one rank)."""
+    if pod.size == 1:
+        return local_sum % _MOD
+    t = torch.tensor([local_sum % _MOD], dtype=torch.int64, device=pod.device)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=pod.group)
+    return int(t.item()) % _MOD
+
+
+def pod_all(flag: bool, pod: Pod) -> bool:
+    """Whether ``flag`` holds on every rank of the pod (a MIN
+    all-reduce)."""
+    if pod.size == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int64, device=pod.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=pod.group)
+    return bool(t.item())
+
+
 def make_reassemble(pod: Pod):
     """``fn(staged) -> (gathered (n, rows, lane), checksum)``: the
     all-gather, identical on every rank."""

@@ -32,9 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -51,16 +49,14 @@ def _child_device(n: int, device: str) -> str:
 
 def _run_child(n: int, shard_mb: float, reps: int, collectives: bool,
                device: str, timeout_s: float = 600.0) -> dict:
-    """The n rank processes of one pod size; rank 0's row. A rank that
-    fails ends the others (they would wait in a collective); every
-    process has ended when this returns."""
+    """The n rank processes of one pod size (:func:`tpubench_torch.dist.
+    launch.run_ranks`: a rank that fails ends the others, every process
+    has ended when this returns); rank 0's row."""
     import tempfile
 
     from tpubench_torch.dist.bringup import free_port
+    from tpubench_torch.dist.launch import child_env, run_ranks
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(_PACKAGE_ROOT), env.get("PYTHONPATH", "")) if p)
     cmd = [
         sys.executable, "-m", "tpubench_torch.dist.sweep", "--child", str(n),
         "--port", str(free_port()), "--shard-mb", str(shard_mb),
@@ -68,35 +64,21 @@ def _run_child(n: int, shard_mb: float, reps: int, collectives: bool,
     ]
     if collectives:
         cmd.append("--collectives")
-    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
-            for _ in range(n)]
-    procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env,
-                              stdout=out, stderr=err, text=True)
-             for r, (out, err) in enumerate(logs)]
-    deadline = time.monotonic() + timeout_s
-    try:
-        while any(p.poll() is None for p in procs):
-            if (time.monotonic() > deadline
-                    or any(p.poll() not in (None, 0) for p in procs)):
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    text = []
-    for out, err in logs:
-        out.seek(0)
-        err.seek(0)
-        text.append((out.read(), err.read()))
-        out.close()
-        err.close()
-    failed = [(r, p.returncode, text[r][1][-2000:])
-              for r, p in enumerate(procs) if p.returncode != 0]
-    if failed:
-        raise RuntimeError(f"sweep child n={n} failed: {failed}")
-    return json.loads(text[0][0].splitlines()[-1])
+    env = child_env()  # the child joins its group from its flags
+    with tempfile.TemporaryDirectory(prefix="tpubench-sweep-") as logs:
+        res = run_ranks(
+            [cmd + ["--rank", str(r)] for r in range(n)],
+            [os.path.join(logs, f"rank{r}.log") for r in range(n)],
+            envs=[env] * n, deadline_s=timeout_s,
+        )
+        if not res.ok:
+            raise RuntimeError(
+                f"sweep child n={n} failed (exit codes {res.rcs}, deadline "
+                f"passed: {res.timed_out}): "
+                f"{[(r, res.tail(r)) for r in res.failed]}")
+        rows = [ln for ln in res.tail(0, 1 << 20).splitlines()
+                if ln.startswith("{")]
+    return json.loads(rows[-1])
 
 
 def _pod_row(res) -> dict:

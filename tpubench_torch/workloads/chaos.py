@@ -320,8 +320,56 @@ def spawn_hermetic_server(cfg: BenchConfig, fault_plan=None, store=None):
     return server
 
 
+def _pod_rank() -> tuple[int, int]:
+    """``(rank, world)`` of the joined process group; ``(0, 1)`` outside
+    one."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def share_hermetic_server(cfg: BenchConfig, start):
+    """One hermetic server for the pod, as ``tpubench``'s one process has
+    one for its chips: rank 0 calls ``start()`` (which sets
+    ``cfg.transport.endpoint``) and every rank takes its endpoint (a
+    fault plan a rank is a different run). Returns the server on rank 0,
+    ``None`` on the others; outside a group of several ranks, ``start()``.
+    Call :func:`release_hermetic_server` on every rank before rank 0
+    stops it."""
+    import torch.distributed as dist
+
+    rank, world = _pod_rank()
+    if world == 1:
+        return start()
+    server = start() if rank == 0 else None
+    box = [cfg.transport.endpoint]
+    dist.broadcast_object_list(box, src=0)
+    if rank:
+        t = cfg.transport
+        t.endpoint = box[0]
+        if t.protocol == "grpc":
+            t.directpath = False  # as spawn_hermetic_server sets it
+        if t.http2 or t.native_receive:
+            from tpubench_torch.native.engine import get_engine
+
+            get_engine()
+    return server
+
+
+def release_hermetic_server() -> None:
+    """Every rank of a pod that shares a hermetic server is done with it
+    (rank 0 stops it after this returns)."""
+    if _pod_rank()[1] > 1:
+        from tpubench_torch.dist.bringup import barrier
+
+        barrier()
+
+
 @contextlib.contextmanager
-def hermetic_target(cfg: BenchConfig, populated: bool = False):
+def hermetic_target(cfg: BenchConfig, populated: bool = False,
+                    shared: bool = False):
     """Hermetic-target guard for the lifecycle and drill CLI paths: under
     ``--protocol http``/``--protocol grpc`` with no endpoint, spawn the
     matching in-process fake server (carrying ``transport.fault`` when
@@ -333,7 +381,10 @@ def hermetic_target(cfg: BenchConfig, populated: bool = False):
     The server's store starts empty unless ``populated`` (``drill``,
     whose serve traffic reads the read workload's objects): ``tpubench``'s
     is always prepopulated with them (``workers`` × ``object_size``,
-    4.8 GB at the defaults), which no checkpoint command reads."""
+    4.8 GB at the defaults), which no checkpoint command reads.
+
+    ``shared``: the ranks of the joined pod use one server, rank 0's
+    (:func:`share_hermetic_server`)."""
     t = cfg.transport
     if t.protocol not in ("http", "grpc") or t.endpoint:
         yield None
@@ -344,13 +395,20 @@ def hermetic_target(cfg: BenchConfig, populated: bool = False):
         FaultPlan(**dataclasses.asdict(t.fault)) if t.fault.active else None
     )
     restore = (t.endpoint, t.directpath)
-    server = spawn_hermetic_server(
-        cfg, fault_plan=plan,
-        store=None if populated else FakeBackend(fault=plan))
+
+    def start():
+        return spawn_hermetic_server(
+            cfg, fault_plan=plan,
+            store=None if populated else FakeBackend(fault=plan))
+
+    server = share_hermetic_server(cfg, start) if shared else start()
     try:
         yield server
+        if shared:
+            release_hermetic_server()
     finally:
-        server.stop()
+        if server is not None:
+            server.stop()
         t.endpoint, t.directpath = restore
 
 
@@ -494,8 +552,15 @@ def run_chaos(
     backend = None
     plan = FaultPlan(**fdict)
     try:
+        # A pod's ranks (pod-ingest, train-ingest's pod path) share rank
+        # 0's server and its armed plan; other arms measure each host.
+        pod_arm = chaos_workload == "pod-ingest" or (
+            chaos_workload == "train-ingest" and cfg.pipeline.pod)
         if proto in ("http", "grpc"):
-            server = spawn_hermetic_server(cfg, fault_plan=plan)
+            def start():
+                return spawn_hermetic_server(cfg, fault_plan=plan)
+
+            server = share_hermetic_server(cfg, start) if pod_arm else start()
 
         # Pre-build everything expensive (workload import, client
         # backend), then arm: timeline second 0 ≈ the first read, so the
@@ -563,9 +628,16 @@ def run_chaos(
             )
         except Exception:  # noqa: BLE001 — the run will surface it
             pass
+        if pod_arm and _pod_rank()[1] > 1:
+            # Every rank's second 0 is the same instant.
+            from tpubench_torch.dist.bringup import barrier
+
+            barrier()
         epoch_ns = time.perf_counter_ns()
         plan.arm()
         res = _runner(cfg, backend=backend)
+        if pod_arm and proto in ("http", "grpc"):
+            release_hermetic_server()
 
         jpath = res.extra.get("flight_journal") or cfg.obs.flight_journal
         with open(jpath) as f:

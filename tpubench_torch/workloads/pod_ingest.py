@@ -48,6 +48,8 @@ from tpubench_torch.dist.reassemble import (
     make_mesh,
     make_reassemble,
     make_ring_reassemble,
+    pod_all,
+    pod_sum,
     shard_to_device_array,
 )
 from tpubench_torch.dist.shard import ShardTable
@@ -241,12 +243,18 @@ class PodIngestWorkload:
                 ok = ok and got == expected[:size]
             else:
                 # Several ranks: each finds its own shard at its offset of
-                # the (replicated) gather.
+                # the (replicated) gather and the pod's device checksum
+                # equal to the pod's host sum; verified when every rank
+                # did (the reference's single process checks every shard).
                 garr = gathered.cpu().numpy().reshape(n, -1)
                 ok = all(
                     np.array_equal(garr[i], buffers[k])
                     for k, i in enumerate(local_idx)
                 )
+                host_sum = pod_sum(
+                    sum(int(b.sum(dtype=np.uint64)) for b in buffers), pod)
+                ok = pod_all(
+                    ok and int(csum.item()) % (1 << 32) == host_sum, pod)
 
         wall = t_fetch + t_stage + t_gather
         # Throughput counts delivered bytes: holes moved nothing, pod-wide.

@@ -56,6 +56,7 @@ from tpubench_torch.dist.reassemble import (
     Pod,
     make_mesh,
     make_reassemble,
+    pod_sum,
     shard_to_device_array,
 )
 from tpubench_torch.dist.shard import ShardTable
@@ -111,15 +112,6 @@ def _agree_resume_point(resume_point: int, pod: Pod) -> int:
     t = torch.tensor([resume_point], dtype=torch.int64, device=pod.device)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=pod.group)
     return int(t.item())
-
-
-def _pod_sum(local_sum: int, pod: Pod) -> int:
-    """The pod's mod-2³² host byte sum from each rank's own."""
-    if pod.size == 1:
-        return local_sum % _MOD
-    t = torch.tensor([local_sum % _MOD], dtype=torch.int64, device=pod.device)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=pod.group)
-    return int(t.item()) % _MOD
 
 
 class StreamedPodIngest:
@@ -394,7 +386,7 @@ class StreamedPodIngest:
                     dev_sum = int(csum.item()) % _MOD
                     object_checksums.append(dev_sum)
                     local = int(host[k % 2][: rows * lane].sum(dtype=np.uint64))
-                    checks_ok = checks_ok and dev_sum == _pod_sum(local, pod)
+                    checks_ok = checks_ok and dev_sum == pod_sum(local, pod)
                 # One object in device memory at a time.
                 del staged, gathered, csum
                 self._progress = {
