@@ -110,6 +110,23 @@ before the last line:
    ``ckpt-restore`` and ``train-ingest --pipeline-pod``, each rank
    reporting its card, backend, errors and launches, then ``read
    --staging pallas`` lands on every card in process;
+9c. hosts — ``tpubench``'s whole command line, typed as a user types it
+   (``cli.main``): ``read --preset smoke`` on the card in the landing ring
+   (``--staging pallas --validate``: one ``tb_land`` a transfer) and the
+   validating copy ring (one ``tb_checksum`` a transfer), ``checksum_ok``;
+   ``--save-config`` in a process of its own, whose file loads back to the
+   config and which made no CUDA call; every read failing
+   (``--fault-read-error-rate 1.0 --retry-max-attempts 1``) with and
+   without ``--no-abort-on-error``, the same exit, errors and reads on the
+   card as on the CPU; two hosts of a pod (``--num-processes 2``) started
+   on the one card, both refused within 60 s naming the card's UUID, no
+   process left. On n >= 2 cards (``scripts/smoke_phases.py --phases
+   hosts``): two hosts of n / 2 cards (``CUDA_VISIBLE_DEVICES`` halves),
+   one ``tpubench_torch.cli`` process a host launching one NCCL rank a
+   card, run every launched mode of pod_cards plus chaos over pod-ingest
+   and tune's sweep over the train pod: ``tpubench``'s topology stamp for
+   2 hosts, every rank on its own card, ``n_chips`` the card count, no
+   error, each mode's result verified;
 10. gather — ``gather-bench`` at world size 1, each of the four
    collectives on a 4 MiB shard: ``single_device``, no errors, every
    output equal to its input, and every ``tb_checksum`` of the two
@@ -420,7 +437,8 @@ KERNELS = {
                         "protocols/grpc_lib",
                         "obs/obs_pallas", "tail/tail_pallas",
                         "tune/sweep_pallas", "sweep/pallas",
-                        "train/train_pallas", "chaos/read_pallas")),
+                        "train/train_pallas", "chaos/read_pallas",
+                        "hosts/smoke_pallas")),
     "checksum": dict(source="tpubench_torch/kernels/csrc/landing.cu",
                      replaces="tpubench/staging/pallas_stage.py:71",
                      paths=("read/device_put_validate",
@@ -439,7 +457,8 @@ KERNELS = {
                             "train/train_pod", "coop/coop_validate",
                             "coop/coop_ici", "coop/channel",
                             "ckpt/results_upload", "chaos/read_validate",
-                            "chaos/pod", "chaos/train")),
+                            "chaos/pod", "chaos/train",
+                            "hosts/smoke_validate")),
 }
 
 
@@ -497,6 +516,7 @@ def main() -> int:
     pod_counts, pod_store = timed("pod", phase_pod, smi)
     counts.update(pod_counts)
     counts.update(timed("pod_cards", phase_pod_cards, pod_store, store, smi))
+    counts.update(timed("hosts", phase_hosts, pod_store, smi))
     counts.update(timed("gather", phase_gather, smi))
     timed("probe", phase_probe, smi)
     timed("profile", phase_profile, store, pod_store, smi)
@@ -2103,30 +2123,53 @@ class LaunchSpy:
         launch.launch = self._real
 
 
-def _pod_cards_run(mode: str, argv: list, cards: int) -> dict:
-    """``cli.main(argv)`` with its results under ``build/``: the exit
-    code, rank 0's result, every rank's ``local_rank`` line (from the
-    rank logs; none in process), the ranks ``main`` launched and the
-    seconds."""
+def _pod_run(mode: str, argv: list, cards: int, hosts: int = 1) -> dict:
+    """``argv`` as a user types it on ``hosts`` hosts of ``cards / hosts``
+    cards each, its results under ``build/<phase>/<mode>``: on one host
+    ``cli.main(argv)`` in this process (phase pod_cards), which launches
+    one NCCL rank a card; on two, one ``python -m tpubench_torch.cli``
+    process a host (phase hosts: ``--num-processes 2 --process-id h``, the
+    cards split by ``CUDA_VISIBLE_DEVICES`` halves), each launching one
+    rank a visible card, all meeting at one loopback coordinator. Returns
+    global rank 0's result, every rank's ``local_rank`` line (from the
+    rank logs; none in process), the ranks ``main`` launched (one host)
+    and the seconds."""
     import contextlib
     import glob
     import io
-    import os
     import shutil
 
     from tpubench_torch import cli
-    from tpubench_torch.dist.launch import RANK_LOG_DIR
+    from tpubench_torch.dist.bringup import free_port
+    from tpubench_torch.dist.launch import RANK_LOG_DIR, child_env, run_ranks
 
-    results = f"{BUILD}/pod_cards/{mode}"
+    phase = "pod_cards" if hosts == 1 else "hosts"
+    results = f"{BUILD}/{phase}/{mode}"
     shutil.rmtree(results, ignore_errors=True)
-    buf = io.StringIO()
+    launched = None
     t0 = time.perf_counter()
-    with LaunchSpy() as spy, contextlib.redirect_stdout(buf):
-        rc = cli.main([*argv, "--results-dir", results])
+    if hosts == 1:
+        buf = io.StringIO()
+        with LaunchSpy() as spy, contextlib.redirect_stdout(buf):
+            rc = cli.main([*argv, "--results-dir", results])
+        launched = spy.calls
+        check(rc == 0, f"{phase}/{mode}: exit {rc}\n{buf.getvalue()[-3000:]}")
+    else:
+        local = cards // hosts
+        port = free_port()
+        envs = [dict(child_env(), TPUBENCH_LAUNCH_DEADLINE_S=str(
+            HOSTS_DEADLINE_S), CUDA_VISIBLE_DEVICES=",".join(
+                str(c) for c in range(h * local, (h + 1) * local)))
+            for h in range(hosts)]
+        ran = run_ranks([_hosts_argv(argv, h, port, results)
+                         for h in range(hosts)],
+                        [f"{results}/host{h}.log" for h in range(hosts)],
+                        envs=envs, deadline_s=HOSTS_DEADLINE_S)
+        check(ran.ok, f"{phase}/{mode}: host exit codes {ran.rcs}\n"
+              + "\n".join(ran.tail(h, 3000) for h in range(hosts)))
     seconds = time.perf_counter() - t0
-    check(rc == 0, f"pod_cards/{mode}: exit {rc}\n{buf.getvalue()[-3000:]}")
     paths = glob.glob(f"{results}/*.json")
-    check(len(paths) == 1, f"pod_cards/{mode}: results {paths}")
+    check(len(paths) == 1, f"{phase}/{mode}: results {paths}")
     with open(paths[0]) as f:
         res = json.load(f)
     lines = []
@@ -2135,30 +2178,50 @@ def _pod_cards_run(mode: str, argv: list, cards: int) -> dict:
             lines += [json.loads(ln)["local_rank"] for ln in f
                       if ln.startswith('{"local_rank"')]
     lines.sort(key=lambda x: x["rank"])
-    return {"res": res, "ranks": lines, "launched": spy.calls,
-            "seconds": seconds, "dir": results}
+    return {"res": res, "ranks": lines, "launched": launched,
+            "seconds": seconds}
 
 
-def _pod_cards_check(mode: str, run: dict, cards: int, per_rank) -> dict:
-    """Every rank a card of its own on NCCL, no error, ``n_chips`` the
-    card count, its ``tb_checksum`` launches as the mode makes them;
-    returns the launches summed over the ranks."""
+def _pod_check(mode: str, run: dict, cards: int, per_rank,
+               hosts: int = 1) -> dict:
+    """The pod's result and every rank's line, on ``hosts`` hosts of
+    ``cards / hosts``: one host launched a rank a card and stamps no
+    topology (``tpubench``'s one process over its chips), several stamp
+    ``tpubench``'s; ``n_chips`` the card count, no error; every rank on a
+    card of its own (by UUID) over NCCL, on its host's visible
+    ``cuda:(rank % local)``; ``tb_checksum`` launches as the mode makes
+    them (``per_rank`` None: any) and no ``tb_land``. Returns the launches
+    summed over the ranks. tune's sweep result is a carrier of its cells,
+    of one chip in ``tpubench`` as here."""
+    tag = f"{'pod_cards' if hosts == 1 else 'hosts'}/{mode}"
     res, lines = run["res"], run["ranks"]
-    check(run["launched"] == [cards],
-          f"pod_cards/{mode}: main launched {run['launched']}, {cards} cards")
-    check(res["n_chips"] == cards and res["errors"] == 0,
-          f"pod_cards/{mode}: n_chips {res['n_chips']}, errors "
-          f"{res['errors']}")
-    check([x["rank"] for x in lines] == list(range(cards)),
-          f"pod_cards/{mode}: rank lines {lines}")
+    local = cards // hosts
+    chips = 1 if res["workload"] == "tune" else cards
+    stamp = res["extra"].get("topology")
+    want_stamp = None if hosts == 1 else {
+        "process_index": 0, "process_count": hosts, "local_devices": local,
+        "global_devices": cards}
+    if hosts == 1:
+        check(run["launched"] == [cards],
+              f"{tag}: main launched {run['launched']}, {cards} cards")
+    check(res["n_chips"] == chips and res["errors"] == 0
+          and stamp == want_stamp,
+          f"{tag}: n_chips {res['n_chips']}, errors {res['errors']}, "
+          f"topology {stamp}")
+    check([x["rank"] for x in lines] == list(range(cards))
+          and len({x["card"] for x in lines}) == cards,
+          f"{tag}: rank lines {lines}")
     for x in lines:
         r = x["rank"]
-        check(x["backend"] == "nccl" and x["device"] == f"cuda:{r}"
-              and x["ranks"] == cards and x["n_chips"] == cards
-              and x["errors"] == 0, f"pod_cards/{mode}: rank {x}")
-        check(x["launches"] == {"land": 0, "checksum": per_rank(r)},
-              f"pod_cards/{mode}: rank {r} launches {x['launches']}, want "
-              f"{per_rank(r)} tb_checksum")
+        check(x["backend"] == "nccl" and x["device"] == f"cuda:{r % local}"
+              and x["host"] == r // local and x["hosts"] == hosts
+              and x["ranks"] == cards and x["n_chips"] == chips
+              and x["errors"] == 0 and x["launches"]["land"] == 0,
+              f"{tag}: rank {x}")
+        if per_rank is not None:
+            check(x["launches"]["checksum"] == per_rank(r),
+                  f"{tag}: rank {r} launches {x['launches']}, want "
+                  f"{per_rank(r)} tb_checksum")
     return {k: sum(x["launches"][k] for x in lines)
             for k in ("land", "checksum")}
 
@@ -2227,15 +2290,11 @@ def phase_pod_cards(pod_store, store, smi) -> dict:
     (``errors`` 0; pod-ingest's and stream's ``verified`` hold on every
     rank), ``n_chips`` the card count. Returns the launch counts by mode
     (over all ranks)."""
-    import contextlib
-    import io
-    import os
     import shutil
 
     import numpy as np
     import torch
 
-    from tpubench_torch import cli
     from tpubench_torch.kernels import landing
 
     cards = torch.cuda.device_count()
@@ -2247,7 +2306,7 @@ def phase_pod_cards(pod_store, store, smi) -> dict:
         argv, _ = _pod_cards_modes(1, {}, "", "")["pod_ingest"]
         with SharedStore(pod_store), PodObserved() as obs:
             landing.reset_launches()
-            run = _pod_cards_run("pod_ingest", argv, 1)
+            run = _pod_run("pod_ingest", argv, 1)
             got = {"land": landing.land.launches,
                    "checksum": landing.checksum.launches}
         res = run["res"]
@@ -2272,39 +2331,16 @@ def phase_pod_cards(pod_store, store, smi) -> dict:
               "seconds": run["seconds"], "card": smi})
         return counts
     counts["pod_cards/read_pallas"] = _pod_cards_read(store, cards, smi)
-    from tpubench_torch.native.engine import get_engine
-
-    get_engine()  # built once here, found by every rank
-    ckpt_dir = f"{BUILD}/pod_cards_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    conf = f"{BUILD}/pod_cards_grpc.json"
-    os.makedirs(BUILD, exist_ok=True)
-    with open(conf, "w") as f:  # the gRPC fake is no Google endpoint
-        json.dump({"transport": {"directpath": False}}, f)
-    c = POD_CARDS_CKPT
-    with contextlib.redirect_stdout(io.StringIO()):
-        rc = cli.main(["ckpt-save", "--protocol", "local", "--dir", ckpt_dir,
-                       "--ckpt-objects", str(c["objects"]),
-                       "--ckpt-object-bytes", str(c["object_bytes"]),
-                       "--ckpt-part-bytes", str(c["part_bytes"]),
-                       "--results-dir", f"{BUILD}/pod_cards/save"])
-    check(rc == 0, f"pod_cards: ckpt-save exit {rc}")
-    sums = {}
-    for k in range(POD_CARDS_STREAM_OBJECTS):
-        from tpubench_torch.storage.base import deterministic_bytes
-
-        name = f"tpubench/file_{k}"
-        sums[k] = int(deterministic_bytes(name, OBJECT_SIZE).sum(
-            dtype=np.uint64)) % MOD
+    fx = _pod_fixtures("pod_cards")
     try:
         with _Servers(pod_store) as servers:
             endpoints = {k: s.endpoint for k, s in servers.by_kind.items()}
-            modes = _pod_cards_modes(cards, endpoints, ckpt_dir, conf)
+            modes = _pod_cards_modes(cards, endpoints, fx["ckpt_dir"],
+                                     fx["conf"])
             for mode, (argv, per_rank) in modes.items():
-                run = _pod_cards_run(mode, argv, cards)
-                counts[f"pod_cards/{mode}"] = got = _pod_cards_check(
+                run = _pod_run(mode, argv, cards)
+                counts[f"pod_cards/{mode}"] = got = _pod_check(
                     mode, run, cards, per_rank)
-                ex = run["res"]["extra"]
                 line = {"phase": "pod_cards", "mode": mode, "cards": cards,
                         "ranks": len(run["ranks"]), "backend": "nccl",
                         "n_chips": run["res"]["n_chips"], "launches": got,
@@ -2313,55 +2349,439 @@ def phase_pod_cards(pod_store, store, smi) -> dict:
                         "wall_s": run["res"]["wall_seconds"],
                         "gbps_per_chip": run["res"]["gbps_per_chip"],
                         "seconds": run["seconds"], "card": smi}
-                if argv[0] == "pod-ingest":
-                    check(ex["verified"] is True
-                          and run["res"]["bytes_total"] == POD_OBJECT,
-                          f"pod_cards/{mode}: verified {ex['verified']}")
-                    line.update({k: ex[k] for k in (
-                        "verified", "shard_bytes", "fetch_gbps",
-                        "stage_gbps", "gather_gbps", "fetch_seconds",
-                        "stage_seconds", "gather_seconds",
-                        "compile_seconds", "ici_bytes_moved")})
-                    line["host_sum"] = host_sum
-                elif mode == "stream":
-                    want = [sums[k] for k in range(POD_CARDS_STREAM_OBJECTS)]
-                    check(ex["verified"] is True
-                          and ex["object_checksums"] == want,
-                          f"pod_cards/stream: verified {ex['verified']}, "
-                          f"checksums {ex['object_checksums']} vs {want}")
-                    line.update(verified=True, object_checksums=want,
-                                overlap_efficiency=ex["overlap_efficiency"])
-                elif mode == "gather_bench":
-                    rows = ex["scaling"]
-                    check([r["devices"] for r in rows]
-                          == [n for n in (2, 4, 8, 16, 32) if n <= cards]
-                          and not ex["single_device"],
-                          f"pod_cards/gather_bench: rows {rows}")
-                    line["scaling"] = [{k: r[k] for k in (
-                        "devices", "shard_bytes", "seconds",
-                        "per_chip_rx_gbps", "total_gbps")} for r in rows]
-                elif mode == "ckpt_restore":
-                    lc = ex["lifecycle"]
-                    check(lc["verified"] is True and lc["staged"] is True
-                          and lc["shards_per_object"] == cards
-                          and lc["objects"] == c["objects"],
-                          f"pod_cards/ckpt_restore: {lc}")
-                    line.update({k: lc[k] for k in (
-                        "verified", "shards_per_object", "objects", "bytes",
-                        "time_to_restore_s", "fetch_seconds",
-                        "stage_seconds")})
-                else:  # train_pod
-                    pipe = ex["pipeline"]
-                    check(pipe["stall"]["steps"] == POD_CARDS_TRAIN_STEPS
-                          and pipe["copies"]["pool"]["leaked_slabs"] == 0,
-                          f"pod_cards/train_pod: {pipe['stall']}")
-                    line.update(stall_p50_ms=pipe["stall"]["p50_ms"],
-                                stall_p99_ms=pipe["stall"]["p99_ms"])
+                line.update(_pod_mode_result(
+                    f"pod_cards/{mode}", argv, run["res"], cards,
+                    host_sum, fx["sums"]))
                 emit(line)
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(fx["ckpt_dir"], ignore_errors=True)
     emit({"phase": "pod_cards_total", "cards": cards,
           "seconds": time.perf_counter() - t_phase, "card": smi})
+    return counts
+
+
+def _pod_fixtures(phase: str) -> dict:
+    """What the launched pod modes read besides phase pod's store: the
+    engine (built here once, found by every rank), a 2 GiB checkpoint
+    saved under ``build/`` for ckpt-restore, the gRPC mode's config (the
+    gRPC fake is no Google endpoint) and the byte sums of stream's
+    objects."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from tpubench_torch import cli
+    from tpubench_torch.native.engine import get_engine
+    from tpubench_torch.storage.base import deterministic_bytes
+
+    get_engine()
+    ckpt_dir = f"{BUILD}/{phase}_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    conf = f"{BUILD}/{phase}_grpc.json"
+    os.makedirs(BUILD, exist_ok=True)
+    with open(conf, "w") as f:
+        json.dump({"transport": {"directpath": False}}, f)
+    c = POD_CARDS_CKPT
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["ckpt-save", "--protocol", "local", "--dir", ckpt_dir,
+                       "--ckpt-objects", str(c["objects"]),
+                       "--ckpt-object-bytes", str(c["object_bytes"]),
+                       "--ckpt-part-bytes", str(c["part_bytes"]),
+                       "--results-dir", f"{BUILD}/{phase}/save"])
+    check(rc == 0, f"{phase}: ckpt-save exit {rc}")
+    sums = [int(deterministic_bytes(f"tpubench/file_{k}", OBJECT_SIZE).sum(
+        dtype=np.uint64)) % MOD for k in range(POD_CARDS_STREAM_OBJECTS)]
+    return {"ckpt_dir": ckpt_dir, "conf": conf, "sums": sums}
+
+
+def _pod_mode_result(tag: str, argv: list, res: dict, cards: int,
+                     host_sum: int, sums: list) -> dict:
+    """Global rank 0's result of a launched pod mode, checked by its
+    command: pod-ingest verified over the whole 1 GiB object, stream's
+    object checksums the true byte sums, gather-bench's rows every power
+    of two up to ``cards``, the restore verified and staged at ``cards``
+    shards an object, the train pod's steps all taken with no slab
+    leaked; returns the line's fields."""
+    ex = res["extra"]
+    if argv[0] == "pod-ingest":
+        check(ex["verified"] is True and res["bytes_total"] == POD_OBJECT,
+              f"{tag}: verified {ex['verified']}")
+        return {**{k: ex[k] for k in (
+            "verified", "shard_bytes", "fetch_gbps", "stage_gbps",
+            "gather_gbps", "fetch_seconds", "stage_seconds",
+            "gather_seconds", "compile_seconds", "ici_bytes_moved")},
+            "host_sum": host_sum}
+    if argv[0] == "stream":
+        check(ex["verified"] is True and ex["object_checksums"] == sums,
+              f"{tag}: verified {ex['verified']}, checksums "
+              f"{ex['object_checksums']} vs {sums}")
+        return {"verified": True, "object_checksums": sums,
+                "overlap_efficiency": ex["overlap_efficiency"]}
+    if argv[0] == "gather-bench":
+        rows = ex["scaling"]
+        check([r["devices"] for r in rows]
+              == [n for n in (2, 4, 8, 16, 32) if n <= cards]
+              and not ex["single_device"], f"{tag}: rows {rows}")
+        return {"scaling": [{k: r[k] for k in (
+            "devices", "shard_bytes", "seconds", "per_chip_rx_gbps",
+            "total_gbps")} for r in rows]}
+    if argv[0] == "ckpt-restore":
+        lc = ex["lifecycle"]
+        check(lc["verified"] is True and lc["staged"] is True
+              and lc["shards_per_object"] == cards
+              and lc["objects"] == POD_CARDS_CKPT["objects"],
+              f"{tag}: {lc}")
+        return {k: lc[k] for k in (
+            "verified", "shards_per_object", "objects", "bytes",
+            "time_to_restore_s", "fetch_seconds", "stage_seconds")}
+    pipe = ex["pipeline"]  # train-ingest --pipeline-pod
+    check(pipe["stall"]["steps"] == POD_CARDS_TRAIN_STEPS
+          and pipe["copies"]["pool"]["leaked_slabs"] == 0,
+          f"{tag}: {pipe['stall']}")
+    return {"stall_p50_ms": pipe["stall"]["p50_ms"],
+            "stall_p99_ms": pipe["stall"]["p99_ms"]}
+
+
+# ------------------------------------------------------------ phase 9c --
+# Phase hosts: tpubench's command line, typed as a user types it, and a
+# pod of two hosts. HOSTS_SMOKE runs the smoke preset on the card in each
+# ring; HOSTS_FAULT fails every read (tests/test_torch_cli_parity.py's
+# run). Two "hosts" that see one card must both be refused within
+# HOSTS_REFUSAL_S.
+HOSTS_SMOKE = {"smoke_pallas": ["read", "--preset", "smoke", "--staging",
+                                "pallas", "--validate"],
+               "smoke_validate": ["read", "--preset", "smoke", "--validate"]}
+HOSTS_FAULT = ["read", "--protocol", "fake", "--workers", "2",
+               "--read-call-per-worker", "2", "--object-size", "100000",
+               "--fault-read-error-rate", "1.0", "--retry-max-attempts", "1"]
+# What the errgroup raises for HOSTS_FAULT: the first failed worker's
+# injected read fault.
+HOSTS_FAULT_ERROR = "WorkerError: StorageError('injected mid-stream failure')"
+HOSTS_REFUSAL_S = 60.0
+HOSTS_DEADLINE_S = 300.0  # one two-host mode of the multi-card pod
+
+
+def _hosts_smoke(smi) -> dict:
+    """``read --preset smoke`` through ``cli.main`` on the card, in the
+    landing ring (``--staging pallas``: one ``tb_land`` a transfer) and
+    the validating copy ring (one ``tb_checksum`` a transfer); the sink
+    factory wrapped only to keep each stager and count its transfers."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    from tpubench_torch import cli
+    from tpubench_torch.config import preset
+    from tpubench_torch.kernels import landing
+    from tpubench_torch.staging import device as staging_device
+
+    counts = {}
+    real = staging_device.make_sink_factory
+    for mode, argv in HOSTS_SMOKE.items():
+        made: list = []
+
+        def kept_factory(cfg, device="cuda"):
+            factory = real(cfg, device=device)
+
+            def kept(worker_id):
+                stager = factory(worker_id)
+                made.append(stager)
+                return stager
+
+            return kept
+
+        results = f"{BUILD}/hosts/{mode}"
+        shutil.rmtree(results, ignore_errors=True)
+        staging_device.make_sink_factory = kept_factory
+        try:
+            landing.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main([*argv, "--results-dir", results])
+            seconds = time.perf_counter() - t0
+            got = {"land": landing.land.launches,
+                   "checksum": landing.checksum.launches}
+        finally:
+            staging_device.make_sink_factory = real
+        (path,) = glob.glob(f"{results}/*.json")
+        with open(path) as f:
+            res = json.load(f)
+        transfers = sum(s.transfers for s in made)
+        kernel = "land" if "pallas" in argv else "checksum"
+        want = {"land": 0, "checksum": 0, kernel: transfers}
+        smoke = preset("smoke").workload
+        size = smoke.workers * smoke.read_calls_per_worker * smoke.object_size
+        check(rc == 0 and res["errors"] == 0
+              and res["extra"]["checksum_ok"] is True
+              and res["extra"]["staged_bytes"] == size,
+              f"hosts/{mode}: exit {rc}, errors {res['errors']}, "
+              f"checksum_ok {res['extra'].get('checksum_ok')}")
+        check(got == want and transfers > 0
+              and len(made) == smoke.workers,
+              f"hosts/{mode}: launches {got}, {transfers} transfers by "
+              f"{len(made)} stagers")
+        counts[f"hosts/{mode}"] = got
+        emit({"phase": "hosts", "mode": mode, "argv": argv,
+              "workers": smoke.workers, "transfers": transfers,
+              "launches": got, "checksum_ok": True, "staged_bytes": size,
+              "seconds": seconds, "card": smi})
+    return counts
+
+
+def _hosts_save_config(smi) -> None:
+    """``--save-config`` in a process of its own: the file loads back to
+    the config the same command line folds, and the process made no CUDA
+    call (``torch.cuda.is_initialized()`` false at its end)."""
+    import os
+    import subprocess
+
+    from tpubench_torch import cli
+    from tpubench_torch.config import BenchConfig
+
+    path = f"{BUILD}/hosts/saved.json"
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    argv = ["read", "--preset", "100mb", "--retry-deadline", "30",
+            "--no-abort-on-error", "--staging", "pallas",
+            "--save-config", path]
+    code = ("import sys, torch; from tpubench_torch import cli; "
+            f"rc = cli.main({argv!r}); "
+            "print(rc, torch.cuda.is_initialized())")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0 and out.stdout.split()[-2:] == ["0", "False"],
+          f"hosts/save_config: {out.returncode} {out.stdout[-500:]} "
+          f"{out.stderr[-2000:]}")
+    with open(path) as f:
+        saved = BenchConfig.from_json(f.read()).to_dict()
+    want = cli.build_config(cli.build_parser().parse_args(argv)).to_dict()
+    check(saved == want, "hosts/save_config: the file is not the config")
+    emit({"phase": "hosts", "mode": "save_config", "cuda_initialized": False,
+          "object_size": saved["workload"]["object_size"],
+          "retry_deadline_s": saved["transport"]["retry"]["deadline_s"],
+          "seconds": seconds, "card": smi})
+
+
+def _hosts_fault(smi) -> None:
+    """``HOSTS_FAULT`` with and without ``--no-abort-on-error``, on the
+    card and on the CPU: the same exit (1 for the errgroup's failure, a
+    ``WorkerError`` that the command line does not catch, carrying the
+    injected read fault; any other exception fails the phase), errors,
+    bytes and reads."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    from tpubench_torch import cli
+    from tpubench_torch.workloads.common import WorkerError
+
+    def run(argv, device, results):
+        shutil.rmtree(results, ignore_errors=True)
+        out = {}
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main([*argv, "--device", device,
+                               "--results-dir", results])
+        except WorkerError as e:  # the interpreter would exit 1
+            rc = 1
+            out["error"] = f"{type(e).__name__}: {e.cause!r}"
+        out["rc"] = rc
+        for path in glob.glob(f"{results}/*.json"):
+            with open(path) as f:
+                res = json.load(f)
+            out.update(errors=res["errors"], bytes=res["bytes_total"],
+                       reads=(res["summaries"].get("read") or {}).get(
+                           "count", 0))
+        return out
+
+    for mode, extra, want in (
+            ("fault_abort", [], {"rc": 1, "error": HOSTS_FAULT_ERROR}),
+            ("fault_no_abort", ["--no-abort-on-error"],
+             {"rc": 0, "errors": 2, "bytes": 0, "reads": 0})):
+        t0 = time.perf_counter()
+        card = run([*HOSTS_FAULT, *extra], "cuda", f"{BUILD}/hosts/{mode}")
+        seconds = time.perf_counter() - t0
+        cpu = run([*HOSTS_FAULT, *extra], "cpu", f"{BUILD}/hosts/{mode}_cpu")
+        check(card == cpu == want, f"hosts/{mode}: card {card}, cpu {cpu}")
+        emit({"phase": "hosts", "mode": mode, **card, "cpu": cpu,
+              "seconds": seconds, "card": smi})
+
+
+def _live_in_sessions(pids) -> list:
+    """Pids of live (not zombie) processes in the sessions ``pids`` led."""
+    import glob
+
+    live = []
+    for d in glob.glob("/proc/[0-9]*/stat"):
+        try:
+            with open(d) as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()
+        if int(fields[3]) in pids and fields[0] != "Z":
+            live.append(int(d.split("/")[2]))
+    return live
+
+
+def _hosts_argv(argv: list, host: int, port: int, results: str) -> list:
+    return [sys.executable, "-m", "tpubench_torch.cli", *argv,
+            "--num-processes", "2", "--process-id", str(host),
+            "--coordinator", f"127.0.0.1:{port}", "--results-dir", results]
+
+
+def _hosts_one_card(smi) -> None:
+    """Two hosts of a pod started on one card (``CUDA_VISIBLE_DEVICES=0``
+    for both): each keeps its one rank in process, and both must refuse
+    before NCCL comes up, naming the card's UUID, within
+    ``HOSTS_REFUSAL_S``, leaving no process behind."""
+    import os
+    import shutil
+    import subprocess
+
+    import torch
+
+    from tpubench_torch.dist.bringup import free_port
+    from tpubench_torch.dist.launch import child_env
+
+    uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+    results = f"{BUILD}/hosts/one_card"
+    shutil.rmtree(results, ignore_errors=True)
+    os.makedirs(results)
+    port = free_port()
+    env = dict(child_env(), CUDA_VISIBLE_DEVICES="0")
+    argv = ["pod-ingest", "--protocol", "fake", "--workers", "1",
+            "--object-size", str(MIB)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(_hosts_argv(argv, h, port, results), env=env,
+                              stdin=subprocess.DEVNULL,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for h in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            left = HOSTS_REFUSAL_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(1.0, left))[0])
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+            p.wait()
+    seconds = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    check(len(outs) == 2 and seconds < HOSTS_REFUSAL_S,
+          f"hosts/one_card: not both ended within {HOSTS_REFUSAL_S} s "
+          f"(exit codes {rcs})")
+    for h, out in enumerate(outs):
+        check(rcs[h] != 0 and "would share one card" in out and uuid in out,
+              f"hosts/one_card: host {h} exit {rcs[h]}\n{out[-3000:]}")
+    left = _live_in_sessions([p.pid for p in procs])
+    check(not left, f"hosts/one_card: processes left {left}")
+    refusal = next(ln for ln in outs[0].splitlines()
+                   if "would share one card" in ln)
+    emit({"phase": "hosts", "mode": "one_card_refused", "exit_codes": rcs,
+          "refusal": refusal, "seconds": seconds, "card": smi})
+
+
+def _hosts_modes(cards: int, endpoints: dict, fx: dict) -> dict:
+    """Phase pod_cards' launched modes, and the two that had run only on
+    gloo: chaos over pod-ingest (a 0.2 s stall at the first byte of every
+    shard) and tune's sweep over the train pod."""
+    modes = _pod_cards_modes(cards, endpoints, fx["ckpt_dir"], fx["conf"])
+    modes["chaos_pod"] = (_chaos_argv("chaos_pod"), None)
+    train, _ = modes["train_pod"]
+    modes["tune_train_pod"] = (
+        ["tune", "--tune-workload", "train-ingest", "--tune-mode", "sweep",
+         *train[1:]], None)
+    return modes
+
+
+def _hosts_pod(pod_store, cards: int, smi) -> dict:
+    """Every launched mode on two hosts of ``cards / 2`` cards over NCCL
+    (:func:`_pod_run`, :func:`_pod_check`), each pod mode's result
+    checked as phase pod_cards checks it, chaos's pod arm without failed
+    reads and verified, tune's sweep with every cell clean."""
+    import shutil
+
+    import numpy as np
+
+    host_sum = int(pod_store._objects["tpubench/file_0"].sum(
+        dtype=np.uint64)) % MOD
+    counts = {}
+    fx = _pod_fixtures("hosts")
+    try:
+        with _Servers(pod_store) as servers:
+            endpoints = {k: s.endpoint for k, s in servers.by_kind.items()}
+            for mode, (argv, per_rank) in _hosts_modes(
+                    cards, endpoints, fx).items():
+                run = _pod_run(mode, argv, cards, hosts=2)
+                counts[f"hosts/{mode}"] = got = _pod_check(
+                    mode, run, cards, per_rank, hosts=2)
+                res = run["res"]
+                ex = res["extra"]
+                line = {"phase": "hosts", "mode": mode, "hosts": 2,
+                        "cards": cards, "ranks": len(run["ranks"]),
+                        "backend": "nccl", "n_chips": res["n_chips"],
+                        "topology": ex["topology"], "launches": got,
+                        "launches_by_rank": [x["launches"]["checksum"]
+                                             for x in run["ranks"]],
+                        "wall_s": res["wall_seconds"],
+                        "gbps_per_chip": res["gbps_per_chip"],
+                        "seconds": run["seconds"], "card": smi}
+                if argv[0] == "chaos":
+                    sc = ex["chaos"]["scorecard"]
+                    check(ex["verified"] is True and sc["failed_reads"] == 0,
+                          f"hosts/{mode}: verified {ex['verified']}, "
+                          f"scorecard {sc}")
+                    line.update(verified=True,
+                                failed_reads=sc["failed_reads"],
+                                goodput_retention=sc.get("goodput_retention"))
+                elif argv[0] == "tune":
+                    sw = ex["tune"]["sweep"]
+                    check(sw["cells"] and all(
+                        c["errors"] == 0 and c["goodput_bps"] > 0
+                        for c in sw["cells"]), f"hosts/{mode}: {sw}")
+                    line.update(axes=sw["axes"], cells=len(sw["cells"]),
+                                recommended=ex["tune"].get("recommended"))
+                else:
+                    line.update(_pod_mode_result(
+                        f"hosts/{mode}", argv, res, cards, host_sum,
+                        fx["sums"]))
+                emit(line)
+    finally:
+        shutil.rmtree(fx["ckpt_dir"], ignore_errors=True)
+    return counts
+
+
+def phase_hosts(pod_store, smi) -> dict:
+    """``tpubench``'s command line on the card and the multi-host pod.
+    On any card count: ``read --preset smoke`` in both rings through
+    ``cli.main`` (launches counted, ``checksum_ok``), ``--save-config``
+    with no CUDA call, the ``--no-abort-on-error`` fault run as on the
+    CPU, and two hosts on one card refused. On n >= 2 cards
+    (``scripts/smoke_phases.py --phases hosts``): every launched mode on
+    two hosts of n / 2 cards. Returns the launch counts by mode."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts = _hosts_smoke(smi)
+    _hosts_save_config(smi)
+    _hosts_fault(smi)
+    _hosts_one_card(smi)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        counts.update(_hosts_pod(pod_store, cards, smi))
+    emit({"phase": "hosts_total", "cards": cards,
+          "seconds": time.perf_counter() - t0, "card": smi})
     return counts
 
 

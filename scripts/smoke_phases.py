@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Some of ``chip_smoke.py``'s phases alone: on one GPU, or for phase
-pod_cards on every GPU of the host (one rank a card).
+"""Some of ``chip_smoke.py``'s phases alone: on one GPU, or for phases
+pod_cards and hosts on every GPU of the host (one rank a card; hosts: two
+hosts of half the cards each).
 
     python3 scripts/smoke_phases.py --phases serve,chaos,drill,fleet,check
     python3 scripts/smoke_phases.py --phases pod_cards   # every card
+    python3 scripts/smoke_phases.py --phases hosts       # 2 hosts x n/2
 
 Builds the kernels (phase build), makes phase read's store (48 x 100 MiB)
 when serve, chaos, drill or pod_cards is asked for and phase pod's (one
-1 GiB object) for chaos and pod_cards, then runs the phases named, in
+1 GiB object) for chaos and pod_cards, and for hosts on several cards,
+then runs the phases named, in
 the order given, with every
 check ``chip_smoke.py`` makes; each prints its JSON lines as there. A phase that needs another phase's state is not
 offered. The last lines are the launch counts by path, the seconds taken
@@ -24,7 +27,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PHASES = ("serve", "chaos", "drill", "fleet", "check", "pod_cards")
+PHASES = ("serve", "chaos", "drill", "fleet", "check", "pod_cards", "hosts")
 
 
 def main() -> int:
@@ -50,8 +53,10 @@ def main() -> int:
     cs.phase_build()
     store = (cs.populate() if {"serve", "chaos", "drill", "pod_cards"}
              & set(names) else None)
+    several = torch.cuda.device_count() >= 2
     pod_store = (FakeBackend.prepopulated("tpubench/file_", 1, cs.POD_OBJECT)
-                 if {"chaos", "pod_cards"} & set(names) else None)
+                 if {"chaos", "pod_cards"} & set(names)
+                 or ("hosts" in names and several) else None)
     counts = {}
     for name in names:
         if name == "serve":
@@ -64,6 +69,8 @@ def main() -> int:
             counts.update(cs.phase_check(smi))
         elif name == "pod_cards":
             counts.update(cs.phase_pod_cards(pod_store, store, smi))
+        elif name == "hosts":
+            counts.update(cs.phase_hosts(pod_store, smi))
         else:
             counts.update(cs.phase_chaos(store, pod_store, smi))
     cs.emit({"launches": counts, "seconds": time.perf_counter() - t0})

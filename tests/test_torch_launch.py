@@ -202,7 +202,9 @@ def test_pod_ingest_at_4_ranks_matches_4_chips(launched, jax_cpu_devices,
                 "holes_global", "object_size"):
         assert port["extra"][key] == ref["extra"][key], key
     assert port["extra"]["verified"] is True
-    assert port["extra"]["topology"]["process_count"] == RANKS
+    # One host of 4 ranks is one process of 4 chips in tpubench: a single
+    # host stamps no topology.
+    assert "topology" not in port["extra"]
     # Flight: the reference's journal has 4 shard records and its pod
     # record; rank r's journal (j.json, j.json.p<r>) its shard's and one
     # pod record of its own.
@@ -300,7 +302,7 @@ DECISIONS = {
     "restore_to_host": (["ckpt-restore", "--no-restore-device"], 4, 1),
     "num_processes": (["pod-ingest", "--num-processes", "2",
                        "--process-id", "0", "--coordinator",
-                       "127.0.0.1:1"], 4, 1),
+                       "127.0.0.1:1"], 4, RANKS),
     "one_card": (["pod-ingest"], 1, 1),
     "device_free": (["serve"], 4, 1),
     "cpu": (["pod-ingest", "--device", "cpu"], 4, 1),
@@ -332,8 +334,10 @@ def test_main_launches_a_rank_a_card_or_runs_in_process(cmd, launches,
     _cards(monkeypatch, 4)
     called = {}
 
-    def fake_launch(argv, ranks, results_dir="results", deadline_s=None):
+    def fake_launch(argv, ranks, results_dir="results", deadline_s=None,
+                    pod=None):
         called["launch"] = (list(argv), ranks, results_dir)
+        assert pod.num_processes == 1
         return 0
 
     def fake_execute(c, cfg, device="cuda", backend=None, args=None):

@@ -116,12 +116,23 @@ is where ``tune`` writes its recommendation and what every other command
 applies. ``report <result.json>...`` renders results (``report timeline``
 / ``report trace <journal>...`` the flight journals; ``--fail-on`` gates
 exit codes); ``top <journal>...`` is the live view (``--once`` one frame).
-Several processes run one
-command each with ``--num-processes``/``--process-id``/``--coordinator``
-(or ``TPUBENCH_NUM_PROCESSES``/``_PROCESS_ID``/``_COORDINATOR``): NCCL on
-CUDA, gloo with ``--device cpu``. A single process's pod commands build a
-one-rank group. ``read`` then writes one result per process (tagged
-``p<idx>``); the pod commands write rank 0's.
+
+Every flag of ``tpubench``'s command line is taken with its meaning:
+``--preset`` (the reference's four sizes, or ``smoke``; not with
+``--config``), ``--save-config PATH`` (writes the effective config and
+exits before any device is touched), ``--no-abort-on-error`` (per-worker
+failure domains), ``--retry-deadline``/``--retry-max-attempts`` (bound
+the reference's retry-for-ever), ``--profile-steps``, ``--project``,
+``--ring`` and the no-op ``--staging-drain``; ``info`` prints the
+effective config. A pod of H hosts is one command a host with
+``--num-processes H --process-id h --coordinator host:port`` (or
+``TPUBENCH_NUM_PROCESSES``/``_PROCESS_ID``/``_COORDINATOR``), as in
+``tpubench``: a pod command runs there as one rank a visible card
+(``dist/launch.py``), global rank h·L + l of H·L, NCCL on CUDA, gloo with
+``--device cpu``; other commands run one process a host. A single
+process's pod commands build a one-rank group. ``read`` then writes one
+result per host (tagged ``p<h>``); the pod commands write global rank
+0's.
 
 Each command writes the same result JSON as ``tpubench``'s and prints its
 path on the last line. It runs on CUDA unless ``--device cpu`` is given;
@@ -139,7 +150,9 @@ from typing import Optional
 from tpubench_torch.config import (
     FLEET_TIMELINE_KINDS,
     MB,
+    PRESET_NAMES,
     BenchConfig,
+    preset,
     validate_coop_config,
     validate_drill_config,
     validate_fleet_config,
@@ -193,22 +206,21 @@ SWEEP_SIZES = {
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tpubench_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("info", help="print the device capability report")
 
     def add(name: str, help: str) -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=help)
         _add_common(p)
         return p
 
+    add("info", "print the effective config and the device capability "
+                "report")
     add("read", "root read benchmark (main.go)")
     add("train-ingest", "step-paced training-loop ingest: chunk cache + "
                         "readahead prefetch + data-stall accounting (see "
                         "--cache-bytes/--readahead/--steps/"
                         "--step-compute-ms)")
-    pod = add("pod-ingest", "sharded object → every rank's device memory, "
-                            "all-gathered over the process group")
-    pod.add_argument("--ring", action="store_true",
-                     help="explicit send/recv ring instead of all_gather")
+    add("pod-ingest", "sharded object → every rank's device memory, "
+                      "all-gathered over the process group")
     stream = add("stream", "pipelined multi-object pod ingest (fetch ∥ "
                            "stage+gather)")
     stream.add_argument("--objects", type=int, default=8)
@@ -225,8 +237,6 @@ def build_parser() -> argparse.ArgumentParser:
                     default="",
                     help="which collective to benchmark (default "
                          "all_gather; --ring is shorthand for ring)")
-    gb.add_argument("--ring", action="store_true",
-                    help="shorthand for --collective ring")
     probe = add("probe", "host→device transfer-physics probe (fixed cost, "
                          "size sweep, burst/floor shaping, slow start)")
     probe.add_argument("--cycles", type=int, default=8,
@@ -953,7 +963,13 @@ def _apply_fleet_args(cfg: BenchConfig, args) -> None:
 
 
 def _add_common(p) -> None:
-    p.add_argument("--config", help="JSON config file (tpubench --save-config)")
+    p.add_argument("--config", help="JSON config file (--save-config, this "
+                                    "package's or tpubench's)")
+    p.add_argument("--preset", choices=PRESET_NAMES,
+                   help="named config: the reference's four object sizes "
+                        "with their read counts (read_operations.sh:8-14), "
+                        "or smoke (a tiny run on the fake store); not with "
+                        "--config")
     p.add_argument("--protocol", choices=("http", "grpc", "local", "fake"),
                    help="storage protocol: http (JSON API), grpc (storage "
                         "v2, wire client), local (files under --dir), fake "
@@ -982,6 +998,7 @@ def _add_common(p) -> None:
                         "(default: application default credentials); a "
                         "test server's endpoint stays anonymous")
     p.add_argument("--bucket", help="GCS bucket name")
+    p.add_argument("--project")
     p.add_argument("--object-name-prefix", dest="object_name_prefix",
                    help="object i is <prefix><i>")
     p.add_argument("--fetch-executor",
@@ -1017,6 +1034,10 @@ def _add_common(p) -> None:
                    dest="staging_depth",
                    help="in-flight staging depth (the staging_depth tune "
                         "knob)")
+    p.add_argument("--staging-drain", choices=("inline", "thread"),
+                   help="DEPRECATED no-op (kept for old scripts): depth>1 "
+                        "always rides the overlapped staging executor "
+                        "now; use --staging-depth 1 for the serial ring")
     p.add_argument("--no-double-buffer", action="store_true",
                    help="fully synchronous staging (depth 1)")
     p.add_argument("--slot-bytes", type=int,
@@ -1025,20 +1046,38 @@ def _add_common(p) -> None:
     p.add_argument("--results-bucket",
                    help="also upload result JSONs to this bucket via the "
                         "configured storage protocol (execute_pb.sh:5)")
+    p.add_argument("--no-abort-on-error", action="store_true",
+                   help="per-worker failure domains instead of errgroup abort")
+    p.add_argument("--retry-deadline", type=float,
+                   help="per-op retry deadline (s); bounds the reference's "
+                        "retry-forever default — set this with --fault-* "
+                        "rates near 1.0 or the run retries indefinitely")
+    p.add_argument("--retry-max-attempts", type=int,
+                   help="retry attempt cap (0 = unlimited, reference default)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--profile-dir",
                    help="trace the command with torch.profiler (host ops, "
                         "and the card's kernels and copies on CUDA) into a "
                         "Chrome trace JSON in this directory")
+    p.add_argument("--profile-steps",
+                   help="train-ingest: bound the capture to steps N:M "
+                        "(inclusive; profiles the steady state, not "
+                        "warmup); path + window stamped into "
+                        "extra[\"profile\"]")
+    p.add_argument("--ring", action="store_true",
+                   help="pod-ingest: explicit send/recv ring instead of "
+                        "all_gather; gather-bench: shorthand for "
+                        "--collective ring")
     p.add_argument("--num-processes", type=int,
-                   help="multi-process: total process count (one per GPU); "
-                        "also TPUBENCH_NUM_PROCESSES")
+                   help="multi-host: host count (one process a host, one "
+                        "rank a visible card); also TPUBENCH_NUM_PROCESSES")
     p.add_argument("--process-id", type=int,
-                   help="multi-process: this process's rank; also "
+                   help="multi-host: this host's index; also "
                         "TPUBENCH_PROCESS_ID")
     p.add_argument("--coordinator",
-                   help="multi-process: host:port of process 0's "
-                        "rendezvous; also TPUBENCH_COORDINATOR")
+                   help="multi-host: host:port of host 0's rendezvous; "
+                        "also TPUBENCH_COORDINATOR")
+    p.add_argument("--save-config", help="write effective config JSON and exit")
     _add_obs_args(p)
     _add_fault_args(p)
     _add_tail_args(p)
@@ -1330,9 +1369,13 @@ def _add_tail_args(p) -> None:
 
 
 def build_config(args) -> BenchConfig:
+    if args.preset and args.config:
+        raise SystemExit("--preset and --config are mutually exclusive")
     if args.config:
         with open(args.config) as f:
             cfg = BenchConfig.from_json(f.read())
+    elif args.preset:
+        cfg = preset(args.preset)
     else:
         cfg = BenchConfig()
     # --tune-profile on any command but `tune` (where it is the OUTPUT
@@ -1346,7 +1389,8 @@ def build_config(args) -> BenchConfig:
     for attr, dest in (
         ("workers", "workers"), ("read_calls", "read_calls_per_worker"),
         ("object_size", "object_size"), ("granule_bytes", "granule_bytes"),
-        ("bucket", "bucket"), ("object_name_prefix", "object_name_prefix"),
+        ("bucket", "bucket"), ("project", "project"),
+        ("object_name_prefix", "object_name_prefix"),
         ("fetch_executor", "fetch_executor"), ("threads", "threads"),
         ("read_count", "read_count"), ("write_count", "write_count"),
         ("block_size_kb", "block_size_kb"), ("file_size_mb", "file_size_mb"),
@@ -1376,6 +1420,8 @@ def build_config(args) -> BenchConfig:
         t.tls_insecure_skip_verify = True
     if args.staging:
         s.mode = args.staging
+    if args.staging_drain:
+        s.drain = args.staging_drain
     if args.staging_depth is not None:
         if args.staging_depth < 1:
             raise SystemExit(f"--depth {args.staging_depth}: must be >= 1")
@@ -1392,6 +1438,18 @@ def build_config(args) -> BenchConfig:
         cfg.obs.results_bucket = args.results_bucket
     if args.profile_dir:
         cfg.obs.profile_dir = args.profile_dir
+    if args.profile_steps:
+        cfg.obs.profile_steps = args.profile_steps
+        # A malformed window fails here, not at step N of the run.
+        from tpubench_torch.obs.profiling import parse_profile_steps
+
+        parse_profile_steps(cfg.obs.profile_steps)
+    if args.no_abort_on_error:
+        w.abort_on_error = False
+    if args.retry_deadline is not None:
+        t.retry.deadline_s = args.retry_deadline
+    if args.retry_max_attempts is not None:
+        t.retry.max_attempts = args.retry_max_attempts
     _apply_dist_args(cfg, args)
     _apply_obs_args(cfg, args)
     for _, field, _, _ in _FAULT_FLAGS:
@@ -1418,7 +1476,9 @@ def build_config(args) -> BenchConfig:
 
 def _apply_dist_args(cfg: BenchConfig, args) -> None:
     """Flags win over the environment, so one launch template serves every
-    process of a pod (``tpubench/cli.py:990-1016``)."""
+    host of a pod (``tpubench/cli.py:990-1016``). They name the host; a
+    rank the launcher started takes its own place from the launcher
+    alone (``launch.member``)."""
     d = cfg.dist
     env = os.environ
     if env.get("TPUBENCH_NUM_PROCESSES"):
@@ -1702,7 +1762,7 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
         if cfg.obs.profile_dir:
             print(f"profile trace: {cfg.obs.profile_dir}", file=sys.stderr)
         if topo["process_count"] > 1:
-            res.extra["topology"] = topo
+            res.extra["topology"] = bringup.topology_stamp(topo)
         if launched_ranks():
             print(json.dumps({"local_rank": _rank_line(res, topo, device)}),
                   flush=True)
@@ -1710,18 +1770,20 @@ def execute(cmd: str, cfg: BenchConfig, device="cuda", backend=None,
 
 
 def _rank_line(res: RunResult, topo: dict, device) -> dict:
-    """What a rank of a launched command says of itself: its card, its
-    group's backend, its own errors and kernel launches (the counts of
-    this process; the command's result is rank 0's alone)."""
+    """What a rank of a launched command says of itself: its global rank
+    and host, its device and card (``bringup.card_key``), its group's
+    backend, its own errors and kernel launches (the counts of this
+    process; the command's result is global rank 0's alone)."""
     import torch.distributed as dist
 
-    from tpubench_torch.dist.bringup import rank_device
+    from tpubench_torch.dist.bringup import card_key, rank_device
     from tpubench_torch.kernels import landing
 
-    rank = topo["process_index"]
+    rank = topo["rank"]
     return {
-        "rank": rank, "ranks": topo["process_count"],
-        "device": str(rank_device(device, rank)),
+        "rank": rank, "ranks": topo["world_size"],
+        "host": topo["process_index"], "hosts": topo["process_count"],
+        "device": str(rank_device(device, rank)), "card": card_key(device),
         "backend": dist.get_backend() if dist.is_initialized() else None,
         "n_chips": res.n_chips, "errors": res.errors,
         "launches": {"land": landing.land.launches,
@@ -1744,17 +1806,32 @@ def pod_command(cmd: str, cfg: BenchConfig, args) -> bool:
 
 
 def local_ranks(cmd: str, cfg: BenchConfig, args, device) -> int:
-    """How many rank processes ``main`` runs ``cmd`` as: one a visible
-    card for a pod command on CUDA when the pod is not given by
-    ``--num-processes`` (``tpubench``'s one process meshes every local
-    chip); else 1, in process."""
-    if not pod_command(cmd, cfg, args) or cfg.dist.num_processes > 1:
+    """How many rank processes ``main`` runs ``cmd`` as on this host: one
+    a visible card for a pod command on CUDA, whatever the host count
+    (``tpubench``'s one process a host meshes every local chip); else 1,
+    in process (also in a rank the launcher started)."""
+    if not pod_command(cmd, cfg, args) or launched_ranks():
         return 1
     import torch
 
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         return 1
     return max(1, torch.cuda.device_count())
+
+
+def refuse_coop_ids(cfg: BenchConfig, ranks: int) -> None:
+    """The cooperative cache's ring members are ranks: ``coop.hosts``
+    defaults to the world and ``coop.host_id`` to the global rank. One
+    explicit id cannot name the ``ranks`` ranks a launch starts, so a
+    command line that launches several and sets either is refused."""
+    co = cfg.coop
+    if co.hosts or co.host_id >= 0:
+        raise SystemExit(
+            f"--coop-hosts/--coop-host-id set, but this host runs {ranks} "
+            "ranks, one a card, and the ring takes each rank as a host: "
+            "drop them (the ring is then every rank of the pod) or run one "
+            "card a host (CUDA_VISIBLE_DEVICES)"
+        )
 
 
 def _drill(cfg: BenchConfig, args, device, backend=None) -> RunResult:
@@ -1987,21 +2064,20 @@ def sweep(cfg: BenchConfig, protocols: str, sizes: str = "",
 def finish(res: RunResult, cfg: BenchConfig,
            pod_collective: bool) -> Optional[str]:
     """Write the result (``tpubench``'s ``_finish``) and upload it to
-    ``obs.results_bucket`` when one is set: with several processes, a pod
-    command's report is rank 0's alone; ``read`` writes one per process,
-    tagged ``p<idx>``. Returns the result file's path (``None`` on a rank
-    that writes none)."""
+    ``obs.results_bucket`` when one is set: a pod command's report is
+    global rank 0's alone; a per-host command (``read``) writes one per
+    host, tagged ``p<host>``. Returns the result file's path (``None`` on
+    a rank that writes none)."""
+    from tpubench_torch.dist.launch import member
+
+    m = member(cfg.dist)
     topo = res.extra.get("topology")
     tag = ""
-    if topo and topo.get("process_count", 1) > 1:
-        idx = topo.get("process_index", 0)
-        if pod_collective:
-            if idx != 0:
-                print(f"process {idx}/{topo['process_count']} done "
-                      f"(report at process 0)")
-                return None
-        else:
-            tag = f"p{idx}"
+    if pod_collective and m.rank != 0:
+        print(f"process {m.rank}/{m.world} done (report at process 0)")
+        return None
+    if not pod_collective and topo and topo.get("process_count", 1) > 1:
+        tag = f"p{topo['process_index']}"
     print(res.format())
     if "staging" in res.extra:
         from tpubench_torch.staging.stats import format_staging_block
@@ -2069,11 +2145,6 @@ def report(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd == "info":
-        from tpubench_torch.device import capability_report
-
-        print(json.dumps(capability_report()))
-        return 0
     if args.cmd == "check":
         # Static analysis: device-free and config-free, like report.
         from tpubench_torch.analysis import run_cli_check
@@ -2118,6 +2189,20 @@ def main(argv=None) -> int:
                 fwd += [f"--{flag.replace('_', '-')}", str(v)]
         return sweep_main(fwd)
     cfg = build_config(args)
+    if args.save_config:
+        # Before any device is resolved or any CUDA call is made, as
+        # tpubench's (its save-config path stays jax-free): it runs on a
+        # machine without a card.
+        with open(args.save_config, "w") as f:
+            f.write(cfg.to_json())
+        print(f"config written: {args.save_config}")
+        return 0
+    if args.cmd == "info":
+        from tpubench_torch.device import capability_report
+
+        print(cfg.to_json())
+        print(f"devices: {json.dumps(capability_report())}", file=sys.stderr)
+        return 0
     if args.cmd == "preflight":
         # Device-free: a misconfigured machine fails this in seconds,
         # before any bring-up.
@@ -2155,8 +2240,10 @@ def main(argv=None) -> int:
     if ranks > 1:
         from tpubench_torch.dist import launch
 
+        refuse_coop_ids(cfg, ranks)
         return launch.launch(sys.argv[1:] if argv is None else list(argv),
-                             ranks, results_dir=cfg.obs.results_dir)
+                             ranks, results_dir=cfg.obs.results_dir,
+                             pod=cfg.dist)
     res = execute(args.cmd, cfg, device=args.device, args=args)
     finish(res, cfg, pod_collective=(args.cmd in POD_COLLECTIVE_CMDS
                                      or launched_ranks() > 0))

@@ -20,6 +20,7 @@ from typing import Any
 
 KB = 1024
 MB = 1024 * 1024
+GB = 1024 * MB
 
 
 def parse_sleep_scale(purpose: str = "refill sleeps") -> float:
@@ -1334,6 +1335,40 @@ _SUBTYPES = {
     "fault": FaultConfig,
     "tail": TailConfig,
 }
+
+# --------------------------------------------------------------- presets ----
+def preset(name: str) -> BenchConfig:
+    """The named presets of ``tpubench`` (``--preset``): the reference's
+    four file sizes with their read counts (``read_operations.sh:8-14``:
+    256KB/1MB/100MB/1GB, 1000/100/10/1 reads) and ``smoke``, a tiny run
+    on the fake store. An unknown name is a ``KeyError``."""
+    cfg = BenchConfig()
+    sweeps = {
+        "256kb": (256 * KB, 1000),
+        "1mb": (1 * MB, 100),
+        "100mb": (100 * MB, 10),
+        "1gb": (1 * GB, 1),
+    }
+    key = name.lower()
+    if key in sweeps:
+        size, count = sweeps[key]
+        cfg.workload.object_size = size
+        cfg.workload.file_size_mb = max(1, size // MB)
+        cfg.workload.read_count = count
+        cfg.workload.read_calls_per_worker = count
+        return cfg
+    if key == "smoke":
+        cfg.workload.workers = 2
+        cfg.workload.threads = 2
+        cfg.workload.read_calls_per_worker = 2
+        cfg.workload.object_size = 4 * MB
+        cfg.workload.file_size_mb = 4
+        cfg.transport.protocol = "fake"
+        return cfg
+    raise KeyError(f"unknown preset {name!r}; have 256kb/1mb/100mb/1gb/smoke")
+
+
+PRESET_NAMES = ("256kb", "1mb", "100mb", "1gb", "smoke")
 
 STAGING_MODES = ("none", "device_put", "pallas")
 

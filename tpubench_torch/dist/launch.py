@@ -2,13 +2,18 @@
 ended together.
 
 ``tpubench``'s one process meshes every chip it sees (``make_mesh``
-defaults to ``jax.devices()``, ``tpubench/dist/reassemble.py:61-64``).
-NCCL takes one rank per GPU, so the port's counterpart is one process per
-visible card: :func:`launch` runs a command of the CLI as L rank
-processes of ``python -m tpubench_torch.cli <argv>``, rank r on
-``cuda:r`` (``bringup.rank_device``), joined through the environment the
-CLI already reads (``TPUBENCH_NUM_PROCESSES``, ``TPUBENCH_PROCESS_ID``,
-``TPUBENCH_COORDINATOR`` on a free loopback port). ``CUDA_VISIBLE_DEVICES``
+defaults to ``jax.devices()``, ``tpubench/dist/reassemble.py:61-64``), and
+a pod of H hosts is H such processes (``--num-processes H --process-id h
+--coordinator c``). NCCL takes one rank per GPU, so the port's
+counterpart is one process per visible card: :func:`launch` runs a
+command of the CLI on host h as L rank processes of ``python -m
+tpubench_torch.cli <argv>``; local rank l is global rank h·L + l of a
+world of H·L, on ``cuda:l`` (``bringup.rank_device``). The launcher gives
+each rank its place (:class:`Member`) in the environment, and a rank
+takes it from there alone: the argv it runs is the host's, whose
+``--num-processes``/``--process-id`` name the host, not the rank. The
+ranks meet at the host's ``--coordinator`` (host 0's local rank 0 serves
+it), or, on one host, at a free loopback port. ``CUDA_VISIBLE_DEVICES``
 picks the cards, as ``TPU_VISIBLE_CHIPS`` picks the chips.
 
 :func:`run_ranks` is the part every multi-process runner shares
@@ -37,9 +42,13 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 _PACKAGE_ROOT = Path(__file__).resolve().parents[2]
-# Set in every rank that :func:`launch` starts: the command's result is
-# rank 0's alone (``cli.finish``), and each rank prints its rank line.
+# Set in every rank that :func:`launch` starts: its place in the pod (the
+# command's result is global rank 0's alone, ``cli.finish``, and each rank
+# prints its rank line).
 LOCAL_RANKS_ENV = "TPUBENCH_LOCAL_RANKS"
+RANK_ENV = "TPUBENCH_RANK"
+WORLD_ENV = "TPUBENCH_WORLD_SIZE"
+RENDEZVOUS_ENV = "TPUBENCH_RENDEZVOUS"
 # Seconds a launched command's ranks may run (one deadline for all).
 DEADLINE_ENV = "TPUBENCH_LAUNCH_DEADLINE_S"
 DEFAULT_DEADLINE_S = 24 * 3600.0
@@ -50,6 +59,45 @@ def launched_ranks() -> int:
     """The rank count of the :func:`launch` that started this process; 0
     in a process it did not start."""
     return int(os.environ.get(LOCAL_RANKS_ENV) or 0)
+
+
+@dataclass(frozen=True)
+class Member:
+    """A process's place in its pod: global ``rank`` of ``world``, one of
+    the ``local_ranks`` its host runs, and the rendezvous ``address``
+    (host:port)."""
+
+    rank: int
+    world: int
+    local_ranks: int = 1
+    address: str = ""
+
+    @property
+    def local_rank(self) -> int:
+        """The rank's index on its host (its card, ``cuda:local_rank``)."""
+        return self.rank % self.local_ranks
+
+    @property
+    def host(self) -> int:
+        """The host's index (``--process-id``)."""
+        return self.rank // self.local_ranks
+
+    @property
+    def hosts(self) -> int:
+        """The pod's host count (``--num-processes``)."""
+        return self.world // self.local_ranks
+
+
+def member(dist_cfg) -> Member:
+    """This process's :class:`Member`: from the environment :func:`launch`
+    gave it, and only from there, when it started this process; else one
+    process on its host, rank ``process_id`` of ``num_processes``."""
+    env = os.environ
+    if env.get(RANK_ENV):
+        return Member(int(env[RANK_ENV]), int(env[WORLD_ENV]),
+                      int(env[LOCAL_RANKS_ENV]), env[RENDEZVOUS_ENV])
+    return Member(dist_cfg.process_id, max(1, dist_cfg.num_processes),
+                  address=dist_cfg.coordinator_address)
 
 
 @dataclass
@@ -210,50 +258,67 @@ def child_env() -> dict:
     return env
 
 
-def rank_env(rank: int, ranks: int, coordinator: str) -> dict:
-    """:func:`child_env` with the pod's variables the CLI reads, for rank
-    ``rank`` of ``ranks``."""
+def rank_env(m: Member) -> dict:
+    """:func:`child_env` with ``m``, the place of the rank it is for."""
     env = child_env()
-    env["TPUBENCH_NUM_PROCESSES"] = str(ranks)
-    env["TPUBENCH_PROCESS_ID"] = str(rank)
-    env["TPUBENCH_COORDINATOR"] = coordinator
-    env[LOCAL_RANKS_ENV] = str(ranks)
+    env[RANK_ENV] = str(m.rank)
+    env[WORLD_ENV] = str(m.world)
+    env[LOCAL_RANKS_ENV] = str(m.local_ranks)
+    env[RENDEZVOUS_ENV] = m.address
     return env
 
 
-def launch(argv: Sequence[str], ranks: int, results_dir: str = "results",
-           deadline_s: Optional[float] = None) -> int:
-    """Run ``python -m tpubench_torch.cli <argv>`` as ``ranks`` rank
-    processes of one group on this host; the command's exit code (0 only
-    if every rank exited 0). Rank 0's output passes through; every rank's
-    output is also in ``<results_dir>/rank_logs/<cmd>-<time>-<pid>/
-    rank<r>.log``. ``deadline_s`` (default ``$TPUBENCH_LAUNCH_DEADLINE_S``
-    or 24 h) bounds every rank."""
+def members(ranks: int, pod=None) -> list:
+    """The :class:`Member` of each of the ``ranks`` rank processes this
+    host launches: with ``pod`` (a ``DistConfig``) of ``num_processes`` H
+    > 1, host ``process_id`` h's ranks h·ranks … h·ranks + ranks - 1 of
+    H·ranks at its ``coordinator_address``; else the whole group, at a
+    free loopback port."""
     from tpubench_torch.dist.bringup import free_port
 
+    hosts = pod.num_processes if pod is not None else 1
+    if hosts > 1:
+        host, address = pod.process_id, pod.coordinator_address
+    else:
+        host, address = 0, f"127.0.0.1:{free_port()}"
+    return [Member(host * ranks + r, hosts * ranks, ranks, address)
+            for r in range(ranks)]
+
+
+def launch(argv: Sequence[str], ranks: int, results_dir: str = "results",
+           deadline_s: Optional[float] = None, pod=None) -> int:
+    """Run ``python -m tpubench_torch.cli <argv>`` as ``ranks`` rank
+    processes on this host; the command's exit code (0 only if every rank
+    exited 0), each in the place :func:`members` gives it. Local rank 0's
+    output passes through; every rank's output is also in
+    ``<results_dir>/rank_logs/<cmd>-<time>-<pid>/rank<global rank>.log``.
+    ``deadline_s`` (default ``$TPUBENCH_LAUNCH_DEADLINE_S`` or 24 h)
+    bounds every rank."""
     if ranks < 2:
         raise ValueError(f"launch: {ranks} rank(s); run one in process")
     if deadline_s is None:
         deadline_s = float(os.environ.get(DEADLINE_ENV) or DEFAULT_DEADLINE_S)
-    coordinator = f"127.0.0.1:{free_port()}"
+    ms = members(ranks, pod)
     log_dir = os.path.join(
         results_dir, RANK_LOG_DIR,
         f"{argv[0]}-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}")
     cmd = [sys.executable, "-m", "tpubench_torch.cli", *argv]
-    print(f"launch: {ranks} ranks of one group, one a card; rank logs "
+    print(f"launch: ranks {ms[0].rank}-{ms[-1].rank} of {ms[0].world} "
+          f"(host {ms[0].host} of {ms[0].hosts}), one a card; rank logs "
           f"under {log_dir}", file=sys.stderr, flush=True)
     res = run_ranks(
         [cmd] * ranks,
-        [os.path.join(log_dir, f"rank{r}.log") for r in range(ranks)],
-        envs=[rank_env(r, ranks, coordinator) for r in range(ranks)],
+        [os.path.join(log_dir, f"rank{m.rank}.log") for m in ms],
+        envs=[rank_env(m) for m in ms],
         passthrough=(0,), deadline_s=deadline_s,
     )
     if not res.ok:
+        failed = res.first_failed
         why = (f"the deadline ({deadline_s:g} s) passed" if res.timed_out
-               else f"rank {res.first_failed} exited {res.rcs[res.first_failed]}")
+               else f"rank {ms[failed].rank} exited {res.rcs[failed]}")
         print(f"launch: {why}; exit codes {res.rcs}", file=sys.stderr)
         for r in res.failed:
-            if r != 0:  # rank 0's output was shown as it ran
-                print(f"--- rank {r} ({res.logs[r]}) ---\n{res.tail(r)}",
-                      file=sys.stderr)
+            if r != 0:  # local rank 0's output was shown as it ran
+                print(f"--- rank {ms[r].rank} ({res.logs[r]}) ---\n"
+                      f"{res.tail(r)}", file=sys.stderr)
     return res.exit_code()

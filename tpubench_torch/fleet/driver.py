@@ -62,7 +62,7 @@ from tpubench_torch.metrics.recorder import LatencyRecorder
 from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.obs.flight import (
     flight_from_config,
-    host_journal_path,
+    rank_journal_path,
     transport_label,
 )
 from tpubench_torch.pipeline.coop import HashRing
@@ -770,10 +770,7 @@ def run_fleet(cfg: BenchConfig, rate_rps: Optional[float] = None,
         op.finish(0)
         res.extra["flight"] = flight.summary()
         if cfg.obs.flight_journal:
-            jpath = host_journal_path(
-                cfg.obs.flight_journal, cfg.dist.process_id,
-                cfg.dist.num_processes,
-            )
+            jpath = rank_journal_path(cfg)
             res.extra["flight_journal"] = flight.write_journal(
                 jpath, extra={"workload": "fleet", "n_chips": 1},
                 max_bytes=cfg.obs.journal_max_bytes,

@@ -30,6 +30,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from tpubench_torch.dist.launch import member
+
 # OpenCensus ochttp.DefaultLatencyDistribution bucket bounds (ms) — the
 # aggregation the reference's view uses (metrics_exporter.go:28).
 DEFAULT_LATENCY_BUCKETS_MS = [
@@ -589,11 +591,12 @@ def cloud_exporter_from_config(cfg) -> Optional[CloudMonitoringExporter]:
         metric_prefix=o.metric_prefix,
         interval_s=o.metrics_interval_s,
         dry_run=o.export_dry_run,
-        # Per-process label: without it a multi-host pod's N processes write
-        # one identical time series and N-1 pushes are rejected.
+        # Per-process label, the global rank (a host launches one rank
+        # process a card): without it a pod's N processes write one
+        # identical time series and N-1 pushes are rejected.
         base_labels={
             "transport": cfg.transport.protocol,
-            "process": str(cfg.dist.process_id),
+            "process": str(member(cfg.dist).rank),
         },
     )
 

@@ -528,14 +528,27 @@ def host_journal_path(path: str, process_index: int,
     return f"{path}.p{process_index}"
 
 
+def rank_journal_path(cfg) -> str:
+    """This process's journal file for ``cfg.obs.flight_journal``:
+    :func:`host_journal_path` by its global rank (``launch.member``), so
+    the L ranks a host launches never share one file."""
+    from tpubench_torch.dist.launch import member
+
+    m = member(cfg.dist)
+    return host_journal_path(cfg.obs.flight_journal, m.rank, m.world)
+
+
 def flight_from_config(cfg) -> Optional[FlightRecorder]:
     """Recorder per ObservabilityConfig: ``flight_records`` is the
-    per-worker ring capacity (0 disables the layer entirely)."""
+    per-worker ring capacity (0 disables the layer entirely); its host is
+    the process's global rank."""
+    from tpubench_torch.dist.launch import member
+
     cap = getattr(cfg.obs, "flight_records", 0)
     if cap <= 0:
         return None
     return FlightRecorder(
-        capacity_per_worker=cap, host=cfg.dist.process_id
+        capacity_per_worker=cap, host=member(cfg.dist).rank
     )
 
 

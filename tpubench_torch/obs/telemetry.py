@@ -1003,10 +1003,11 @@ def telemetry_from_config(cfg) -> Optional[TelemetrySession]:
     tc = getattr(cfg, "telemetry", None)
     if tc is None or not tc.active:
         return None
+    from tpubench_torch.dist.launch import member
     from tpubench_torch.obs.flight import transport_label
 
     return TelemetrySession(tc, resource={
         "transport": transport_label(cfg),
-        "process": str(cfg.dist.process_id),
+        "process": str(member(cfg.dist).rank),
         "workload": "",
     })

@@ -68,6 +68,7 @@ from typing import Callable, Iterable, Optional, Protocol, Sequence
 import numpy as np
 
 from tpubench_torch.device import DeviceLike, resolve_device
+from tpubench_torch.dist.launch import member
 from tpubench_torch.mem.slab import (
     CopyMeter,
     SlabPool,
@@ -1199,8 +1200,8 @@ def coop_from_config(cfg, cache: ChunkCache, origin_fetch,
                      *, pool=None, meter=None, flight=None, channel=None,
                      device: DeviceLike = "cuda"):
     """Build the run's :class:`CoopCache` from ``cfg.coop`` (None when
-    the plane is off). Membership defaults to the dist topology
-    (``num_processes`` hosts, this process's id); the channel defaults
+    the plane is off). Membership defaults to the pod's ranks (the world,
+    this process's global rank: ``launch.member``); the channel defaults
     to loopback (a single-process pod degenerates to owner-local fetches
     with zero routing overhead), ``coop.channel="ici"`` rides
     :class:`tpubench_torch.dist.peer.IciPeerChannel` over the joined
@@ -1208,8 +1209,10 @@ def coop_from_config(cfg, cache: ChunkCache, origin_fetch,
     cc = getattr(cfg, "coop", None)
     if cc is None or not cc.enabled:
         return None
-    n_hosts = cc.hosts or cfg.dist.num_processes
-    host_id = cc.host_id if cc.host_id >= 0 else cfg.dist.process_id
+    # Ring members are ranks: a launched host's L ranks are L members.
+    m = member(cfg.dist)
+    n_hosts = cc.hosts or m.world
+    host_id = cc.host_id if cc.host_id >= 0 else m.rank
     if channel is None:
         if cc.channel == "ici":
             from tpubench_torch.dist.peer import IciPeerChannel

@@ -57,7 +57,7 @@ from tpubench_torch.metrics.percentiles import summarize_ns
 from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.obs.flight import (
     flight_from_config,
-    host_journal_path,
+    rank_journal_path,
     transport_label,
 )
 from tpubench_torch.storage import open_backend
@@ -70,10 +70,7 @@ def _flight_finish(cfg: BenchConfig, flight, res: RunResult,
         return
     res.extra["flight"] = flight.summary()
     if cfg.obs.flight_journal:
-        d = cfg.dist
-        jpath = host_journal_path(
-            cfg.obs.flight_journal, d.process_id, d.num_processes
-        )
+        jpath = rank_journal_path(cfg)
         res.extra["flight_journal"] = flight.write_journal(
             jpath, extra={"workload": workload},
             max_bytes=cfg.obs.journal_max_bytes,

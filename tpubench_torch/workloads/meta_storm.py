@@ -25,7 +25,7 @@ from tpubench_torch.lifecycle.storm import build_storm_schedule, run_storm
 from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.obs.flight import (
     flight_from_config,
-    host_journal_path,
+    rank_journal_path,
     transport_label,
 )
 from tpubench_torch.storage import open_backend
@@ -89,10 +89,7 @@ def run_meta_storm(cfg: BenchConfig, backend=None,
     from tpubench_torch.obs.telemetry import telemetry_from_config
 
     jpath = (
-        host_journal_path(
-            cfg.obs.flight_journal, cfg.dist.process_id,
-            cfg.dist.num_processes,
-        )
+        rank_journal_path(cfg)
         if cfg.obs.flight_journal else None
     )
     tel = telemetry_from_config(cfg)

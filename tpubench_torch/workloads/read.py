@@ -45,7 +45,7 @@ from tpubench_torch.native.engine import peek_engine
 from tpubench_torch.obs.exporters import metrics_session_from_config
 from tpubench_torch.obs.flight import (
     flight_from_config,
-    host_journal_path,
+    rank_journal_path,
     transport_label,
 )
 from tpubench_torch.obs.telemetry import telemetry_from_config
@@ -149,10 +149,7 @@ class ReadWorkload:
         # streamed each tick.
         jpath_stream = None
         if self.cfg.obs.flight_journal:
-            d = self.cfg.dist
-            jpath_stream = host_journal_path(
-                self.cfg.obs.flight_journal, d.process_id, d.num_processes
-            )
+            jpath_stream = rank_journal_path(self.cfg)
         tel = telemetry_from_config(self.cfg)
         tel_summary = None
         if tel is not None:

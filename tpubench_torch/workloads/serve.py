@@ -59,7 +59,7 @@ from tpubench_torch.metrics.recorder import LatencyRecorder
 from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.obs.flight import (
     flight_from_config,
-    host_journal_path,
+    rank_journal_path,
     transport_label,
 )
 from tpubench_torch.obs.telemetry import telemetry_from_config
@@ -310,10 +310,7 @@ class _Serve:
         # Live telemetry (read.py wiring): flight tap + journal stream.
         jpath_stream = None
         if cfg.obs.flight_journal:
-            jpath_stream = host_journal_path(
-                cfg.obs.flight_journal, cfg.dist.process_id,
-                cfg.dist.num_processes,
-            )
+            jpath_stream = rank_journal_path(cfg)
         tel = telemetry_from_config(cfg)
         tel_summary = None
         if tel is not None:
@@ -853,10 +850,7 @@ class _ElasticServe:
         # ---- telemetry (the single-host wiring) ---------------------
         jpath_stream = None
         if cfg.obs.flight_journal:
-            jpath_stream = host_journal_path(
-                cfg.obs.flight_journal, cfg.dist.process_id,
-                cfg.dist.num_processes,
-            )
+            jpath_stream = rank_journal_path(cfg)
         tel = telemetry_from_config(cfg)
         tel_summary = None
         if tel is not None:

@@ -83,7 +83,7 @@ from tpubench_torch.metrics.report import RunResult
 from tpubench_torch.obs import tracing as _tracing
 from tpubench_torch.obs.flight import (
     flight_from_config,
-    host_journal_path,
+    rank_journal_path,
     transport_label,
 )
 from tpubench_torch.obs.profiling import (
@@ -340,10 +340,7 @@ class _TrainIngest:
         # the journal streamed so `tpubench top` can watch the run.
         jpath_stream = None
         if cfg.obs.flight_journal:
-            jpath_stream = host_journal_path(
-                cfg.obs.flight_journal, cfg.dist.process_id,
-                cfg.dist.num_processes,
-            )
+            jpath_stream = rank_journal_path(cfg)
         tel = telemetry_from_config(cfg)
         if tel is not None:
             tel.resource["workload"] = "train_ingest"
